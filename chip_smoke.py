@@ -10,17 +10,27 @@ Phases, each printing its own lines:
    registers and shared memory ptxas reports.
 2. Every kernel of the main path on seeded numpy inputs at the main path's
    shapes (C = 3584 match rows, L = 3 levels, NB = 28 buckets, K = 1 event
-   slot, R = 4096 insert rows; the chain with kin off and on), held against
-   its plain PyTorch version on the same inputs within the stated
-   tolerance, and timed with CUDA events (kernel and plain version).
+   slot, R = 4096 insert rows, B = 1024 refit slots, MP = 128 timeline
+   slots; the chain with kin off and on; the pose kernel at MP = 384 too),
+   held against its plain PyTorch version on the same inputs within the
+   stated tolerance, and timed with CUDA events (kernel and plain version).
+   The refit rows are those of a short run's map plus zero padding, and the
+   slots on which kernel and plain version took different branches are
+   counted.
 3. The main path end to end: runner.run_offline on the bench.py workload
-   (24 s sim, 8000 points a scan, seed 7) on the card, with every launch
-   counter set to 0 before and read after; every kernel must have launched
-   and the ATE must stay under the golden bound of 0.08 m.
-4. A torch.profiler trace of 20 main-path scans: the device's busy share of
-   the host wall clock, launches a scan, device time by operator.
-5. The same workload with leg kinematics (only_imu_use off), at least 30
-   scans, under the same bound.
+   (24 s sim, 8000 points a scan, seed 7) on the card with all five kernel
+   switches on, streaming ("main"), with every launch counter set to 0
+   before and read after; every kernel must have launched and the ATE must
+   stay under the golden bound of 0.08 m.  Then the same workload through
+   run_offline(chunk=32), bench.py's one-pass shape ("chunk"), the same
+   way, and streaming with the escalation latch off ("stream1": one match
+   pass a scan, as the chunked run), so the two shapes read side by side.
+4. The configuration with the chain, match and insert kernels only (pose
+   and refit in plain torch), cut to 8 s ("four").
+5. torch.profiler traces of 20 scans of the four- and the five-kernel
+   configuration: the device's busy share of the host wall clock, launches
+   a scan, device time by operator.
+6. The five-kernel workload with leg kinematics (only_imu_use off), 4 s.
 
 The last two lines are a JSON object with one entry per kernel and
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script exits
@@ -40,7 +50,9 @@ import numpy as np
 
 ATE_BOUND_M = 0.08
 MAIN_DURATION_S = 24.0   # bench.py's workload, uncut
+FOUR_DURATION_S = 8.0    # the four-kernel configuration, cut
 KIN_DURATION_S = 4.0     # 40 scans of the kin branch
+CHUNK = 32               # bench.py:190
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12      # fp32 on CUDA cores, H100 SXM data sheet
 REPLACES = {
@@ -49,6 +61,8 @@ REPLACES = {
     "keys": "legkilo_tpu/ops/pallas/match_geom.py:74",
     "select": "legkilo_tpu/ops/pallas/match_geom.py:254",
     "moments": "legkilo_tpu/ops/pallas/insert_rows.py:46",
+    "fit": "legkilo_tpu/ops/pallas/plane_fit_rows.py:122",
+    "pose": "legkilo_tpu/ops/pallas/pose_prop.py:57",
 }
 SOURCES = {
     "chain_stats": "legkilo_torch/csrc/chain_stats.cu",
@@ -56,6 +70,8 @@ SOURCES = {
     "keys": "legkilo_torch/csrc/match_geom.cu",
     "select": "legkilo_torch/csrc/match_geom.cu",
     "moments": "legkilo_torch/csrc/insert_rows.cu",
+    "fit": "legkilo_torch/csrc/plane_fit_rows.cu",
+    "pose": "legkilo_torch/csrc/pose_prop.cu",
 }
 
 
@@ -257,6 +273,67 @@ def moments_inputs(torch, dev, rng, r=4096):
     return f(par), f(prow.T), f(brow.T), f(key.T), f(size[None])
 
 
+def fit_inputs(torch, dev, budget=1024, n_scans=30):
+    """Refit rows as the insert forms them: the moment and meta rows of the
+    voxels a short five-kernel run left in its map with more points than the
+    refit threshold (at most 5/8 of the budget, about the share a
+    steady-state scan refits), then zero rows up to the budget, as the
+    unfilled refit slots are."""
+    from legkilo_torch.models import sim
+    from legkilo_torch.runner import OdometryRunner, bench_config, replay
+
+    data = sim.simulate(sim.SimConfig(duration=(n_scans + 1) * 0.1, scan_points=8000, seed=7))
+    runner = OdometryRunner(bench_config(), device=dev)
+    for _ in replay(runner, data.scans, data.imu):
+        pass
+    vm = runner.carry.vm
+    idx = torch.nonzero(vm.meta[:, 0] > 5.0)[:, 0][: budget * 5 // 8]
+    mom = torch.zeros((budget, 69), dtype=torch.float32, device=dev)
+    meta = torch.zeros((budget, 4), dtype=torch.float32, device=dev)
+    mom[: len(idx)] = torch.cat([vm.mom[idx], vm.moms[idx].float()], dim=1)
+    meta[: len(idx)] = vm.meta[idx]
+    par = torch.zeros(8, dtype=torch.float32, device=dev)
+    par[0] = runner.scfg.map_cfg.planer_threshold
+    return (par, mom.T.contiguous(), meta.T.contiguous()), int(len(idx))
+
+
+FIT_FLOPS_PER_SLOT = 1600.0  # t 378, w 306, c 68, u 210, t_nn/t_nq 234, eigen ~320, rest ~80
+
+
+def pose_inputs(torch, dev, rng, nb, k):
+    """A scan's event/bucket timeline as the deferred path lays it out: K
+    event slots then the bucket time, per bucket; ~40% of the event slots
+    and ~90% of the buckets valid; MP = NB (K+1) padded to 128."""
+    m = nb * (k + 1)
+    mp = (m + 127) // 128 * 128
+    bt = (np.arange(nb) + 1) * 0.004
+    et = bt[:, None] - 0.004 + 0.004 * (np.arange(k)[None, :] + 0.5) / k
+    ev = rng.random((nb, k)) < 0.4
+    rows = np.zeros((9, mp), np.float32)
+    rows[0, :m] = np.concatenate([et, bt[:, None]], 1).reshape(m)
+    rows[1, :m] = np.concatenate([ev, rng.random((nb, 1)) < 0.9], 1).reshape(m)
+    rows[2, :m] = np.concatenate([ev, np.zeros((nb, 1), bool)], 1).reshape(m)
+    gyr = rng.normal(scale=0.5, size=(nb, k + 1, 3))
+    acc = rng.normal(scale=0.5, size=(nb, k + 1, 3)) + [0.0, 0.0, 9.81]
+    gyr[:, k], acc[:, k] = 0.0, 0.0
+    rows[3:6, :m] = gyr.reshape(m, 3).T
+    rows[6:9, :m] = acc.reshape(m, 3).T
+    par = np.concatenate([
+        rotations(rng, 1, 0.3)[0].reshape(9), rng.normal(size=3), rng.normal(scale=0.5, size=3),
+        rng.normal(scale=0.01, size=6), [0.0, 0.0, -9.81], rng.normal(scale=0.3, size=3),
+        [0.1, -0.2, 9.7], [-0.001, 1.002]])
+    f = lambda x: torch.tensor(np.array(x, np.float32, order="C"), device=dev).contiguous()
+    return f(par), f(rows)
+
+
+def pose_flops(mp) -> float:
+    """Per slot: Rodrigues ~60, rot0 @ prefix 45, dv 21, the rest ~10, and per
+    doubling step the 3x3 product (45), the two 3-vector sums (6) and the
+    clock's max (1)."""
+    steps = int(np.ceil(np.log2(mp)))
+    return mp * (136.0 + steps * 52.0)
+
+
 # ----------------------------------------------------------------- phases --
 
 
@@ -278,6 +355,8 @@ def phase_kernels(torch, dev):
     from legkilo_torch.ops import chain_stats as cs
     from legkilo_torch.ops import insert_rows as ir
     from legkilo_torch.ops import match_geom as mg
+    from legkilo_torch.ops import plane_fit_rows as pfr
+    from legkilo_torch.ops import pose_prop as pp
 
     rng = np.random.default_rng(7)
     recs = {}
@@ -381,6 +460,59 @@ def phase_kernels(torch, dev):
         tol="rel 1e-4 per moment row",
     )
     log(f"[kernel] moments: rel err {e_mom:.2e}")
+
+    fargs, n_real = fit_inputs(torch, dev)
+    got = pfr.fit_rows_call(*fargs)
+    torch.cuda.synchronize()
+    ref = pfr.fit_rows_plain(*fargs)
+    if not bool(torch.isfinite(got).all()):
+        raise RuntimeError("fit: non-finite output")
+    # Kernel and plain version do the same un-fused arithmetic in the same
+    # order; they can part only where sqrt, division or cos round apart.  A
+    # slot counts as a branch flip when is_plane differs or the normal moved
+    # by more than 1e-3 (another eigenvector candidate or fallback); at most
+    # 2 of the 1024 may.  On the rest: centre, normal, evals, radius abs 1e-5,
+    # plane_var 1e-4 of the row's largest entry.
+    flip = (got[34] != ref[34]) | ((got[3:6] - ref[3:6]).abs().max(dim=0).values > 1e-3)
+    n_flip = int(flip.sum())
+    keep = ~flip
+    e_head = max_abs(got[0:10, keep], ref[0:10, keep])
+    pv_scale = ref[10:31, keep].abs().max(dim=0).values.clamp(min=1e-30)
+    e_pv = float(((got[10:31, keep] - ref[10:31, keep]).abs().max(dim=0).values / pv_scale).max())
+    if n_flip > 2 or not (e_head <= 1e-5 and e_pv <= 1e-4 and torch.equal(got[31:34], ref[31:34])):
+        raise RuntimeError(f"fit: {n_flip} branch flips, head err {e_head:.3g}, plane_var rel {e_pv:.3g}")
+    b = fargs[1].shape[1]
+    recs["fit"] = dict(
+        max_abs_err=max_abs(got[:, keep], ref[:, keep]),
+        ms=time_call(torch, lambda: pfr.fit_rows_call(*fargs), 200),
+        plain_ms=time_call(torch, lambda: pfr.fit_rows_plain(*fargs), 5),
+        bytes=nbytes(list(fargs) + [got]), flops=FIT_FLOPS_PER_SLOT * b,
+        tol="<= 2 branch flips in 1024 slots; abs 1e-5 centre/normal/evals/radius; "
+            "plane_var 1e-4 of the row's largest entry",
+    )
+    log(f"[kernel] fit: {n_real} map rows + {b - n_real} zero rows, {int(ref[34].sum())} planes, "
+        f"{n_flip} branch flips, head err {e_head:.2e}, plane_var rel {e_pv:.2e}, "
+        f"bit-equal {bool(torch.equal(got, ref))}")
+
+    for name, (nb, k) in (("pose", (28, 1)), ("pose_384", (28, 12))):
+        pargs = pose_inputs(torch, dev, rng, nb, k)
+        got = pp.pose_call(*pargs)
+        torch.cuda.synchronize()
+        ref = pp.pose_plain(*pargs)
+        mp = pargs[1].shape[1]
+        # The JAX package's own kernel-vs-XLA tolerance (rtol 1e-5, atol 1e-6).
+        if not torch.allclose(got, ref, rtol=1e-5, atol=1e-6):
+            raise RuntimeError(f"{name}: max abs err {max_abs(got, ref):.3g} at MP = {mp}")
+        rec = dict(
+            max_abs_err=max_abs(got, ref),
+            ms=time_call(torch, lambda: pp.pose_call(*pargs), 200),
+            plain_ms=time_call(torch, lambda: pp.pose_plain(*pargs), 5),
+            bytes=nbytes(list(pargs) + [got]), flops=pose_flops(mp),
+            tol="rtol 1e-5, atol 1e-6",
+        )
+        log(f"[kernel] {name}: MP = {mp}, max abs err {rec['max_abs_err']:.2e}, "
+            f"bit-equal {bool(torch.equal(got, ref))}")
+        recs[name] = rec
     for name, rec in recs.items():
         rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], rec["flops"])
         log(f"[kernel] {name}: ms {rec['ms']:.4f} plain_ms {rec['plain_ms']:.4f} "
@@ -388,35 +520,51 @@ def phase_kernels(torch, dev):
     return recs
 
 
-def reset_counters():
+def wrappers():
     from legkilo_torch.ops import chain_stats as cs, insert_rows as ir, match_geom as mg
+    from legkilo_torch.ops import plane_fit_rows as pfr, pose_prop as pp
 
-    for fn in (cs.chain_call, mg.keys_call, mg.select_call, ir.moments_call):
+    return {"chain_stats": cs.chain_call, "keys": mg.keys_call, "select": mg.select_call,
+            "moments": ir.moments_call, "fit": pfr.fit_rows_call, "pose": pp.pose_call}
+
+
+def reset_counters():
+    for fn in wrappers().values():
         fn.launches = 0
 
 
 def read_counters():
-    from legkilo_torch.ops import chain_stats as cs, insert_rows as ir, match_geom as mg
-
-    return {"chain_stats": cs.chain_call.launches, "keys": mg.keys_call.launches,
-            "select": mg.select_call.launches, "moments": ir.moments_call.launches}
+    return {name: fn.launches for name, fn in wrappers().items()}
 
 
-def run_workload(torch, duration: float, use_kin: bool, tag: str):
-    from legkilo_torch.io.tum import ate_rmse
+def simulate(duration: float, tag: str):
     from legkilo_torch.models import sim
+
+    t0 = time.perf_counter()
+    data = sim.simulate(sim.SimConfig(duration=duration, scan_points=8000, seed=7))
+    log(f"[{tag}] sim {duration} s: {len(data.scans)} scans in {time.perf_counter() - t0:.1f} s")
+    return data
+
+
+def run_workload(torch, data, tag: str, use_kin=False, five=True, chunk=0, latch=True):
+    """One run_offline over ``data`` on the card.  ``five`` off leaves the
+    pose and refit kernels out (plain torch); ``chunk`` > 1 replays in
+    chunks; ``latch`` off disables the escalation to iterated matching.
+    Fails on an ATE that is not finite or not under the golden bound."""
+    from legkilo_torch.io.tum import ate_rmse
     from legkilo_torch.runner import bench_config, run_offline
 
     cfg = bench_config()
     cfg.only_imu_use = not use_kin
-    t0 = time.perf_counter()
-    data = sim.simulate(sim.SimConfig(duration=duration, scan_points=8000, seed=7))
-    log(f"[{tag}] sim {duration} s: {len(data.scans)} scans in {time.perf_counter() - t0:.1f} s")
+    cfg.tpu.use_pallas_pose = cfg.tpu.use_pallas_refit = five
+    if not latch:
+        cfg.tpu.escalate_after = 0
     torch.cuda.reset_peak_memory_stats()
     reset_counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    results = run_offline(cfg, data.scans, data.kin if use_kin else data.imu, device="cuda")
+    results = run_offline(cfg, data.scans, data.kin if use_kin else data.imu, device="cuda",
+                          chunk=chunk)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counters()
@@ -431,17 +579,18 @@ def run_workload(torch, duration: float, use_kin: bool, tag: str):
         raise RuntimeError(f"{tag}: only {len(results)} scans")
     if not np.isfinite(ate) or ate >= ATE_BOUND_M:
         raise RuntimeError(f"{tag}: ATE {ate:.4f} m >= {ATE_BOUND_M} m")
-    missing = [k for k, v in counts.items() if v <= 0]
+    missing = [k for k, v in counts.items() if v <= 0 and (five or k not in ("fit", "pose"))]
     if missing:
         raise RuntimeError(f"{tag}: kernels never launched on the path: {missing}")
     return rec
 
 
-def phase_profile(torch, n_warm=10, n_prof=20):
+def phase_profile(torch, five: bool, n_warm=10, n_prof=20):
     """torch.profiler over ``n_prof`` main-path scans after ``n_warm`` warm-up
     scans, fed by run_offline's own replay loop: the device's busy share of
     the host wall clock, kernel launches a scan, and device time a scan by
-    operator (ours and PyTorch's)."""
+    operator (ours and PyTorch's).  ``five`` off profiles the configuration
+    without the pose and refit kernels."""
     import itertools
 
     from torch.profiler import ProfilerActivity, profile
@@ -450,7 +599,10 @@ def phase_profile(torch, n_warm=10, n_prof=20):
     from legkilo_torch.runner import OdometryRunner, bench_config, replay
 
     data = sim.simulate(sim.SimConfig(duration=(n_warm + n_prof + 1) * 0.1, scan_points=8000, seed=7))
-    runner = OdometryRunner(bench_config(), device="cuda")
+    cfg = bench_config()
+    cfg.tpu.use_pallas_pose = cfg.tpu.use_pallas_refit = five
+    tag = "profile5" if five else "profile4"
+    runner = OdometryRunner(cfg, device="cuda")
     steps = replay(runner, data.scans, data.imu)
     for _ in itertools.islice(steps, n_warm):
         pass
@@ -475,19 +627,20 @@ def phase_profile(torch, n_warm=10, n_prof=20):
     rows.sort(reverse=True)
     dev_ms = sum(r[0] for r in rows) / 1e3
     launches = sum(r[2] for r in rows)
-    log(f"[profile] {n} scans: host wall {wall / n * 1e3:.3f} ms/scan, device busy "
+    log(f"[{tag}] {n} scans: host wall {wall / n * 1e3:.3f} ms/scan, device busy "
         f"{dev_ms / n:.3f} ms/scan ({100 * dev_ms / (wall * 1e3):.1f}% of wall), "
         f"{launches / n:.0f} device launches/scan")
     if not rows:
-        log("[profile] device time: not measured (the profiler saw no CUDA activity)")
+        log(f"[{tag}] device time: not measured (the profiler saw no CUDA activity)")
     for dev_us, key, count in rows[:12]:
-        log(f"[profile]   {dev_us / n / 1e3:8.4f} ms/scan {count / n:6.1f} calls/scan  {key[:90]}")
-    return dict(scans=n, wall_ms_per_scan=wall / n * 1e3, device_ms_per_scan=dev_ms / n)
+        log(f"[{tag}]   {dev_us / n / 1e3:8.4f} ms/scan {count / n:6.1f} calls/scan  {key[:90]}")
+    return dict(scans=n, wall_ms_per_scan=wall / n * 1e3, device_ms_per_scan=dev_ms / n,
+                launches_per_scan=launches / n)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="build,kernels,main,profile,kin")
+    ap.add_argument("--phases", default="build,kernels,main,chunk,stream1,four,profile,kin")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -509,14 +662,35 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     phase_build()
     recs = phase_kernels(torch, dev) if "kernels" in phases else {}
-    main_rec = run_workload(torch, MAIN_DURATION_S, False, "main") if "main" in phases else None
+    main_rec = kin_rec = None
+    if phases & {"main", "chunk", "stream1", "four"}:
+        data = simulate(MAIN_DURATION_S, "main")
+        if "main" in phases:
+            main_rec = run_workload(torch, data, "main")
+        if "chunk" in phases:
+            run_workload(torch, data, "chunk", chunk=CHUNK)
+            log(f"[chunk] run_offline(chunk={CHUNK}) stages every packet on the host first; "
+                f"its ms/scan includes that staging")
+        if "stream1" in phases:
+            run_workload(torch, data, "stream1", latch=False)
+        if "four" in phases:
+            n = int(FOUR_DURATION_S * 10)
+            data.scans = data.scans[:n]
+            run_workload(torch, data, "four", five=False)
     if "profile" in phases:
-        phase_profile(torch)
-    kin_rec = run_workload(torch, KIN_DURATION_S, True, "kin") if "kin" in phases else None
+        p4 = phase_profile(torch, five=False)
+        p5 = phase_profile(torch, five=True)
+        log(f"[profile] device launches/scan {p4['launches_per_scan']:.0f} -> "
+            f"{p5['launches_per_scan']:.0f}, device busy ms/scan {p4['device_ms_per_scan']:.3f} -> "
+            f"{p5['device_ms_per_scan']:.3f} (four -> five kernels)")
+    if "kin" in phases:
+        kin_rec = run_workload(torch, simulate(KIN_DURATION_S, "kin"), "kin", use_kin=True)
     log(f"[done] phases {sorted(phases)} in {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
     for name, rec in recs.items():
+        if name == "pose_384":  # off the main path's shape: held above, not listed
+            continue
         if name == "chain_stats_kin":
             launches = kin_rec["launches"]["chain_stats"] if kin_rec else 0
         else:

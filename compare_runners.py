@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """The port's runner against the JAX package's, scan by scan, on the CPU.
 
-    JAX_PLATFORMS=cpu python3 compare_runners.py [--out FILE]
+    JAX_PLATFORMS=cpu python3 compare_runners.py [--five | --pose-routes] [--out FILE]
 
 Both runners replay the bench.py workload (24 s sim, 8000 points a scan,
 seed 7, the knobs of runner.bench_config) through ``run_offline``: the JAX
 package with its chain, match and insert kernels in interpret mode, the port
-on the CPU with their plain versions.  Both build packets with the numpy path
-(``tpu_use_native`` off), so they start from the same bytes.
+on the CPU with their plain versions.  ``--five`` turns the pose and refit
+kernels on as well in both (bench.py's own set of five switches).  Both build
+packets with the numpy path (``tpu_use_native`` off), so they start from the
+same bytes.
 
 It prints one JSON object: per runner the scans, the ATE, the scan at which
 the auto-escalation to iterated matching fired (the runner's own rule on its
@@ -15,6 +17,11 @@ own match rates: below ``tpu_escalate_ratio`` for ``tpu_escalate_after``
 scans) and how many escalation warnings the runner logged; then the largest
 and mean difference of the per-scan match rate (n_matched / n_points) over the
 scans before either escalated.  ``--out`` writes the per-scan rates as JSON.
+
+``--pose-routes`` compares the port with itself instead: the five-switch
+configuration with the match poses from the pose kernel's route (doubling
+scans) and from the plain cumsum/cummax route, printing how many matches a
+scan differ between the two before either escalates.
 """
 
 from __future__ import annotations
@@ -70,10 +77,41 @@ def run(runner_mod, cfg, data, logger, **kw):
                             escalation_warnings=count.n, wall_s=wall)
 
 
+def pose_routes(out_path) -> int:
+    from legkilo_torch import runner as t_runner
+    from legkilo_torch.models import sim
+
+    data = sim.simulate(sim.SimConfig(duration=DURATION_S, scan_points=8000, seed=7))
+    recs, res = {}, {}
+    for name, on in (("doubling_scans", True), ("cumsum", False)):
+        cfg = t_runner.bench_config()
+        cfg.tpu.use_native = False
+        cfg.tpu.use_pallas_pose = on
+        res[name], _, recs[name] = run(t_runner, cfg, data, "legkilo_torch.runner", device="cpu")
+    ends = [r["escalated_at_scan"] for r in recs.values() if r["escalated_at_scan"] is not None]
+    stop = min(ends) + 1 if ends else len(res["cumsum"])
+    diffs = [abs(a.n_matched - b.n_matched)
+             for a, b in zip(res["doubling_scans"][1:stop], res["cumsum"][1:stop])]
+    summary = {"duration_s": DURATION_S, "pose_route": recs,
+               "match_diff_before_escalation": {"scans": len(diffs), "max": max(diffs),
+                                                "mean": float(np.mean(diffs))}}
+    if out_path:
+        with open(out_path, "w") as fh:
+            json.dump({"summary": summary, "diffs": diffs}, fh)
+    print(json.dumps(summary))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None)
+    ap.add_argument("--five", action="store_true",
+                    help="all five kernel switches (pose and refit too) in both runners")
+    ap.add_argument("--pose-routes", action="store_true",
+                    help="the port only: pose kernel route vs plain route, matches a scan")
     args = ap.parse_args(argv)
+    if args.pose_routes:
+        return pose_routes(args.out)
 
     import jax
 
@@ -86,6 +124,7 @@ def main(argv=None) -> int:
 
     tcfg = t_runner.bench_config()
     tcfg.tpu.use_native = False
+    tcfg.tpu.use_pallas_pose = tcfg.tpu.use_pallas_refit = args.five
     jcfg = j_config.Config()
     for section in ("lidar", "voxel_map", "tpu", "eskf"):
         for f in dataclasses.fields(getattr(tcfg, section)):
@@ -100,7 +139,7 @@ def main(argv=None) -> int:
     stop = min(ends) + 1 if ends else min(len(jrates), len(trates))
     diffs = [abs(a - b) for a, b in zip(jrates[:stop], trates[:stop]) if a is not None and b is not None]
     summary = {
-        "duration_s": DURATION_S, "jax": jrec, "torch": trec,
+        "duration_s": DURATION_S, "kernel_switches": 5 if args.five else 3, "jax": jrec, "torch": trec,
         "rate_diff_before_escalation": {"scans": len(diffs), "max": max(diffs), "mean": float(np.mean(diffs))},
     }
     if args.out:

@@ -1,18 +1,21 @@
 """Command line: ``python -m legkilo_torch sim``.
 
 ``sim`` runs the synthetic world end to end through the port's main path
-(the deferred pipeline on the chain, match and insert kernels) and prints
-one JSON line, as ``python -m legkilo_tpu sim`` does:
+(the deferred pipeline on the port's kernels) and prints one JSON line, as
+``python -m legkilo_tpu sim`` does:
 
     {"scans": N, "ate_rmse_m": x, "wall_s": t, "ms_per_scan": t}
 
-Without ``--config_file`` it runs the bench.py workload (runner.bench_config);
-with one, that config as written, which must select the port's path (the
-deferred pipeline with ``tpu_use_pallas``, ``tpu_use_pallas_match`` and
-``tpu_use_pallas_insert`` on): the runner refuses any option the port has not
-ported.  ``--device cuda`` (the default)
-raises when no card is present; ``--device cpu`` runs the plain PyTorch
-versions of the kernels.
+Without ``--config_file`` it runs the bench.py workload (runner.bench_config,
+all five kernel switches on); with one, that config as written, which must
+select the port's path (the deferred pipeline with ``tpu_use_pallas``,
+``tpu_use_pallas_match`` and ``tpu_use_pallas_insert`` on): the runner
+refuses any option the port has not ported.  ``--pallas`` turns all five
+kernel switches on, as it does in the JAX package's CLI.  ``--chunk K``
+replays K staged scans a call; ``--save_ckpt`` snapshots at the end and
+``--resume`` with ``--skip_scans N`` continues such a run from scan N.
+``--device cuda`` (the default) raises when no card is present;
+``--device cpu`` runs the plain PyTorch versions of the kernels.
 """
 
 from __future__ import annotations
@@ -39,10 +42,24 @@ def cmd_sim(args: argparse.Namespace) -> int:
         cfg.lidar.blind = 0.3
     else:
         cfg = bench_config()
+    if args.pallas:
+        cfg.tpu.use_pallas = cfg.tpu.use_pallas_match = cfg.tpu.use_pallas_insert = True
+        cfg.tpu.use_pallas_pose = cfg.tpu.use_pallas_refit = True
     data = sim_mod.simulate(sim_mod.SimConfig(duration=args.duration, scan_points=args.scan_points))
     events = data.imu if cfg.only_imu_use else data.kin
+    scans = data.scans
+    if args.resume and args.skip_scans:
+        # Continue a checkpointed run: drop the scans already processed and
+        # the events the checkpoint consumed (those buffered in between come
+        # back from the checkpoint; earlier ones would trip the packetizer's
+        # time-regression reset).
+        scans = scans[args.skip_scans:]
+        with np.load(args.resume) as d:
+            let = float(d["x_last_event_time"])
+        events = [e for e in events if e.time > let]
     t0 = time.perf_counter()
-    results = run_offline(cfg, data.scans, events, device=args.device)
+    results = run_offline(cfg, scans, events, device=args.device, resume=args.resume,
+                          save_ckpt=args.save_ckpt, chunk=args.chunk)
     if args.device == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -75,6 +92,13 @@ def main(argv=None) -> int:
     p.add_argument("--scan_points", type=int, default=3000)
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     p.add_argument("--traj_out", default=None)
+    p.add_argument("--pallas", action="store_true",
+                   help="turn all five kernel switches on (chain, match, insert, pose, refit)")
+    p.add_argument("--chunk", type=int, default=0, help="replay this many scans a call (> 1)")
+    p.add_argument("--resume", default=None, help="checkpoint (.npz) to continue from")
+    p.add_argument("--save_ckpt", default=None, help="write a checkpoint at the end")
+    p.add_argument("--skip_scans", type=int, default=0,
+                   help="with --resume: scans the checkpointed run already processed")
     p.set_defaults(fn=cmd_sim)
     args = parser.parse_args(argv)
     logging.basicConfig(level=getattr(logging, args.log_level.upper(), logging.WARNING))

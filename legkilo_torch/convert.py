@@ -34,11 +34,10 @@ def _t(x, device) -> torch.Tensor:
     return torch.from_numpy(np.array(x, order="C")).to(device)
 
 
-def carry_from_numpy(leaves: Sequence, device) -> FilterCarry:
-    """FilterCarry from the 12 JAX carry leaves (module doc order)."""
-    if len(leaves) != N_CARRY_LEAVES:
-        raise ValueError(f"expected {N_CARRY_LEAVES} carry leaves, got {len(leaves)}")
-    x = [_t(a, device) for a in leaves]
+def carry_from_leaves(x: Sequence[torch.Tensor]) -> FilterCarry:
+    """FilterCarry from its 12 tensors (module doc order)."""
+    if len(x) != N_CARRY_LEAVES:
+        raise ValueError(f"expected {N_CARRY_LEAVES} carry leaves, got {len(x)}")
     return FilterCarry(
         state=State(rot=x[0], lin=x[1]), cov=x[2],
         last_predict_t=x[3], last_update_t=x[4],
@@ -47,13 +46,22 @@ def carry_from_numpy(leaves: Sequence, device) -> FilterCarry:
     )
 
 
+def carry_leaves(carry: FilterCarry):
+    """The 12 tensors of a port carry, in the JAX order."""
+    vm = carry.vm
+    return [carry.state.rot, carry.state.lin, carry.cov, carry.last_predict_t,
+            carry.last_update_t, vm.ptab, vm.meta, vm.mom, vm.moms, vm.plane, vm.ocnt,
+            carry.last_slide_pos]
+
+
+def carry_from_numpy(leaves: Sequence, device) -> FilterCarry:
+    """FilterCarry from the 12 JAX carry leaves as numpy arrays."""
+    return carry_from_leaves([_t(a, device) for a in leaves])
+
+
 def carry_to_numpy(carry: FilterCarry):
     """The 12 leaves of a port carry as numpy arrays, in the JAX order."""
-    vm = carry.vm
-    leaves = (carry.state.rot, carry.state.lin, carry.cov, carry.last_predict_t,
-              carry.last_update_t, vm.ptab, vm.meta, vm.mom, vm.moms, vm.plane, vm.ocnt,
-              carry.last_slide_pos)
-    return [t.detach().cpu().numpy() for t in leaves]
+    return [t.detach().cpu().numpy() for t in carry_leaves(carry)]
 
 
 def params_from_numpy(leaves: Sequence, device) -> FilterParams:

@@ -2,9 +2,10 @@
 
 The types of the JAX module as NamedTuples of tensors, plus the carry
 initialisation, the first-frame state and map, the sensor-gap soft reset and
-the per-scan covariance re-symmetrisation.  The reference-faithful
-sequential rollout (process_scan) and chunked replay wait for a later slice;
-the deferred main path is core/filter_deferred.py.
+the per-scan covariance re-symmetrisation, and chunked replay
+(stack_scan_packets, process_scan_chunk).  The reference-faithful sequential
+rollout (process_scan) waits for a later slice; the deferred main path is
+core/filter_deferred.py.
 """
 
 from __future__ import annotations
@@ -56,6 +57,8 @@ class StaticConfig(NamedTuple):
     dept_err: float
     beam_err: float
     map_sliding_en: bool = False
+    sliding_thresh: float = 8.0
+    half_map_size: int = 100
     pipeline: str = "sequential"
     use_pallas: bool = False
     insert_cap: int = 0
@@ -173,3 +176,24 @@ def maybe_symmetrize_cov(carry: FilterCarry, scfg: StaticConfig) -> FilterCarry:
     if not scfg.symmetrize_cov:
         return carry
     return carry._replace(cov=0.5 * (carry.cov + carry.cov.T))
+
+
+def stack_scan_packets(packets) -> ScanPacket:
+    """Stack per-scan packets into one [K, ...] chunk (a fixed config gives
+    every packet the same padded shapes)."""
+    return ScanPacket(*(torch.stack(xs) for xs in zip(*packets)))
+
+
+def process_scan_chunk(carry: FilterCarry, packets: ScanPacket, params: FilterParams,
+                       scfg: StaticConfig):
+    """Offline replay: K pre-staged scans of a stacked chunk in one call,
+    the same as K ``process_scan_deferred`` calls; outputs come back stacked
+    [K, ...].  Nothing here reads a result back to the host, so a caller
+    syncs once per chunk."""
+    from .filter_deferred import process_scan_deferred
+
+    outs = []
+    for k in range(packets.points.shape[0]):
+        carry, out = process_scan_deferred(carry, ScanPacket(*(x[k] for x in packets)), params, scfg)
+        outs.append(out)
+    return carry, ScanOutput(*(torch.stack(xs) for xs in zip(*outs)))

@@ -2,10 +2,12 @@
 
 Per scan, as ``_process_scan_fused`` of the JAX package with the chain,
 match and insert kernels on (``use_pallas``, ``use_pallas_match``,
-``use_pallas_insert``):
+``use_pallas_insert``; ``use_pallas_pose`` and ``use_pallas_refit`` switch
+the pose and refit kernels on as well):
 
-1. Match poses per bucket from the scan's own IMU events (plain torch:
-   ``_predicted_bucket_poses_imu``).
+1. Match poses per bucket (``_predicted_bucket_poses``): from the scan's own
+   IMU events, by the pose kernel (ops/pose_prop.py) or in plain torch
+   (``_predicted_bucket_poses_imu``), or by constant-velocity extrapolation.
 2. Match: compact the valid points, then the keys kernel, the hash probe as
    torch glue (one wide gather of ptab rows), and the select kernel, which
    also sums the per-bucket 40x40 statistics s40 (``_match_compact_stats``,
@@ -14,10 +16,12 @@ match and insert kernels on (``use_pallas``, ``use_pallas_match``,
    ``match_iters`` > 1, re-match at the chain's post-update bucket poses and
    re-run the chain from the scan-start state.
 4. Insert: the ancestor-gated rows, the moments kernel, then the
-   scatter-adds, thresholds and refit of core/voxel_map.py.
+   scatter-adds, thresholds and refit (the refit kernel,
+   ops/plane_fit_rows.py, or plain ``fit_planes``) of core/voxel_map.py.
+5. With ``map_sliding_en``, the map slide once the pose has moved
+   ``sliding_thresh`` from the last slide.
 
-The sequential pipeline, the ``chain_impl="jax"`` chain, the constant
-velocity match pose, map sliding and the pose/refit kernels are not ported
+The sequential pipeline and the ``chain_impl="jax"`` chain are not ported
 yet: ``check_supported`` raises NotImplementedError for them.
 """
 
@@ -29,14 +33,17 @@ import torch
 
 from ..ops import insert_rows as ir
 from ..ops import match_geom as mg
+from ..ops import pose_prop as pp
 from ..ops.chain_stats import run_chain_stats
 from .filter import FilterCarry, FilterParams, ScanOutput, ScanPacket, StaticConfig, maybe_symmetrize_cov
 from .so3 import exp_so3
 from .voxel_map import (
+    VoxelMap,
     _gather_fill,
     compact_order,
     gated_insert_rows,
     insert_packed_rows_hinted,
+    slide_map,
 )
 
 F32 = torch.float32
@@ -57,10 +64,7 @@ def check_supported(scfg: StaticConfig, nb: int, p: int) -> None:
         "use_pallas_match off (the match phase's non-kernel path)": not scfg.use_pallas_match,
         "use_pallas_insert off (the insert phase's non-kernel path)": not scfg.use_pallas_insert,
         "insert_reuse_probe off": not scfg.insert_reuse_probe,
-        "use_pallas_pose (pose kernel)": scfg.use_pallas_pose,
-        "use_pallas_refit (refit kernel)": mcfg.use_pallas_refit,
-        "match_pose != 'imu'": scfg.match_pose != "imu",
-        "map_sliding_en (slide_map)": scfg.map_sliding_en,
+        "match_pose not 'imu' or 'const_vel'": scfg.match_pose not in ("imu", "const_vel"),
         "match/insert cap not a multiple of 128": _row_cap(scfg, nb, p) % 128 != 0,
         "insert_row_cap not a positive multiple of 128": (
             mcfg.insert_row_cap <= 0 or mcfg.insert_row_cap % 128 != 0
@@ -127,6 +131,52 @@ def _predicted_bucket_poses_imu(carry: FilterCarry, packet: ScanPacket, params: 
     return r_end[sel], p_end[sel]
 
 
+def _predicted_bucket_poses_imu_kernel(carry: FilterCarry, packet: ScanPacket, params: FilterParams):
+    """``_predicted_bucket_poses_imu`` on the pose kernel (ops/pose_prop.py):
+    the same timeline as [9, MP] rows, MP = NB (K+1) padded to 128."""
+    st0 = carry.state
+    dtype, dev = carry.cov.dtype, carry.cov.device
+    nb, kmax = packet.imu_time.shape
+    m = nb * (kmax + 1)
+    mp = ((m + 127) // 128) * 128
+    zpad3 = torch.zeros((nb, 1, 3), dtype=dtype, device=dev)
+    ev = packet.imu_mask.to(dtype)
+    rows = torch.cat([
+        torch.cat([packet.imu_time, packet.bucket_time[:, None]], dim=1).reshape(1, m),
+        torch.cat([ev, packet.bucket_mask.to(dtype)[:, None]], dim=1).reshape(1, m),
+        torch.cat([ev, torch.zeros_like(ev[:, :1])], dim=1).reshape(1, m),
+        torch.cat([packet.imu_gyr, zpad3], dim=1).reshape(m, 3).T,
+        torch.cat([packet.imu_acc, zpad3], dim=1).reshape(m, 3).T,
+    ])
+    rows = torch.nn.functional.pad(rows, (0, mp - m)).contiguous()
+    par = torch.cat([
+        st0.rot.reshape(9), st0.pos, st0.vel, st0.ba, st0.bw, st0.grav, st0.imu_w, st0.imu_a,
+        carry.last_predict_t.to(dtype)[None], params.g_over_acc_norm.to(dtype).reshape(1),
+    ])
+    out = pp.pose_call(par, rows)
+    sel = (torch.arange(nb, device=dev) + 1) * (kmax + 1) - 1
+    return out[0:9, sel].T.reshape(nb, 3, 3), out[9:12, sel].T
+
+
+def _predicted_bucket_poses_const_vel(carry: FilterCarry, packet: ScanPacket):
+    """Constant-velocity, constant-rate match poses per bucket."""
+    st0 = carry.state
+    dtb = packet.bucket_time
+    rb = st0.rot @ exp_so3(dtb[:, None] * st0.imu_w[None, :])
+    pb = st0.pos[None, :] + dtb[:, None] * st0.vel[None, :]
+    return rb, pb
+
+
+def _predicted_bucket_poses(carry: FilterCarry, packet: ScanPacket, params: FilterParams,
+                            scfg: StaticConfig):
+    """Match poses per bucket, dispatched on scfg.match_pose."""
+    if scfg.match_pose == "imu":
+        if scfg.use_pallas_pose:
+            return _predicted_bucket_poses_imu_kernel(carry, packet, params)
+        return _predicted_bucket_poses_imu(carry, packet, params)
+    return _predicted_bucket_poses_const_vel(carry, packet)
+
+
 def _match_compact_stats(carry: FilterCarry, packet: ScanPacket, params: FilterParams,
                          scfg: StaticConfig, cap: int, poses=None):
     """Match phase on the keys and select kernels (the JAX
@@ -140,7 +190,7 @@ def _match_compact_stats(carry: FilterCarry, packet: ScanPacket, params: FilterP
     mcfg = scfg.map_cfg
     L, C = mcfg.levels, mcfg.capacity
     miss = L * C
-    rb, pb = poses if poses is not None else _predicted_bucket_poses_imu(carry, packet, params)
+    rb, pb = poses if poses is not None else _predicted_bucket_poses(carry, packet, params, scfg)
 
     mask_f = (packet.point_mask & packet.bucket_mask[:, None]).reshape(-1)
     order = compact_order(mask_f, cap)
@@ -247,6 +297,17 @@ def _process_scan_fused(carry: FilterCarry, packet: ScanPacket, params: FilterPa
         own_keys, own_slot, own_found, own_plane, rots, poss, rot_covs, pos_covs,
     )
     carry = carry._replace(vm=vm)
+
+    if scfg.map_sliding_en:
+        # Both maps are formed and one is selected on the card: no host read.
+        moved = torch.linalg.norm(carry.state.pos - carry.last_slide_pos)
+        trigger = moved >= scfg.sliding_thresh
+        vm_slid = slide_map(carry.vm, scfg.map_cfg, carry.state.pos, scfg.half_map_size)
+        carry = carry._replace(
+            vm=VoxelMap(*(torch.where(trigger, a, b) for a, b in zip(vm_slid, carry.vm))),
+            last_slide_pos=torch.where(trigger, carry.state.pos, carry.last_slide_pos),
+        )
+
     out = ScanOutput(
         rot=carry.state.rot,
         pos=carry.state.pos,

@@ -3,9 +3,9 @@
 Each voxel keeps n, m1 = sum p~, m2 = sum p~ p~^T, S0 = sum V, S1 = sum V (x) p~
 and S2 = sum V (x) p~ p~^T (p~ relative to the voxel centre); the plane
 normal, centre, eigenvalues and the 6x6 plane covariance of the reference's
-init_plane (voxel_map.cc:42-117) follow in closed form.  This is the plain
-refit the port runs; the JAX package's refit kernel
-(ops/pallas/plane_fit_rows.py) is still to be ported.
+init_plane (voxel_map.cc:42-117) follow in closed form.  ``fit_planes`` is
+the refit with ``use_pallas_refit`` off; with it on the refit kernel runs
+(ops/plane_fit_rows.py).
 """
 
 from __future__ import annotations

@@ -36,8 +36,8 @@ Differences from the JAX module, none of which changes a result:
 * Summation order.  The moment scatter-adds run in row order on the CPU and
   with atomics on the card, where their order changes from run to run.
 
-The match-phase slide (slide_map), the point-batch match (match_points) and
-the per-level (non-flat) probes serve paths the port has not taken up yet.
+The point-batch match (match_points) and the per-level (non-flat) probes
+serve paths the port has not taken up yet.
 """
 
 from __future__ import annotations
@@ -47,6 +47,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..ops.match_geom import hash_keys
+from ..ops.plane_fit_rows import PAR_W as _FIT_PAR_W, fit_rows_call
 from .plane_fit import PlaneMoments, fit_planes, point_moments
 
 _M_N, _M_NEW, _M_INIT, _M_PLANE = 0, 1, 2, 3
@@ -417,17 +418,26 @@ def _insert_finish(vm: VoxelMap, cfg: MapConfig, ptab_x, p_w_rows, var_rows, key
     fs = fs[:budget]
 
     meta_r = meta_x[fs]
-    n_r = torch.clamp(meta_r[:, _M_N], min=1.0)
-    fit = fit_planes(_unpack_moments(mom_x[fs], moms_x[fs].to(dtype), n_r), cfg.planer_threshold)
-    plane_rows = torch.cat(
-        [fit.center_rel, fit.normal, fit.evals, fit.radius[:, None],
-         fit.plane_var.reshape(-1, 36)[:, list(_TRIU36)]],
-        dim=-1,
-    )
-    meta_fit = torch.stack(
-        [meta_r[:, _M_N], torch.zeros_like(n_r), torch.ones_like(n_r), fit.is_plane.to(dtype)],
-        dim=-1,
-    )
+    if cfg.use_pallas_refit and budget % 128 == 0:
+        # The refit kernel over transposed rows (ops/plane_fit_rows.py).
+        mom_r = torch.cat([mom_x[fs], moms_x[fs].to(dtype)], dim=-1)
+        par = torch.zeros(_FIT_PAR_W, dtype=dtype, device=dev)
+        par[0] = cfg.planer_threshold
+        out = fit_rows_call(par, mom_r.T.contiguous(), meta_r.T.contiguous())
+        plane_rows = out[0:PLANE_DIM].T
+        meta_fit = out[PLANE_DIM : PLANE_DIM + META_DIM].T
+    else:
+        n_r = torch.clamp(meta_r[:, _M_N], min=1.0)
+        fit = fit_planes(_unpack_moments(mom_x[fs], moms_x[fs].to(dtype), n_r), cfg.planer_threshold)
+        plane_rows = torch.cat(
+            [fit.center_rel, fit.normal, fit.evals, fit.radius[:, None],
+             fit.plane_var.reshape(-1, 36)[:, list(_TRIU36)]],
+            dim=-1,
+        )
+        meta_fit = torch.stack(
+            [meta_r[:, _M_N], torch.zeros_like(n_r), torch.ones_like(n_r), fit.is_plane.to(dtype)],
+            dim=-1,
+        )
     if plane_x.dtype != plane_rows.dtype:
         # A degenerate scatter gives plane_var ~1/(n eps)^2: finite in f32
         # but inf after a narrow downcast; saturate instead (voxel_map.py:889-896).
@@ -443,4 +453,30 @@ def _insert_finish(vm: VoxelMap, cfg: MapConfig, ptab_x, p_w_rows, var_rows, key
     return VoxelMap(
         ptab=ptab_x[:miss], meta=meta_x[:miss], mom=mom_x[:miss], moms=moms_x[:miss],
         plane=plane_x[:miss], ocnt=vm.ocnt + inc,
+    )
+
+
+def slide_map(vm: VoxelMap, cfg: MapConfig, position: torch.Tensor, half_map_size: int) -> VoxelMap:
+    """Drop the voxels outside a box of ``half_map_size`` level-0 voxels
+    around ``position`` (mapSliding/clearMemOutOfMap, voxel_map.cc:552-594):
+    occupancy and statistics are cleared, and later inserts reuse the slots.
+    The distance trigger lives with the caller."""
+    C = cfg.capacity
+    dev = vm.ptab.device
+    center = torch.stack(
+        [torch.floor(position / level_size(cfg, lvl)).to(torch.int32) for lvl in range(cfg.levels)]
+    )
+    halves = torch.tensor([int(half_map_size * (2 ** lvl)) for lvl in range(cfg.levels)],
+                          dtype=torch.int32, device=dev)
+    delta = vm.ptab[:, 0:3] - center.repeat_interleave(C, dim=0)
+    inside = torch.all(torch.abs(delta) <= halves.repeat_interleave(C)[:, None], dim=-1)
+    keep = (vm.ptab[:, _T_OCC] > 0) & inside
+    kf = keep.to(vm.meta.dtype)[:, None]
+    ks = keep.to(vm.moms.dtype)[:, None]
+    return vm._replace(
+        ptab=vm.ptab * keep.to(torch.int32)[:, None],
+        meta=vm.meta * kf,
+        mom=vm.mom * kf,
+        moms=vm.moms * ks,
+        plane=vm.plane * ks.to(vm.plane.dtype),
     )

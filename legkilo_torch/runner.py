@@ -4,9 +4,11 @@ Sensor streams -> PacketBuilder -> ``process_scan_deferred`` on the port's
 kernels -> trajectory.  Covers streaming replay with pipelined
 materialisation (up to ``tpu_pipeline_depth`` scans in flight: the card
 runs scan k while the host builds scan k+1), the auto-escalation latch for
-iterated matching, the match-collapse alarm and the sensor-gap soft reset.
-Checkpoint save/load and chunked replay wait for a later slice; a JAX
-checkpoint can be read with convert.load_jax_checkpoint.
+iterated matching, the match-collapse alarm, the sensor-gap soft reset,
+checkpoint save/load at a scan boundary (io/checkpoint.py, the JAX package's
+file format) and chunked offline replay (``run_offline(chunk=K)``: K staged
+scans a call through ``process_scan_chunk``, one host read a chunk, no
+escalation latch).
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import logging
-from typing import Iterator, List, Sequence
+from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -28,11 +30,22 @@ from .core.filter import (
     first_frame_map,
     init_carry,
     init_state_from_imu,
+    process_scan_chunk,
     soft_reset_carry,
+    stack_scan_packets,
 )
 from .core.filter_deferred import check_supported, process_scan_deferred
 from .core.voxel_map import map_config_from
-from .io.dataset import HostPacket, PacketBuilder, RawScan, decimate_blind, to_device_packet
+from .io import checkpoint as ckpt
+from .io.dataset import (
+    HostPacket,
+    ImuEvent,
+    KinImuEvent,
+    PacketBuilder,
+    RawScan,
+    decimate_blind,
+    to_device_packet,
+)
 
 log = logging.getLogger(__name__)
 
@@ -50,9 +63,8 @@ class ScanResult:
 
 
 def bench_config() -> Config:
-    """The workload of bench.py:55-129 on the port's main path: the
-    deferred pipeline with the chain, match and insert kernels (the pose and
-    refit kernels are not ported, so their plain paths run)."""
+    """The workload of bench.py:55-129: the deferred pipeline with all five
+    kernel switches on (chain, match, insert, pose, refit)."""
     cfg = Config()
     cfg.only_imu_use = True
     cfg.lidar.filter_num = 1
@@ -73,6 +85,8 @@ def bench_config() -> Config:
     cfg.tpu.use_pallas = True
     cfg.tpu.use_pallas_match = True
     cfg.tpu.use_pallas_insert = True
+    cfg.tpu.use_pallas_pose = True
+    cfg.tpu.use_pallas_refit = True
     return cfg
 
 
@@ -84,6 +98,8 @@ def make_static_config(cfg: Config, use_kin=None) -> StaticConfig:
         dept_err=float(cfg.voxel_map.dept_err),
         beam_err=float(cfg.voxel_map.beam_err),
         map_sliding_en=bool(cfg.voxel_map.map_sliding_en),
+        sliding_thresh=float(cfg.voxel_map.sliding_thresh),
+        half_map_size=int(cfg.voxel_map.half_map_size),
         pipeline=cfg.tpu.pipeline,
         use_pallas=bool(cfg.tpu.use_pallas),
         use_pallas_match=bool(cfg.tpu.use_pallas_match),
@@ -158,13 +174,7 @@ class OdometryRunner:
             if pkt is None:
                 break
             if not self.initialized:
-                self._initialize(scan, pkt)
-                out.append(ScanResult(
-                    time=pkt.end_time,
-                    rot=self.carry.state.rot.cpu().numpy(),
-                    pos=self.carry.state.pos.cpu().numpy(),
-                    n_matched=0, n_points=0, n_raw=pkt.n_raw,
-                ))
+                out.append(self._initialize(scan, pkt))
                 continue
             self._dispatch(pkt)
             while len(self._inflight) > self.pipeline_depth:
@@ -181,12 +191,25 @@ class OdometryRunner:
         return out
 
     # -- internals ---------------------------------------------------------
-    def _initialize(self, scan: RawScan, pkt: HostPacket) -> None:
-        """First-frame path (KILO.cc:332-353)."""
+    def _initialize(self, scan: RawScan, pkt: HostPacket) -> ScanResult:
+        """First-frame path (KILO.cc:332-353): state from the packet's mean
+        IMU sample, map from the raw scan.  Returns the packet's result (the
+        pose as it stands); a packet without events leaves the runner
+        uninitialized, to be tried again with the next packet."""
         m = pkt.imu_mask
-        if not m.any():
+        if m.any():
+            self._init_state_and_map(scan, pkt)
+        else:
             log.warning("First packet has no IMU events; skipping init")
-            return
+        return ScanResult(
+            time=pkt.end_time,
+            rot=self.carry.state.rot.cpu().numpy(),
+            pos=self.carry.state.pos.cpu().numpy(),
+            n_matched=0, n_points=0, n_raw=pkt.n_raw,
+        )
+
+    def _init_state_and_map(self, scan: RawScan, pkt: HostPacket) -> None:
+        m = pkt.imu_mask
         dev = self.device
         mean_acc = torch.tensor(pkt.imu_acc[m].mean(axis=0), dtype=torch.float32, device=dev)
         mean_gyr = torch.tensor(pkt.imu_gyr[m].mean(axis=0), dtype=torch.float32, device=dev)
@@ -211,6 +234,76 @@ class OdometryRunner:
         log.info("Initialization finished: gravity=(%.3f %.3f %.3f) |acc|=%.3f",
                  g[0], g[1], g[2], float(acc_norm))
 
+    # -- checkpoint / resume ------------------------------------------------
+    def save_checkpoint(self, path: str) -> str:
+        """Snapshot the resumable state at a scan boundary: the carry (state,
+        covariance, clocks, voxel map) plus the host side -- the init-derived
+        gravity scale, the packetizer's clocks and the events buffered past
+        the last emitted scan, and the escalation latch (sticky by design,
+        so a resumed run comes back escalated with its counters intact).
+        Scans still pending in the packetizer are not saved."""
+        self.flush()  # the step count must include the scans in flight
+        b = self.builder
+        extras = {
+            "g_over_acc_norm": np.asarray(float(self.params.g_over_acc_norm), dtype=np.float32),
+            "initialized": np.asarray(int(self.initialized)),
+            "use_kin": np.asarray(int(b.use_kin)),
+            "last_begin": np.asarray(np.nan if b._last_begin is None else b._last_begin),
+            "last_event_time": np.asarray(b._last_event_time),
+            "last_scan_time": np.asarray(b._last_scan_time),
+            "esc_active": np.asarray(int(self._esc_active)),
+            "esc_latched": np.asarray(int(self._esc_latched)),
+            "esc_streak": np.asarray(int(self._esc_streak)),
+            "n_done": np.asarray(int(self._n_done)),
+        }
+        if b._events:
+            evs = b._events
+            extras["ev_time"] = np.asarray([e.time for e in evs])
+            extras["ev_acc"] = np.stack([np.asarray(e.acc) for e in evs])
+            extras["ev_gyr"] = np.stack([np.asarray(e.gyr) for e in evs])
+            if b.use_kin:
+                extras["ev_foot_pos"] = np.stack([e.foot_pos for e in evs])
+                extras["ev_foot_vel"] = np.stack([e.foot_vel for e in evs])
+                extras["ev_contact"] = np.stack([e.contact for e in evs])
+        if b._scans:
+            log.warning("checkpoint taken with %d pending (incomplete) scans; they are not "
+                        "saved -- re-feed them after resume", len(b._scans))
+        return ckpt.save(path, self.carry, step=len(self.results), extras=extras)
+
+    def load_checkpoint(self, path: str) -> int:
+        """Restore a save_checkpoint snapshot (this package's or the JAX
+        package's); returns the step count at save time.  Feed the sensor
+        stream from the next scan onward."""
+        self.carry, step, extras = ckpt.load(path, self.carry)
+        self.params = self.params._replace(g_over_acc_norm=torch.tensor(
+            float(extras["g_over_acc_norm"]), dtype=torch.float32, device=self.device))
+        self.initialized = bool(int(extras["initialized"]))
+        b = self.builder
+        if bool(int(extras["use_kin"])) != b.use_kin:
+            raise ValueError("checkpoint kinematic mode != config mode")
+        lb = float(extras["last_begin"])
+        b._last_begin = None if np.isnan(lb) else lb
+        b._last_scan_time = float(extras["last_scan_time"])
+        events = []
+        for i, t in enumerate(extras.get("ev_time", ())):
+            if b.use_kin:
+                events.append(KinImuEvent(
+                    time=float(t), acc=extras["ev_acc"][i], gyr=extras["ev_gyr"][i],
+                    foot_pos=extras["ev_foot_pos"][i], foot_vel=extras["ev_foot_vel"][i],
+                    contact=extras["ev_contact"][i]))
+            else:
+                events.append(ImuEvent(time=float(t), acc=extras["ev_acc"][i], gyr=extras["ev_gyr"][i]))
+        b._events = events
+        b._last_event_time = float(extras["last_event_time"])
+        if "esc_active" in extras:
+            self._esc_active = bool(int(extras["esc_active"]))
+            self._esc_latched = bool(int(extras["esc_latched"]))
+            self._esc_streak = int(extras["esc_streak"])
+            self._n_done = int(extras["n_done"])
+            if self._esc_active and self._esc_enabled:
+                self._scfg_active = self._scfg_esc
+        return step or 0
+
     def _dispatch(self, pkt: HostPacket) -> None:
         """Upload + enqueue one scan step; the card works asynchronously and
         the host syncs only in _materialize, up to pipeline_depth scans later."""
@@ -225,25 +318,11 @@ class OdometryRunner:
         self._inflight.append((pkt, out))
 
     def _materialize(self, pkt: HostPacket, out) -> ScanResult:
-        out = out._replace(**{k: v.cpu().numpy() for k, v in out._asdict().items()})
-        if pkt.dropped_points or pkt.dropped_events:
-            log.warning("packet overflow: dropped %d points, %d events",
-                        pkt.dropped_points, pkt.dropped_events)
-        if int(out.n_cap_dropped):
-            log.warning("cap overflow: %d valid points beyond match/insert cap "
-                        "(raise tpu_match_cap/tpu_insert_cap)", int(out.n_cap_dropped))
-        mo = out.map_overflow
-        if int(mo[0]) or int(mo[2]):
-            log.warning("map overflow: %d insert rows beyond insert_row_cap, %d slot claims "
-                        "failed (raise tpu_map_insert_row_cap / tpu_map_capacity_log2)",
-                        int(mo[0]), int(mo[2]))
+        out = _to_host(out)
         self._n_done += 1
         if int(out.n_points) > 100:
             self._watch_match_rate(int(out.n_matched) / int(out.n_points))
-        return ScanResult(
-            time=pkt.end_time, rot=out.rot, pos=out.pos,
-            n_matched=int(out.n_matched), n_points=int(out.n_points), n_raw=pkt.n_raw,
-        )
+        return _scan_result(pkt, out)
 
     def _watch_match_rate(self, ratio: float) -> None:
         """The collapse alarm (20% for 5 scans after warm-up) and the
@@ -287,26 +366,127 @@ class OdometryRunner:
             self._healthy_streak = 0
 
 
-def replay(runner: OdometryRunner, scans: Sequence[RawScan], events: Sequence) -> Iterator[None]:
-    """Feed pre-loaded streams to ``runner`` in time order, yielding after
-    each scan: the events up to (and past) the scan end, then the scan (the
-    packetizer enforces the lock-step sync itself).  Flushes at the end."""
-    add_event = runner.add_imu if runner.cfg.only_imu_use else runner.add_kin_imu
+def _to_host(out):
+    """A ScanOutput's tensors as numpy arrays (this is the host's sync)."""
+    return out._replace(**{k: v.cpu().numpy() for k, v in out._asdict().items()})
+
+
+def _scan_result(pkt: HostPacket, out) -> ScanResult:
+    """One scan's host-side ScanOutput as a ScanResult, with the overflow
+    warnings (the reference has no fixed caps; these must not drop silently)."""
+    if pkt.dropped_points or pkt.dropped_events:
+        log.warning("packet overflow: dropped %d points, %d events",
+                    pkt.dropped_points, pkt.dropped_events)
+    if int(out.n_cap_dropped):
+        log.warning("cap overflow: %d valid points beyond match/insert cap "
+                    "(raise tpu_match_cap/tpu_insert_cap)", int(out.n_cap_dropped))
+    mo = out.map_overflow
+    if int(mo[0]) or int(mo[2]):
+        log.warning("map overflow: %d insert rows beyond insert_row_cap, %d slot claims "
+                    "failed (raise tpu_map_insert_row_cap / tpu_map_capacity_log2)",
+                    int(mo[0]), int(mo[2]))
+    return ScanResult(
+        time=pkt.end_time, rot=out.rot, pos=out.pos,
+        n_matched=int(out.n_matched), n_points=int(out.n_points), n_raw=pkt.n_raw,
+    )
+
+
+def _scans_after_their_events(add_event, scans: Sequence[RawScan], events: Sequence) -> Iterator[RawScan]:
+    """Yield each scan once the events up to (and 0.5 s past) its end have
+    gone to ``add_event``, in time order (the packetizer enforces the
+    lock-step sync itself)."""
     ev_iter = iter(sorted(events, key=lambda e: e.time))
     pending = next(ev_iter, None)
     for scan in scans:
         while pending is not None and pending.time <= scan.end_time + 0.5:
             add_event(pending)
             pending = next(ev_iter, None)
+        yield scan
+
+
+def replay(runner: OdometryRunner, scans: Sequence[RawScan], events: Sequence) -> Iterator[None]:
+    """Feed pre-loaded streams to ``runner`` in time order, yielding after
+    each scan: its events, then the scan.  Flushes at the end."""
+    add_event = runner.add_imu if runner.cfg.only_imu_use else runner.add_kin_imu
+    for scan in _scans_after_their_events(add_event, scans, events):
         runner.add_scan(scan)
         yield
     runner.flush()
 
 
-def run_offline(cfg: Config, scans: Sequence[RawScan], events: Sequence,
-                device="cuda") -> List[ScanResult]:
-    """Replay pre-loaded streams (dataset/sim replay) through the filter."""
+def run_offline(cfg: Config, scans: Sequence[RawScan], events: Sequence, device="cuda",
+                resume: Optional[str] = None, save_ckpt: Optional[str] = None,
+                chunk: int = 0) -> List[ScanResult]:
+    """Replay pre-loaded streams (dataset/sim replay) through the filter.
+
+    ``resume`` restores a checkpoint first (feed only the scans and events
+    after the checkpointed scan; the events buffered in between come back
+    from the checkpoint); ``save_ckpt`` snapshots at the stream's end.
+    ``chunk`` > 1 stages every packet first and replays ``chunk`` scans a
+    call through ``process_scan_chunk``: the same trajectory as per-scan
+    stepping with ``match_iters`` fixed (chunked replay does not run the
+    escalation latch)."""
+    if chunk > 1:
+        return _run_offline_chunked(cfg, scans, events, chunk, resume, save_ckpt, device)
     runner = OdometryRunner(cfg, device=device)
+    if resume:
+        log.info("Resumed from %s at step %d", resume, runner.load_checkpoint(resume))
     for _ in replay(runner, scans, events):
         pass
+    if save_ckpt:
+        log.info("Saved checkpoint to %s", runner.save_checkpoint(save_ckpt))
     return runner.results
+
+
+def _run_offline_chunked(cfg: Config, scans: Sequence[RawScan], events: Sequence, chunk: int,
+                         resume: Optional[str], save_ckpt: Optional[str], device) -> List[ScanResult]:
+    """Stage every packet, then replay up to ``chunk`` scans per call."""
+    runner = OdometryRunner(cfg, device=device)
+    if resume:
+        log.info("Resumed from %s at step %d", resume, runner.load_checkpoint(resume))
+    b = runner.builder
+    add_event = b.add_imu if cfg.only_imu_use else b.add_kin_imu
+    staged = []  # (first RawScan of the packet, HostPacket)
+    for scan in _scans_after_their_events(add_event, scans, events):
+        b.add_scan(scan)
+        while b.ready():
+            raw = b._scans[0]
+            pkt = b.pop()
+            if pkt is not None:
+                staged.append((raw, pkt))
+    results: List[ScanResult] = []
+    idx = 0
+    # As _drain: a first packet without events leaves the runner
+    # uninitialized, so try the following packets until one initializes it.
+    while not runner.initialized and idx < len(staged):
+        results.append(runner._initialize(*staged[idx]))
+        idx += 1
+    gap = float(cfg.tpu.gap_reset_s)
+
+    def is_gap(pkt: HostPacket) -> bool:
+        return gap > 0.0 and pkt.rebase > gap
+
+    while idx < len(staged):
+        # The streaming path's soft-reset policy (_dispatch): chunks split at
+        # gap packets so the reset lands between calls.
+        if is_gap(staged[idx][1]):
+            log.warning("sensor-time gap %.1f s >= tpu_gap_reset_s=%.1f: soft reset "
+                        "(chunked replay)", staged[idx][1].rebase, gap)
+            runner.carry = soft_reset_carry(runner.carry, staged[idx][1].rebase)
+        end = idx + 1
+        while end < min(idx + chunk, len(staged)) and not is_gap(staged[end][1]):
+            end += 1
+        grp = staged[idx:end]
+        idx = end
+        # A ragged tail or a group cut at a gap is a shorter chunk: eager
+        # PyTorch has no compiled shape to keep, so it takes the same call.
+        devs = [to_device_packet(p, runner.device) for _, p in grp]
+        runner.carry, outs = process_scan_chunk(
+            runner.carry, stack_scan_packets(devs), runner.params, runner.scfg)
+        outs = _to_host(outs)
+        per_scan = [type(outs)(*(a[j] for a in outs)) for j in range(len(grp))]
+        results.extend(_scan_result(hp, out) for (_, hp), out in zip(grp, per_scan))
+    runner.results = results
+    if save_ckpt:
+        log.info("Saved checkpoint to %s", runner.save_checkpoint(save_ckpt))
+    return results

@@ -27,7 +27,8 @@ def test_kernels_match_plain_on_card(cuda_device):
 
     chip_smoke.phase_build()
     recs = chip_smoke.phase_kernels(torch, cuda_device)
-    assert set(recs) == {"chain_stats", "chain_stats_kin", "keys", "select", "moments"}
+    assert set(recs) == {"chain_stats", "chain_stats_kin", "keys", "select", "moments", "fit",
+                         "pose", "pose_384"}
 
 
 @pytest.mark.cuda
@@ -48,6 +49,49 @@ def test_wrapper_refuses_bad_input_on_card(cuda_device):
     out = ir.moments_call(par, prow, brow, key, size)
     torch.cuda.synchronize()
     assert ir.moments_call.launches == n0 + 1 and out.shape == (69, 128)
+
+
+@pytest.mark.cuda
+def test_pose_and_fit_wrappers_refuse_bad_input_on_card(cuda_device):
+    from legkilo_torch.ops import plane_fit_rows as pfr
+    from legkilo_torch.ops import pose_prop as pp
+
+    par = torch.zeros(32, device=cuda_device)
+    n0 = pp.pose_call.launches, pfr.fit_rows_call.launches
+    with pytest.raises(ValueError, match="multiple of 128"):   # one block: MP <= 1024
+        pp.pose_call(par, torch.zeros(9, 1152, device=cuda_device))
+    with pytest.raises(ValueError, match="multiple of 128"):
+        pp.pose_call(par, torch.zeros(9, 100, device=cuda_device))
+    with pytest.raises(ValueError, match="32 floats"):
+        pp.pose_call(par[:16], torch.zeros(9, 128, device=cuda_device))
+    with pytest.raises(ValueError, match="expected"):
+        pfr.fit_rows_call(torch.zeros(8, device=cuda_device), torch.zeros(60, 128, device=cuda_device),
+                          torch.zeros(4, 128, device=cuda_device))
+    with pytest.raises(ValueError, match="contiguous"):
+        pfr.fit_rows_call(torch.zeros(8, device=cuda_device), torch.zeros(128, 69, device=cuda_device).T,
+                          torch.zeros(4, 128, device=cuda_device))
+    assert (pp.pose_call.launches, pfr.fit_rows_call.launches) == n0
+    out = pp.pose_call(par, torch.zeros(9, 1024, device=cuda_device))
+    fit = pfr.fit_rows_call(torch.zeros(8, device=cuda_device), torch.zeros(69, 200, device=cuda_device),
+                            torch.zeros(4, 200, device=cuda_device))   # ragged: not a multiple of the block
+    torch.cuda.synchronize()
+    assert out.shape == (12, 1024) and fit.shape == (35, 200) and bool(torch.isfinite(fit).all())
+    assert torch.equal(fit, pfr.fit_rows_plain(torch.zeros(8, device=cuda_device),
+                                               torch.zeros(69, 200, device=cuda_device),
+                                               torch.zeros(4, 200, device=cuda_device)))
+    assert (pp.pose_call.launches, pfr.fit_rows_call.launches) == (n0[0] + 1, n0[1] + 1)
+
+
+@pytest.mark.cuda
+def test_pose_kernel_at_256_slots_on_card(cuda_device):
+    import numpy as np
+
+    import chip_smoke as cs
+    from legkilo_torch.ops import pose_prop as pp
+
+    pargs = cs.pose_inputs(torch, cuda_device, np.random.default_rng(3), 28, 5)
+    assert pargs[1].shape[1] == 256
+    assert torch.allclose(pp.pose_call(*pargs), pp.pose_plain(*pargs), rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.cuda

@@ -40,9 +40,10 @@ N_SCANS = 8
 _JAX_STEP = jax.jit(j_fd.process_scan_deferred, static_argnums=3)
 
 
-def make_cfg(mod, use_kin=False):
+def make_cfg(mod, use_kin=False, five=False):
     """A small cut of the bench workload on the kernel path: 4 ms buckets,
-    K = 1, three levels of 2^11 slots, one claim round, caps of 1024 rows."""
+    K = 1, three levels of 2^11 slots, one claim round, caps of 1024 rows.
+    ``five`` turns the pose and refit kernels on as well (bench.py's set)."""
     cfg = mod.Config()
     cfg.only_imu_use = not use_kin
     cfg.lidar.filter_num = 2
@@ -56,6 +57,7 @@ def make_cfg(mod, use_kin=False):
     tp.max_imu_per_bucket, tp.insert_cap, tp.match_cap = 1, 1024, 1024
     tp.pipeline = "deferred"
     tp.use_pallas = tp.use_pallas_match = tp.use_pallas_insert = True
+    tp.use_pallas_pose = tp.use_pallas_refit = five
     tp.use_native = False  # the port builds packets with the numpy path
     return cfg
 
@@ -73,11 +75,11 @@ def build_packets(ds, cfg, data, use_kin=False):
     return raws, pkts
 
 
-def run_both(use_kin, n_scans, keep=(), with_spread=False, match_iters=1):
+def run_both(use_kin, n_scans, keep=(), with_spread=False, match_iters=1, five=False):
     """Init (first-frame state and map) and ``n_scans`` deferred steps on
     both sides; returns per-scan outputs and carries at the ``keep`` steps."""
     data = j_sim.simulate(j_sim.SimConfig(duration=(n_scans + 2) * 0.1, scan_points=2500, seed=11))
-    jcfg, tcfg = make_cfg(j_config, use_kin), make_cfg(t_config, use_kin)
+    jcfg, tcfg = make_cfg(j_config, use_kin, five), make_cfg(t_config, use_kin, five)
     jcfg.tpu.match_iters = tcfg.tpu.match_iters = match_iters
     jraw, jp = build_packets(j_ds, jcfg, data, use_kin)
     traw, tp = build_packets(t_ds, tcfg, data, use_kin)
@@ -86,11 +88,13 @@ def run_both(use_kin, n_scans, keep=(), with_spread=False, match_iters=1):
     jr._initialize(jraw[0], jp[0])
     tr._initialize(traw[0], tp[0])
     out = dict(jp=jp, tp=tp, jr=jr, tr=tr, init=(jr.carry, tr.carry), steps=[], kept={},
-               spread=[])
+               spread=[], data=data)
     jc, tc, xc = jr.carry, tr.carry, jr.carry
     # The JAX package's own spread: its XLA path (kernels off) from the same
     # state, an equivalent computation rounded differently.
-    xla = jr.scfg._replace(use_pallas=False, use_pallas_match=False, use_pallas_insert=False)
+    xla = jr.scfg._replace(use_pallas=False, use_pallas_match=False, use_pallas_insert=False,
+                           use_pallas_pose=False,
+                           map_cfg=jr.scfg.map_cfg._replace(use_pallas_refit=False))
     for i in range(1, n_scans + 1):
         jpk = j_ds.to_device_packet(jp[i])
         jc, jo = _JAX_STEP(jc, jpk, jr.params, jr.scfg)
@@ -288,9 +292,8 @@ def test_cli_config_file_off_the_port_path_raises(tmp_path):
 @pytest.mark.parametrize("change", [
     ("tpu", "pipeline", "sequential"), ("tpu", "use_pallas", False),
     ("tpu", "use_pallas_match", False), ("tpu", "use_pallas_insert", False),
-    ("tpu", "use_pallas_pose", True), ("tpu", "use_pallas_refit", True),
-    ("tpu", "match_pose", "const_vel"), ("tpu", "chain_impl", "jax"),
-    ("voxel_map", "map_sliding_en", True), ("tpu", "match_cap", 1100),
+    ("tpu", "match_pose", "spline"), ("tpu", "chain_impl", "jax"),
+    ("tpu", "match_cap", 1100),
     ("voxel_map", "insert_row_cap", 1000), ("tpu", "dtype", "float64"),
 ])
 def test_unported_options_raise(change):
@@ -299,6 +302,24 @@ def test_unported_options_raise(change):
     setattr(getattr(cfg, section), key, value)
     with pytest.raises(NotImplementedError):
         t_runner.OdometryRunner(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("change", [
+    ("tpu", "use_pallas_pose", True), ("tpu", "use_pallas_refit", True),
+    ("tpu", "match_pose", "const_vel"), ("voxel_map", "map_sliding_en", True),
+])
+def test_ported_options_run(change):
+    """The options this package used to refuse: a runner takes each and
+    steps a few scans to a finite pose that has matched points."""
+    from legkilo_torch.models import sim as t_sim
+
+    cfg = make_cfg(t_config)
+    section, key, value = change
+    setattr(getattr(cfg, section), key, value)
+    cfg.voxel_map.sliding_thresh, cfg.voxel_map.half_map_size = 0.01, 6   # the slide fires
+    data = t_sim.simulate(t_sim.SimConfig(duration=0.5, scan_points=2000, seed=5))
+    res = t_runner.run_offline(cfg, data.scans, data.imu, device="cpu")
+    assert len(res) >= 4 and np.isfinite(res[-1].pos).all() and res[-1].n_matched > 100
 
 
 def test_cuda_requested_without_card_raises(monkeypatch):

@@ -141,3 +141,61 @@ def test_gated_packed_insert_matches_jax(rng):
     assert_maps_match(jvm2, tvm2, jc.capacity)
     # The input map is left as it was (functional semantics).
     np.testing.assert_array_equal(N(tvm.ptab), np.asarray(jvm.ptab))
+
+
+def test_gated_packed_insert_with_refit_kernel_matches_jax(rng):
+    """insert_packed_rows_hinted with use_pallas_refit on, both sides (JAX
+    on its refit kernel in interpret mode, the port on the plain version),
+    over two inserts so refits of existing planes are included.  meta and
+    mom to 1e-6 and planes to 5e-4 of their scale, as the JAX package's
+    test_insert_points_pallas_refit_equivalent holds its own two paths."""
+    jc, tc = cfgs(insert_row_cap=512, refit_budget=128, insert_rounds=2, use_pallas_refit=True)
+    p, var, mask = scene(rng, 900)
+    perm = rng.permutation(len(p))
+    p, var, mask = p[perm], var[perm], mask[perm]
+    jvm = jv.insert_points(jv.make_map(jc), jc, *(jnp.asarray(x) for x in (p[:300], var[:300], mask[:300])))
+    tvm = tv.insert_points(tv.make_map(tc, "cpu"), tc, *(T(x) for x in (p[:300], var[:300], mask[:300])))
+    np.testing.assert_array_equal(N(tvm.ptab), np.asarray(jvm.ptab))
+    sizes_l = np.asarray([0.5, 0.25, 0.125], np.float32)
+    for lo in (300, 600):
+        q, qv, qm = p[lo:lo + 300], var[lo:lo + 300], mask[lo:lo + 300]
+        m = jv.match_points(jvm, jc, jnp.asarray(q), jnp.asarray(qv), jnp.asarray(qm))
+        own = [np.asarray(x) for x in (m.own_keys, m.own_slot, m.own_found, m.own_plane)]
+        jrows = jv.gated_insert_rows(jc, jnp.asarray(qm), *(jnp.asarray(x) for x in own))
+        trows = tv.gated_insert_rows(tc, T(qm), *(T(x) for x in own))
+        vc = (N(trows.keys) + 0.5) * sizes_l[N(trows.lvl)][:, None]
+        pr = N(trows.pidx)
+        mom, moms = jv._pack_moments(j_pf.point_moments(jnp.asarray(q[pr] - vc), jnp.asarray(qv[pr])))
+        jvm = jv.insert_packed_rows_hinted(jvm, jc, jrows, mom, moms)
+        tvm = tv.insert_packed_rows_hinted(tvm, tc, trows, T(np.asarray(mom)), T(np.asarray(moms)))
+        np.testing.assert_array_equal(N(tvm.ptab)[:, 0:4], np.asarray(jvm.ptab)[:, 0:4])
+        np.testing.assert_allclose(N(tvm.meta), np.asarray(jvm.meta), atol=1e-6)
+        np.testing.assert_allclose(N(tvm.mom), np.asarray(jvm.mom), atol=1e-6)
+        pl_j = np.asarray(jvm.plane)
+        # Normals only where the fit is well conditioned (lam_mid > 1e-3).
+        loose = pl_j[:, 7] <= 1e-3
+        scale = max(1.0, np.abs(pl_j[~loose]).max())
+        np.testing.assert_allclose(N(tvm.plane)[~loose], pl_j[~loose], atol=5e-4 * scale)
+        np.testing.assert_allclose(N(tvm.plane)[loose][:, [0, 1, 2, 6, 7, 8, 9]],
+                                   pl_j[loose][:, [0, 1, 2, 6, 7, 8, 9]], atol=1e-5)
+    assert N(tvm.meta)[:, 3].sum() > 10 and (~loose).sum() > 10
+    assert_maps_match(jvm, tvm, jc.capacity)
+
+
+@pytest.mark.parametrize("half,expect_drop", [(2, True), (100, False)])
+def test_slide_map_matches_jax(rng, half, expect_drop):
+    """slide_map clears the slots outside the box and keeps the rest, table
+    for table and slot for slot as the JAX function; a box that holds the
+    whole map changes nothing."""
+    jc, tc = cfgs()
+    p, var, mask = scene(rng)
+    jvm = jv.insert_points(jv.make_map(jc), jc, *(jnp.asarray(x) for x in (p, var, mask)))
+    tvm = to_port(jvm)
+    pos = np.asarray([0.4, -0.3, 0.1], np.float32)
+    js = jv.slide_map(jvm, jc, jnp.asarray(pos), half)
+    ts = tv.slide_map(tvm, tc, T(pos), half)
+    for a, b in zip(ts, js):
+        np.testing.assert_array_equal(N(a), np.asarray(b))
+    dropped = int((N(tvm.ptab)[:, 3] > 0).sum() - (N(ts.ptab)[:, 3] > 0).sum())
+    assert (dropped > 0) == expect_drop
+    assert (N(ts.ptab)[:, 3] > 0).sum() > 0
