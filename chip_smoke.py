@@ -8,10 +8,11 @@ Phases, each printing its own lines:
 1. The card's name and power limit (nvidia-smi), then the kernels built
    from legkilo_torch/csrc (one nvcc per source, in parallel) with the
    registers and shared memory ptxas reports.
-2. Every kernel of the main path on seeded numpy inputs at the main path's
+2. Every kernel of the two paths on seeded numpy inputs at the paths'
    shapes (C = 3584 match rows, L = 3 levels, NB = 28 buckets, K = 1 event
-   slot, R = 4096 insert rows, B = 1024 refit slots, MP = 128 timeline
-   slots; the chain with kin off and on; the pose kernel at MP = 384 too),
+   slot, P = 256 points a bucket, R = 4096 insert rows, B = 1024 refit
+   slots, MP = 128 timeline slots; both chains with kin off and on; the
+   pose kernel at MP = 384 too),
    held against its plain PyTorch version on the same inputs within the
    stated tolerance, and timed with CUDA events (kernel and plain version).
    The refit rows are those of a short run's map plus zero padding, and the
@@ -31,6 +32,13 @@ Phases, each printing its own lines:
    configuration: the device's busy share of the host wall clock, launches
    a scan, device time by operator.
 6. The five-kernel workload with leg kinematics (only_imu_use off), 4 s.
+7. The per-point path (chain_impl="jax": match rows in bucket layout, the
+   per-point chain kernel, the claiming insert; pose and refit kernels on)
+   on the same 24 s workload, uncut ("points"), a profiler window of it, and
+   4 s of it with leg kinematics ("points_kin").
+
+Each run sets every launch counter to 0 before and reads it after: the
+kernels of the path it drives must have launched, and the others must not.
 
 The last two lines are a JSON object with one entry per kernel and
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script exits
@@ -63,6 +71,8 @@ REPLACES = {
     "moments": "legkilo_tpu/ops/pallas/insert_rows.py:46",
     "fit": "legkilo_tpu/ops/pallas/plane_fit_rows.py:122",
     "pose": "legkilo_tpu/ops/pallas/pose_prop.py:57",
+    "chain_points": "tools/experiments/eskf_chain_pallas.py:376",
+    "chain_points_kin": "tools/experiments/eskf_chain_pallas.py:376",
 }
 SOURCES = {
     "chain_stats": "legkilo_torch/csrc/chain_stats.cu",
@@ -72,7 +82,13 @@ SOURCES = {
     "moments": "legkilo_torch/csrc/insert_rows.cu",
     "fit": "legkilo_torch/csrc/plane_fit_rows.cu",
     "pose": "legkilo_torch/csrc/pose_prop.cu",
+    "chain_points": "legkilo_torch/csrc/chain_points.cu",
+    "chain_points_kin": "legkilo_torch/csrc/chain_points.cu",
 }
+# The wrappers whose kernels each path launches (counter names of wrappers()).
+FUSED_KERNELS = {"chain_stats", "keys", "select", "moments", "fit", "pose"}
+FOUR_KERNELS = FUSED_KERNELS - {"fit", "pose"}
+POINTS_KERNELS = {"chain_points", "fit", "pose"}
 
 
 def log(msg: str) -> None:
@@ -197,6 +213,30 @@ def chain_inputs(torch, dev, rng, use_kin, nb=28, k=1):
             f(etime), f(egate), f(eacc), f(egyr), f(efp), f(efv), f(ect), s40.to(dev)]
 
 
+def chain_points_inputs(torch, dev, rng, use_kin, nb=28, k=1, p=256):
+    """The per-point chain's inputs: the state, clocks and events of
+    ``chain_inputs``, and per bucket P match rows as ``_batched_match``
+    leaves them: points within 5 m, unit normals, plane centres a few cm
+    off the point's world position, ~70% matched, unmatched rows zero; one
+    bucket without a match and one gated off."""
+    base = chain_inputs(torch, dev, rng, use_kin, nb, k)
+    f = lambda x: torch.tensor(np.array(x, np.float32, order="C"), device=dev).contiguous()
+    brow = base[5].cpu().numpy()
+    bgate = brow[:, 1].copy()
+    bgate[nb // 3] = 0.0
+    rot0, pos0 = base[2].cpu().numpy(), base[3].cpu().numpy()[0:3]
+    pi = rng.uniform(-5, 5, size=(nb, p, 3))
+    n = rng.normal(size=(nb, p, 3))
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    ctr = pi @ rot0.T + pos0 + rng.normal(scale=0.03, size=(nb, p, 3))
+    r = rng.uniform(1e-3, 5e-2, size=(nb, p))
+    m = (rng.random((nb, p)) < 0.7).astype(np.float32)
+    m[2 * nb // 3] = 0.0
+    n, ctr, r = n * m[..., None], ctr * m[..., None], r * m
+    nd = np.sum(n.astype(np.float32) * ctr.astype(np.float32), axis=-1)
+    return base[0:5] + [f(brow[:, 0]), f(bgate)] + base[6:13] + [f(pi), f(n), f(nd), f(r), f(m)]
+
+
 def chain_flops(nb, k, use_kin) -> float:
     """Reckoned from the kernel's loops: a predict ~4.5k flops (the two
     passes over rows/columns 0:9 of P), the IMU update ~14k (K P, the 30x30
@@ -204,6 +244,13 @@ def chain_flops(nb, k, use_kin) -> float:
     inverse, the 30x18 gain, the 30x30 downdate), the point update ~17k."""
     ev = 4.5e3 + (116e3 if use_kin else 14e3)
     return nb * (k * ev + 4.5e3 + 17e3)
+
+
+def chain_points_flops(nb, k, p, use_kin) -> float:
+    """As ``chain_flops``, plus ~110 flops a point for its row of the normal
+    equations (R^T n, the cross product, the residual, the weight, 21 + 6
+    products and sums)."""
+    return chain_flops(nb, k, use_kin) + nb * p * 110.0
 
 
 def keys_inputs(torch, dev, rng, c=3584, levels=3):
@@ -352,6 +399,7 @@ def phase_build():
 
 def phase_kernels(torch, dev):
     """Each kernel against its plain version; returns {name: record}."""
+    from legkilo_torch.ops import chain_points as cp
     from legkilo_torch.ops import chain_stats as cs
     from legkilo_torch.ops import insert_rows as ir
     from legkilo_torch.ops import match_geom as mg
@@ -383,6 +431,38 @@ def phase_kernels(torch, dev):
             tol="rel 1e-4 poses, 1e-3 covariances",
         )
         log(f"[kernel] {name}: rel errs {[f'{e:.2e}' for e in errs]}")
+
+    for name, use_kin in (("chain_points", False), ("chain_points_kin", True)):
+        args = chain_points_inputs(torch, dev, rng, use_kin)
+        got = cp.chain_points_call(*args, use_kin=use_kin)
+        torch.cuda.synchronize()
+        ref = cp.chain_points_plain(*args, use_kin=use_kin)
+        if not all(bool(torch.isfinite(x).all()) for x in got):
+            raise RuntimeError(f"{name}: non-finite output")
+        # As the other chain: poses rel 1e-4, covariances rel 1e-3 (the plain
+        # version forms F P F^T and the normal equations with matrix
+        # products, the kernel as Q1 + (D Q1^T)^T and a fixed-order tree over
+        # the points); match counts and clocks exact.
+        tol = [1e-4, 1e-4, 1e-3, 1e-3, 0.0, 1e-4, 1e-4, 1e-3, 0.0]
+        errs = [rel_err(a, b) for a, b in zip(got, ref)]
+        for i, (e, t) in enumerate(zip(errs, tol)):
+            if not e <= t:
+                raise RuntimeError(f"{name}: output {i} rel err {e:.3g} > {t}")
+        again = cp.chain_points_call(*args, use_kin=use_kin)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise RuntimeError(f"{name}: two launches on the same inputs differ")
+        nb, k = args[7].shape
+        p = args[14].shape[1]
+        recs[name] = dict(
+            max_abs_err=max(max_abs(a, b) for a, b in zip(got, ref)),
+            ms=time_call(torch, lambda: cp.chain_points_call(*args, use_kin=use_kin), 50),
+            plain_ms=time_call(torch, lambda: cp.chain_points_plain(*args, use_kin=use_kin), 3),
+            bytes=nbytes(list(args) + list(got)), flops=chain_points_flops(nb, k, p, use_kin),
+            tol="rel 1e-4 poses, 1e-3 covariances; counts and clocks exact; repeat bit-equal",
+        )
+        log(f"[kernel] {name}: rel errs {[f'{e:.2e}' for e in errs]}, "
+            f"{int(got[4].sum())} matched rows, empty bucket count {int(got[4][2 * nb // 3])}, "
+            f"gated-off bucket count {int(got[4][nb // 3])}")
 
     kargs = keys_inputs(torch, dev, rng)
     got = mg.keys_call(*kargs, 3, 1 << 14)
@@ -521,11 +601,12 @@ def phase_kernels(torch, dev):
 
 
 def wrappers():
-    from legkilo_torch.ops import chain_stats as cs, insert_rows as ir, match_geom as mg
-    from legkilo_torch.ops import plane_fit_rows as pfr, pose_prop as pp
+    from legkilo_torch.ops import chain_points as cp, chain_stats as cs, insert_rows as ir
+    from legkilo_torch.ops import match_geom as mg, plane_fit_rows as pfr, pose_prop as pp
 
     return {"chain_stats": cs.chain_call, "keys": mg.keys_call, "select": mg.select_call,
-            "moments": ir.moments_call, "fit": pfr.fit_rows_call, "pose": pp.pose_call}
+            "moments": ir.moments_call, "fit": pfr.fit_rows_call, "pose": pp.pose_call,
+            "chain_points": cp.chain_points_call}
 
 
 def reset_counters():
@@ -546,17 +627,32 @@ def simulate(duration: float, tag: str):
     return data
 
 
-def run_workload(torch, data, tag: str, use_kin=False, five=True, chunk=0, latch=True):
-    """One run_offline over ``data`` on the card.  ``five`` off leaves the
-    pose and refit kernels out (plain torch); ``chunk`` > 1 replays in
-    chunks; ``latch`` off disables the escalation to iterated matching.
-    Fails on an ATE that is not finite or not under the golden bound."""
-    from legkilo_torch.io.tum import ate_rmse
-    from legkilo_torch.runner import bench_config, run_offline
+def path_config(five=True, points=False):
+    """bench.py's configuration on the fused path (``five`` off: pose and
+    refit in plain torch) or on the per-point path, and the set of wrappers
+    whose kernels that path launches."""
+    from legkilo_torch.runner import bench_config, bench_config_points
 
+    if points:
+        return bench_config_points(), POINTS_KERNELS
     cfg = bench_config()
-    cfg.only_imu_use = not use_kin
     cfg.tpu.use_pallas_pose = cfg.tpu.use_pallas_refit = five
+    return cfg, FUSED_KERNELS if five else FOUR_KERNELS
+
+
+def run_workload(torch, data, tag: str, use_kin=False, five=True, chunk=0, latch=True,
+                 points=False):
+    """One run_offline over ``data`` on the card.  ``five`` off leaves the
+    pose and refit kernels out (plain torch); ``points`` takes the per-point
+    path; ``chunk`` > 1 replays in chunks; ``latch`` off disables the
+    escalation to iterated matching.  Fails on an ATE that is not finite or
+    not under the golden bound, on a kernel of the path that never launched
+    and on a kernel off the path that did."""
+    from legkilo_torch.io.tum import ate_rmse
+    from legkilo_torch.runner import run_offline
+
+    cfg, on_path = path_config(five, points)
+    cfg.only_imu_use = not use_kin
     if not latch:
         cfg.tpu.escalate_after = 0
     torch.cuda.reset_peak_memory_stats()
@@ -579,29 +675,29 @@ def run_workload(torch, data, tag: str, use_kin=False, five=True, chunk=0, latch
         raise RuntimeError(f"{tag}: only {len(results)} scans")
     if not np.isfinite(ate) or ate >= ATE_BOUND_M:
         raise RuntimeError(f"{tag}: ATE {ate:.4f} m >= {ATE_BOUND_M} m")
-    missing = [k for k, v in counts.items() if v <= 0 and (five or k not in ("fit", "pose"))]
-    if missing:
-        raise RuntimeError(f"{tag}: kernels never launched on the path: {missing}")
+    missing = sorted(k for k in on_path if counts[k] <= 0)
+    stray = sorted(k for k, v in counts.items() if v > 0 and k not in on_path)
+    if missing or stray:
+        raise RuntimeError(f"{tag}: kernels of the path never launched: {missing}; "
+                           f"kernels off the path launched: {stray}")
     return rec
 
 
-def phase_profile(torch, five: bool, n_warm=10, n_prof=20):
-    """torch.profiler over ``n_prof`` main-path scans after ``n_warm`` warm-up
-    scans, fed by run_offline's own replay loop: the device's busy share of
-    the host wall clock, kernel launches a scan, and device time a scan by
+def phase_profile(torch, tag: str, five=True, points=False, n_warm=10, n_prof=20):
+    """torch.profiler over ``n_prof`` scans after ``n_warm`` warm-up scans,
+    fed by run_offline's own replay loop: the device's busy share of the
+    host wall clock, kernel launches a scan, and device time a scan by
     operator (ours and PyTorch's).  ``five`` off profiles the configuration
-    without the pose and refit kernels."""
+    without the pose and refit kernels, ``points`` the per-point path."""
     import itertools
 
     from torch.profiler import ProfilerActivity, profile
 
     from legkilo_torch.models import sim
-    from legkilo_torch.runner import OdometryRunner, bench_config, replay
+    from legkilo_torch.runner import OdometryRunner, replay
 
     data = sim.simulate(sim.SimConfig(duration=(n_warm + n_prof + 1) * 0.1, scan_points=8000, seed=7))
-    cfg = bench_config()
-    cfg.tpu.use_pallas_pose = cfg.tpu.use_pallas_refit = five
-    tag = "profile5" if five else "profile4"
+    cfg, _ = path_config(five, points)
     runner = OdometryRunner(cfg, device="cuda")
     steps = replay(runner, data.scans, data.imu)
     for _ in itertools.islice(steps, n_warm):
@@ -640,7 +736,8 @@ def phase_profile(torch, five: bool, n_warm=10, n_prof=20):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="build,kernels,main,chunk,stream1,four,profile,kin")
+    ap.add_argument("--phases",
+                    default="build,kernels,main,chunk,stream1,four,profile,kin,points,points_kin")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -662,8 +759,8 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     phase_build()
     recs = phase_kernels(torch, dev) if "kernels" in phases else {}
-    main_rec = kin_rec = None
-    if phases & {"main", "chunk", "stream1", "four"}:
+    main_rec = kin_rec = points_rec = points_kin_rec = None
+    if phases & {"main", "chunk", "stream1", "four", "points"}:
         data = simulate(MAIN_DURATION_S, "main")
         if "main" in phases:
             main_rec = run_workload(torch, data, "main")
@@ -673,28 +770,43 @@ def main(argv=None) -> int:
                 f"its ms/scan includes that staging")
         if "stream1" in phases:
             run_workload(torch, data, "stream1", latch=False)
+        if "points" in phases:
+            points_rec = run_workload(torch, data, "points", points=True)
         if "four" in phases:
             n = int(FOUR_DURATION_S * 10)
             data.scans = data.scans[:n]
             run_workload(torch, data, "four", five=False)
     if "profile" in phases:
-        p4 = phase_profile(torch, five=False)
-        p5 = phase_profile(torch, five=True)
+        p4 = phase_profile(torch, "profile4", five=False)
+        p5 = phase_profile(torch, "profile5")
         log(f"[profile] device launches/scan {p4['launches_per_scan']:.0f} -> "
             f"{p5['launches_per_scan']:.0f}, device busy ms/scan {p4['device_ms_per_scan']:.3f} -> "
             f"{p5['device_ms_per_scan']:.3f} (four -> five kernels)")
-    if "kin" in phases:
-        kin_rec = run_workload(torch, simulate(KIN_DURATION_S, "kin"), "kin", use_kin=True)
+        if "points" in phases:
+            pp_ = phase_profile(torch, "profile_points", points=True)
+            log(f"[profile] per-point path: {pp_['launches_per_scan']:.0f} device launches/scan, "
+                f"device busy {pp_['device_ms_per_scan']:.3f} ms/scan, host wall "
+                f"{pp_['wall_ms_per_scan']:.3f} ms/scan")
+    if phases & {"kin", "points_kin"}:
+        kin_data = simulate(KIN_DURATION_S, "kin")
+        if "kin" in phases:
+            kin_rec = run_workload(torch, kin_data, "kin", use_kin=True)
+        if "points_kin" in phases:
+            points_kin_rec = run_workload(torch, kin_data, "points_kin", use_kin=True, points=True)
     log(f"[done] phases {sorted(phases)} in {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
     for name, rec in recs.items():
         if name == "pose_384":  # off the main path's shape: held above, not listed
             continue
-        if name == "chain_stats_kin":
-            launches = kin_rec["launches"]["chain_stats"] if kin_rec else 0
-        else:
-            launches = main_rec["launches"][name] if main_rec else 0
+        # The run whose counters give the kernel's launches: each chain on
+        # its own path's run, the rest on the main path's.
+        run, counter = {
+            "chain_stats_kin": (kin_rec, "chain_stats"),
+            "chain_points": (points_rec, "chain_points"),
+            "chain_points_kin": (points_kin_rec, "chain_points"),
+        }.get(name, (main_rec, name))
+        launches = run["launches"][counter] if run else 0
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": launches, "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],

@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """The port's runner against the JAX package's, scan by scan, on the CPU.
 
-    JAX_PLATFORMS=cpu python3 compare_runners.py [--five | --pose-routes] [--out FILE]
+    JAX_PLATFORMS=cpu python3 compare_runners.py [--five | --points | --pose-routes] [--out FILE]
 
 Both runners replay the bench.py workload (24 s sim, 8000 points a scan,
 seed 7, the knobs of runner.bench_config) through ``run_offline``: the JAX
 package with its chain, match and insert kernels in interpret mode, the port
 on the CPU with their plain versions.  ``--five`` turns the pose and refit
-kernels on as well in both (bench.py's own set of five switches).  Both build
+kernels on as well in both (bench.py's own set of five switches);
+``--points`` runs both on the per-point path instead (``chain_impl="jax"``
+with the pose and refit kernels on: the JAX package's lax.scan chain, the
+port's plain version of the per-point chain kernel).  Both build
 packets with the numpy path (``tpu_use_native`` off), so they start from the
 same bytes.
 
@@ -107,6 +110,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None)
     ap.add_argument("--five", action="store_true",
                     help="all five kernel switches (pose and refit too) in both runners")
+    ap.add_argument("--points", action="store_true",
+                    help="the per-point path (chain_impl=jax, pose and refit kernels on) in both runners")
     ap.add_argument("--pose-routes", action="store_true",
                     help="the port only: pose kernel route vs plain route, matches a scan")
     args = ap.parse_args(argv)
@@ -122,9 +127,9 @@ def main(argv=None) -> int:
     from legkilo_torch import runner as t_runner
     from legkilo_torch.models import sim
 
-    tcfg = t_runner.bench_config()
+    tcfg = t_runner.bench_config_points() if args.points else t_runner.bench_config()
     tcfg.tpu.use_native = False
-    tcfg.tpu.use_pallas_pose = tcfg.tpu.use_pallas_refit = args.five
+    tcfg.tpu.use_pallas_pose = tcfg.tpu.use_pallas_refit = args.five or args.points
     jcfg = j_config.Config()
     for section in ("lidar", "voxel_map", "tpu", "eskf"):
         for f in dataclasses.fields(getattr(tcfg, section)):
@@ -139,7 +144,8 @@ def main(argv=None) -> int:
     stop = min(ends) + 1 if ends else min(len(jrates), len(trates))
     diffs = [abs(a - b) for a, b in zip(jrates[:stop], trates[:stop]) if a is not None and b is not None]
     summary = {
-        "duration_s": DURATION_S, "kernel_switches": 5 if args.five else 3, "jax": jrec, "torch": trec,
+        "duration_s": DURATION_S, "chain_impl": tcfg.tpu.chain_impl,
+        "kernel_switches": 5 if args.five or args.points else 3, "jax": jrec, "torch": trec,
         "rate_diff_before_escalation": {"scans": len(diffs), "max": max(diffs), "mean": float(np.mean(diffs))},
     }
     if args.out:

@@ -1,9 +1,10 @@
 """legkilo_torch — the PyTorch/CUDA port of legkilo_tpu.
 
 A second package beside ``legkilo_tpu`` (the JAX reference, which stays as
-it is): the deferred odometry pipeline in PyTorch, with the chain, match,
-insert-moment, pose and plane-refit kernels written by hand in CUDA C++ for
-Hopper (``csrc/``).
+it is): the deferred odometry pipeline in PyTorch (the fused chain of the
+main path and the per-point ``chain_impl="jax"`` path), with the two chain
+kernels and the match, insert-moment, pose and plane-refit kernels written
+by hand in CUDA C++ for Hopper (``csrc/``).
 It imports ``torch`` and numpy and nothing of JAX or of the JAX package.
 
 Entry points run on the card (``device="cuda"``) and raise when it is

@@ -8,9 +8,11 @@
 
 Without ``--config_file`` it runs the bench.py workload (runner.bench_config,
 all five kernel switches on); with one, that config as written, which must
-select the port's path (the deferred pipeline with ``tpu_use_pallas``,
-``tpu_use_pallas_match`` and ``tpu_use_pallas_insert`` on): the runner
-refuses any option the port has not ported.  ``--pallas`` turns all five
+select one of the port's paths: the deferred pipeline with ``tpu_use_pallas``,
+``tpu_use_pallas_match`` and ``tpu_use_pallas_insert`` on (the fused chain),
+or the deferred pipeline with ``tpu_chain_impl: jax`` (the per-point chain,
+which reads none of those three).  The runner refuses any option the port
+has not ported.  ``--pallas`` turns all five
 kernel switches on, as it does in the JAX package's CLI.  ``--chunk K``
 replays K staged scans a call; ``--save_ckpt`` snapshots at the end and
 ``--resume`` with ``--skip_scans N`` continues such a run from scan N.

@@ -8,6 +8,9 @@ which needs no JAX to read:
     state.rot, state.lin, cov, last_predict_t, last_update_t,
     vm.ptab, vm.meta, vm.mom, vm.moms, vm.plane, vm.ocnt, last_slide_pos
 
+Both deferred paths (``chain_impl`` "fused" and "jax") carry this same
+``FilterCarry`` and write the same checkpoint; nothing is path-specific.
+
 ``FilterParams`` flattens to 7 leaves: noise.q_diag, noise.imu_meas_r,
 noise.kin_meas_noise, noise.lidar_point_meas_ratio, ext_r, ext_t,
 g_over_acc_norm.

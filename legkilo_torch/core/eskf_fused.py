@@ -72,9 +72,9 @@ def exp3(w: torch.Tensor) -> torch.Tensor:
     theta = torch.sqrt(theta2)
     small = theta < 1e-6
     safe_t = torch.where(small, torch.ones_like(theta), theta)
-    a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(safe_t) / safe_t)
+    a = torch.where(small, 1.0 - theta2 * (1.0 / 6.0), torch.sin(safe_t) / safe_t)
     b = torch.where(
-        small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(safe_t)) / (safe_t * safe_t)
+        small, 0.5 - theta2 * (1.0 / 24.0), (1.0 - torch.cos(safe_t)) / (safe_t * safe_t)
     )
     K = skew(w)
     return _eye(3, w) + a[..., None, None] * K + b[..., None, None] * umm(K, K)

@@ -4,7 +4,8 @@ The types of the JAX module as NamedTuples of tensors, plus the carry
 initialisation, the first-frame state and map, the sensor-gap soft reset and
 the per-scan covariance re-symmetrisation, and chunked replay
 (stack_scan_packets, process_scan_chunk).  The reference-faithful sequential
-rollout (process_scan) waits for a later slice; the deferred main path is
+rollout (process_scan) waits for a later slice; the deferred pipeline (the
+fused main path and the per-point ``chain_impl="jax"`` path) is
 core/filter_deferred.py.
 """
 

@@ -1,7 +1,8 @@
 """The deferred scan pipeline on the port's kernels (subset of legkilo_tpu/core/filter_deferred.py).
 
-Per scan, as ``_process_scan_fused`` of the JAX package with the chain,
-match and insert kernels on (``use_pallas``, ``use_pallas_match``,
+Two paths, chosen by ``chain_impl``.  ``"fused"`` is the main path: per
+scan, as ``_process_scan_fused`` of the JAX package with the chain, match
+and insert kernels on (``use_pallas``, ``use_pallas_match``,
 ``use_pallas_insert``; ``use_pallas_pose`` and ``use_pallas_refit`` switch
 the pose and refit kernels on as well):
 
@@ -21,8 +22,19 @@ the pose and refit kernels on as well):
 5. With ``map_sliding_en``, the map slide once the pose has moved
    ``sliding_thresh`` from the last slide.
 
-The sequential pipeline and the ``chain_impl="jax"`` chain are not ported
-yet: ``check_supported`` raises NotImplementedError for them.
+``"jax"`` is the per-point path (the JAX package's lax.scan chain): the
+same match poses; ``_batched_match`` with ``voxel_map.match_points`` gives
+per-point match rows in bucket layout [NB, P] (compacted to ``match_cap``
+rows for the probe and scattered back); the per-point chain kernel
+(ops/chain_points.py) reduces each bucket's points to its 6x6 normal
+equations inside the chain; the insert recomputes world points and
+variances at the chain's post-update bucket poses and goes through the
+claiming ``insert_points``.  The chain, match and insert switches, the
+probe reuse and the multiple-of-128 caps belong to the fused path and are
+not read here; ``use_pallas_pose`` and ``use_pallas_refit`` act on both.
+
+The sequential pipeline is not ported yet: ``check_supported`` raises
+NotImplementedError for it and for any other option off these paths.
 """
 
 from __future__ import annotations
@@ -34,15 +46,19 @@ import torch
 from ..ops import insert_rows as ir
 from ..ops import match_geom as mg
 from ..ops import pose_prop as pp
+from ..ops.chain_points import run_chain
 from ..ops.chain_stats import run_chain_stats
 from .filter import FilterCarry, FilterParams, ScanOutput, ScanPacket, StaticConfig, maybe_symmetrize_cov
-from .so3 import exp_so3
+from .plane_fit import calc_body_cov
+from .so3 import exp_so3, skew
 from .voxel_map import (
     VoxelMap,
     _gather_fill,
     compact_order,
     gated_insert_rows,
     insert_packed_rows_hinted,
+    insert_points,
+    match_points,
     slide_map,
 )
 
@@ -57,20 +73,24 @@ def _row_cap(scfg: StaticConfig, nb: int, p: int) -> int:
 def check_supported(scfg: StaticConfig, nb: int, p: int) -> None:
     """Raise NotImplementedError for an option this slice has not ported."""
     mcfg = scfg.map_cfg
-    unported = {
+    common = {
         "pipeline != 'deferred' (sequential rollout)": scfg.pipeline != "deferred",
-        "chain_impl != 'fused'": scfg.chain_impl != "fused",
+        "chain_impl not 'fused' or 'jax'": scfg.chain_impl not in ("fused", "jax"),
+        "match_pose not 'imu' or 'const_vel'": scfg.match_pose not in ("imu", "const_vel"),
+    }
+    # The switches and caps below shape the fused path only; the per-point
+    # path (chain_impl="jax") does not read them.
+    fused_only = {} if scfg.chain_impl == "jax" else {
         "use_pallas off (the chain's non-kernel path)": not scfg.use_pallas,
         "use_pallas_match off (the match phase's non-kernel path)": not scfg.use_pallas_match,
         "use_pallas_insert off (the insert phase's non-kernel path)": not scfg.use_pallas_insert,
         "insert_reuse_probe off": not scfg.insert_reuse_probe,
-        "match_pose not 'imu' or 'const_vel'": scfg.match_pose not in ("imu", "const_vel"),
         "match/insert cap not a multiple of 128": _row_cap(scfg, nb, p) % 128 != 0,
         "insert_row_cap not a positive multiple of 128": (
             mcfg.insert_row_cap <= 0 or mcfg.insert_row_cap % 128 != 0
         ),
     }
-    missing = [k for k, v in unported.items() if v]
+    missing = [k for k, v in {**common, **fused_only}.items() if v]
     if missing:
         raise NotImplementedError("legkilo_torch has not ported: " + "; ".join(missing))
 
@@ -252,6 +272,163 @@ def _match_compact_stats(carry: FilterCarry, packet: ScanPacket, params: FilterP
     return s40, nmatch_b, aux
 
 
+def _batched_match(carry: FilterCarry, packet: ScanPacket, params: FilterParams,
+                   scfg: StaticConfig, poses=None):
+    """Match phase of the per-point path: match poses, point transforms and
+    variances, ``match_points``, and the measurement variance
+    (KILO.cc:201-209) at the match poses.  Returns (p_i [NB,P,3], normal,
+    center [NB,P,3], r_meas [NB,P], matched [NB,P] bool, crossmat
+    [NB,P,3,3]) in bucket layout.
+
+    With ``match_cap`` under NB*P the valid rows are compacted to the front
+    so the variance products and the map probe run over ``match_cap`` rows;
+    the results are scattered back, rows left behind (invalid, or valid
+    beyond the cap) reading zeros and unmatched."""
+    cov0 = carry.cov
+    nb, p, _ = packet.points.shape
+    dtype, dev = cov0.dtype, cov0.device
+    rb, pb = poses if poses is not None else _predicted_bucket_poses(carry, packet, params, scfg)
+
+    pts = packet.points                                    # [NB,P,3] body
+    p_i = pts @ params.ext_r.T + params.ext_t              # [NB,P,3]
+    crossmat = skew(p_i)                                   # [NB,P,3,3]
+    rot_ext = rb @ params.ext_r                            # [NB,3,3]
+    mask = packet.point_mask & packet.bucket_mask[:, None]
+    ratio = params.noise.lidar_point_meas_ratio
+
+    if scfg.match_cap and scfg.match_cap < nb * p:
+        mask_f = mask.reshape(-1)
+        order = compact_order(mask_f, scfg.match_cap)      # [C]; nb*p for unfilled slots
+        bidx = torch.clamp(order // p, max=nb - 1)
+        pts_c = _gather_fill(pts.reshape(-1, 3), order, 0.0)
+        p_i_c = _gather_fill(p_i.reshape(-1, 3), order, 0.0)
+        rb_c = rb[bidx]
+        p_w_c = torch.einsum("cij,cj->ci", rb_c, p_i_c) + pb[bidx]
+        body_cov_c = calc_body_cov(pts_c, scfg.dept_err, scfg.beam_err)
+        cross_c = _gather_fill(crossmat.reshape(-1, 3, 3), order, 0.0)
+        rot_ext_c = rot_ext[bidx]
+        rot_cross_c = rb_c @ cross_c
+        var_bw = torch.einsum("cij,cjk,clk->cil", rot_ext_c, body_cov_c, rot_ext_c)
+        var_c = (
+            var_bw
+            + torch.einsum("cij,jk,clk->cil", rot_cross_c, cov0[0:3, 0:3], rot_cross_c)
+            + cov0[3:6, 3:6]
+        )
+        mask_c = _gather_fill(mask_f, order, False)
+        m = match_points(carry.vm, scfg.map_cfg, p_w_c, var_c, mask_c)
+
+        j_nq = torch.cat([p_w_c - m.center, -m.normal], dim=-1)
+        single_l = torch.clamp(torch.einsum("ci,cij,cj->c", j_nq, m.plane_var, j_nq), min=0.0)
+        r_c = ratio * (single_l + torch.einsum("ci,cij,cj->c", m.normal, var_bw, m.normal))
+
+        # Scatter back through a sentinel row at nb*p, which takes every
+        # unfilled slot's write and is cut off again.
+        def back(rows, fill_dtype):
+            out = torch.zeros((nb * p + 1,) + tuple(rows.shape[1:]), dtype=fill_dtype, device=dev)
+            out[order] = rows
+            return out[: nb * p]
+
+        normal = back(m.normal, dtype).reshape(nb, p, 3)
+        center = back(m.center, dtype).reshape(nb, p, 3)
+        r_meas = back(r_c, dtype).reshape(nb, p)
+        matched = back(m.matched & mask_c, torch.bool).reshape(nb, p)
+        return p_i, normal, center, r_meas, matched, crossmat
+
+    p_w = torch.einsum("bij,bpj->bpi", rb, p_i) + pb[:, None, :]
+    body_cov = calc_body_cov(pts, scfg.dept_err, scfg.beam_err)   # [NB,P,3,3]
+    rot_cross = rb[:, None] @ crossmat
+    var_bw = torch.einsum("bij,bpjk,blk->bpil", rot_ext, body_cov, rot_ext)
+    var = (
+        var_bw
+        + torch.einsum("bpij,jk,bplk->bpil", rot_cross, cov0[0:3, 0:3], rot_cross)
+        + cov0[3:6, 3:6]
+    )
+    m = match_points(carry.vm, scfg.map_cfg, p_w.reshape(nb * p, 3), var.reshape(nb * p, 3, 3),
+                     mask.reshape(-1))
+    normal = m.normal.reshape(nb, p, 3)
+    center = m.center.reshape(nb, p, 3)
+    j_nq = torch.cat([p_w - center, -normal], dim=-1)
+    single_l = torch.clamp(
+        torch.einsum("bpi,bpij,bpj->bp", j_nq, m.plane_var.reshape(nb, p, 6, 6), j_nq), min=0.0
+    )
+    r_meas = ratio * (single_l + torch.einsum("bpi,bpij,bpj->bp", normal, var_bw, normal))
+    matched = m.matched.reshape(nb, p) & mask
+    return p_i, normal, center, r_meas, matched, crossmat
+
+
+def _chain_jax(carry: FilterCarry, packet: ScanPacket, params: FilterParams, scfg: StaticConfig,
+               p_i, normal, center, r_meas, matched):
+    """The per-point chain over pre-matched planes (the JAX package's
+    lax.scan ``_chain_jax``), on the per-point chain kernel."""
+    return run_chain(carry, packet, params, p_i, normal, center, r_meas, matched,
+                     use_kin=scfg.use_kin)
+
+
+def _slide_if_moved(carry: FilterCarry, scfg: StaticConfig) -> FilterCarry:
+    """The map slide once the pose has moved ``sliding_thresh`` from the
+    last slide.  Both maps are formed and one is selected on the card: no
+    host read."""
+    moved = torch.linalg.norm(carry.state.pos - carry.last_slide_pos)
+    trigger = moved >= scfg.sliding_thresh
+    vm_slid = slide_map(carry.vm, scfg.map_cfg, carry.state.pos, scfg.half_map_size)
+    return carry._replace(
+        vm=VoxelMap(*(torch.where(trigger, a, b) for a, b in zip(vm_slid, carry.vm))),
+        last_slide_pos=torch.where(trigger, carry.state.pos, carry.last_slide_pos),
+    )
+
+
+def _process_scan_points(carry: FilterCarry, packet: ScanPacket, params: FilterParams,
+                         scfg: StaticConfig) -> Tuple[FilterCarry, ScanOutput]:
+    """The per-point scan step (``chain_impl="jax"``): match rows in bucket
+    layout, the per-point chain, then one batched insert at the chain's
+    post-update bucket poses (KILO.cc:216-231 recompute + UpdateVoxelMap)."""
+    nb, p, _ = packet.points.shape
+    ocnt0 = carry.vm.ocnt
+
+    carry0, poses = carry, None
+    for _ in range(max(1, scfg.match_iters)):
+        p_i, normal, center, r_meas, matched, crossmat = _batched_match(
+            carry0, packet, params, scfg, poses)
+        carry, rots, poss, rot_covs, pos_covs, nmatch = _chain_jax(
+            carry0, packet, params, scfg, p_i, normal, center, r_meas, matched)
+        poses = (rots, poss)
+
+    p_w = torch.einsum("bij,bpj->bpi", rots, p_i) + poss[:, None, :]
+    body_cov = calc_body_cov(packet.points, scfg.dept_err, scfg.beam_err)
+    rot_ext = rots @ params.ext_r
+    rot_cross = rots[:, None] @ crossmat
+    var = (
+        torch.einsum("bij,bpjk,blk->bpil", rot_ext, body_cov, rot_ext)
+        + torch.einsum("bpij,bjk,bplk->bpil", rot_cross, rot_covs, rot_cross)
+        + pos_covs[:, None]
+    )
+    mask = packet.point_mask & packet.bucket_mask[:, None]
+    p_w_f, var_f, mask_f = p_w.reshape(nb * p, 3), var.reshape(nb * p, 3, 3), mask.reshape(-1)
+    if scfg.insert_cap and scfg.insert_cap < nb * p:
+        # Valid points to the front: the insert works on insert_cap rows.
+        order = compact_order(mask_f, scfg.insert_cap)
+        p_w_f = _gather_fill(p_w_f, order, 0.0)
+        var_f = _gather_fill(var_f, order, 0.0)
+        mask_f = _gather_fill(mask_f, order, False)
+    carry = carry._replace(vm=insert_points(carry.vm, scfg.map_cfg, p_w_f, var_f, mask_f))
+
+    if scfg.map_sliding_en:
+        carry = _slide_if_moved(carry, scfg)
+
+    n_valid = mask.sum().to(torch.int32)
+    caps = [c for c in (scfg.match_cap, scfg.insert_cap) if c and c < nb * p]
+    cap_dropped = torch.clamp(n_valid - min(caps), min=0) if caps else torch.zeros_like(n_valid)
+    out = ScanOutput(
+        rot=carry.state.rot,
+        pos=carry.state.pos,
+        n_matched=nmatch.sum(),
+        n_points=n_valid,
+        n_cap_dropped=cap_dropped,
+        map_overflow=carry.vm.ocnt - ocnt0,
+    )
+    return carry, out
+
+
 def insert_phase(vm, mcfg, params: FilterParams, bidx, p_i_c, body_cov_c, mask_c,
                  own_keys, own_slot, own_found, own_plane, rots, poss, rot_covs, pos_covs):
     """Insert on the moments kernel (the JAX ``insert_phase_pallas``):
@@ -299,14 +476,7 @@ def _process_scan_fused(carry: FilterCarry, packet: ScanPacket, params: FilterPa
     carry = carry._replace(vm=vm)
 
     if scfg.map_sliding_en:
-        # Both maps are formed and one is selected on the card: no host read.
-        moved = torch.linalg.norm(carry.state.pos - carry.last_slide_pos)
-        trigger = moved >= scfg.sliding_thresh
-        vm_slid = slide_map(carry.vm, scfg.map_cfg, carry.state.pos, scfg.half_map_size)
-        carry = carry._replace(
-            vm=VoxelMap(*(torch.where(trigger, a, b) for a, b in zip(vm_slid, carry.vm))),
-            last_slide_pos=torch.where(trigger, carry.state.pos, carry.last_slide_pos),
-        )
+        carry = _slide_if_moved(carry, scfg)
 
     out = ScanOutput(
         rot=carry.state.rot,
@@ -322,12 +492,13 @@ def _process_scan_fused(carry: FilterCarry, packet: ScanPacket, params: FilterPa
 def process_scan_deferred(carry: FilterCarry, packet: ScanPacket, params: FilterParams,
                           scfg: StaticConfig) -> Tuple[FilterCarry, ScanOutput]:
     """One scan through the deferred pipeline: rebase the clocks, run the
-    fused path, re-symmetrise the covariance."""
+    fused or the per-point path, re-symmetrise the covariance."""
     nb, p, _ = packet.points.shape
     check_supported(scfg, nb, p)
     carry = carry._replace(
         last_predict_t=carry.last_predict_t - packet.rebase,
         last_update_t=carry.last_update_t - packet.rebase,
     )
-    carry, out = _process_scan_fused(carry, packet, params, scfg)
+    step = _process_scan_fused if scfg.chain_impl == "fused" else _process_scan_points
+    carry, out = step(carry, packet, params, scfg)
     return maybe_symmetrize_cov(carry, scfg), out

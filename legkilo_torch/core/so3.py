@@ -32,9 +32,9 @@ def exp_so3(w: torch.Tensor) -> torch.Tensor:
     theta = torch.sqrt(theta2)
     small = theta < _SMALL_ANGLE
     safe_t = torch.where(small, torch.ones_like(theta), theta)
-    a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(safe_t) / safe_t)
+    a = torch.where(small, 1.0 - theta2 * (1.0 / 6.0), torch.sin(safe_t) / safe_t)
     b = torch.where(
-        small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(safe_t)) / (safe_t * safe_t)
+        small, 0.5 - theta2 * (1.0 / 24.0), (1.0 - torch.cos(safe_t)) / (safe_t * safe_t)
     )
     K = skew(w)
     eye = torch.eye(3, dtype=w.dtype, device=w.device).expand(K.shape)

@@ -36,8 +36,10 @@ Differences from the JAX module, none of which changes a result:
 * Summation order.  The moment scatter-adds run in row order on the CPU and
   with atomics on the card, where their order changes from run to run.
 
-The point-batch match (match_points) and the per-level (non-flat) probes
-serve paths the port has not taken up yet.
+The point-batch match (``match_points``) serves the ``chain_impl="jax"``
+path; the fused path matches through the keys and select kernels
+(ops/match_geom.py).  The per-level (non-flat) probes serve the sequential
+rollout, which the port has not taken up yet.
 """
 
 from __future__ import annotations
@@ -63,6 +65,7 @@ _SYM6 = (0, 1, 2, 4, 5, 8)
 _FULL9 = (0, 1, 2, 1, 3, 4, 2, 4, 5)
 _SYM21_PAIRS = tuple((i, j) for i in range(6) for j in range(i, 6))
 _TRIU36 = tuple(i * 6 + j for (i, j) in _SYM21_PAIRS)
+_FULL36 = tuple(_SYM21_PAIRS.index((min(i, j), max(i, j))) for i in range(6) for j in range(6))
 
 
 class MapConfig(NamedTuple):
@@ -115,6 +118,27 @@ class VoxelMap(NamedTuple):
     moms: torch.Tensor
     plane: torch.Tensor
     ocnt: torch.Tensor
+
+
+class MatchResult(NamedTuple):
+    """Per-point plane match (PointToPlane analog, voxel_map.h:80-94); the
+    ``own_*`` fields expose the own-voxel chain's probe (keys, global flat
+    slot with L*C = miss, hit and is-plane flags per level)."""
+
+    matched: torch.Tensor      # [N] bool
+    normal: torch.Tensor       # [N, 3]
+    center: torch.Tensor       # [N, 3] plane centre in world
+    plane_var: torch.Tensor    # [N, 6, 6]
+    signed_dist: torch.Tensor  # [N] n . (p - centre)
+    own_keys: torch.Tensor     # [L, N, 3]
+    own_slot: torch.Tensor     # [L, N]
+    own_found: torch.Tensor    # [L, N] bool
+    own_plane: torch.Tensor    # [L, N] bool
+
+
+def _expand_pv(rows21: torch.Tensor) -> torch.Tensor:
+    """[..., 21] packed plane_var -> [..., 6, 6]."""
+    return rows21[..., list(_FULL36)].reshape(rows21.shape[:-1] + (6, 6))
 
 
 _STORAGE = {"f32": torch.float32, "f16": torch.float16, "bf16": torch.bfloat16}
@@ -453,6 +477,103 @@ def _insert_finish(vm: VoxelMap, cfg: MapConfig, ptab_x, p_w_rows, var_rows, key
     return VoxelMap(
         ptab=ptab_x[:miss], meta=meta_x[:miss], mom=mom_x[:miss], moms=moms_x[:miss],
         plane=plane_x[:miss], ocnt=vm.ocnt + inc,
+    )
+
+
+def match_points(vm: VoxelMap, cfg: MapConfig, p_w: torch.Tensor, var: torch.Tensor,
+                 mask: torch.Tensor) -> MatchResult:
+    """Point-to-plane association for a batch of world points (p_w [N,3],
+    var [N,3,3], mask [N]).
+
+    Two chains of candidate voxels per point, one candidate a level: the
+    point's own voxel, and the adjacent voxel on the side where the point
+    lies more than a quarter of the voxel from its centre (the neighbour
+    retry of KILO.cc:156-178).  All 2 L candidates are probed, gathered and
+    gated in one flattened batch: a candidate passes when its slot holds a
+    plane, the point's in-plane distance from the plane's centre is within
+    ``radius_k`` radii, and its distance from the plane is within
+    ``sigma_num`` sigma, with sigma^2 = J plane_var J^T + n^T var n
+    (voxel_map.cc:383-386; the plane_var form clamped at 0 against
+    reduced-precision storage, the sum floored at 1e-12).  Within a chain a
+    level is reachable only while every ancestor exists and is not a plane
+    (build_single_residual, voxel_map.cc:371-427); the passing candidate of
+    highest probability wins, and the neighbour chain is used only when the
+    own chain matched nothing.  A missed slot reads zeros."""
+    dtype = vm.meta.dtype
+    dev = p_w.device
+    L, N = cfg.levels, p_w.shape[0]
+
+    keys_all = []
+    for chain in range(2):
+        for lvl in range(L):
+            size = level_size(cfg, lvl)
+            keys = voxel_key(p_w, size)
+            if chain == 1:
+                rel = p_w - (keys.to(dtype) + 0.5) * size
+                quarter = size / 4.0
+                keys = keys + ((rel > quarter).to(torch.int32) - (rel < -quarter).to(torch.int32))
+            keys_all.append(keys)
+    keys_f = torch.cat(keys_all, dim=0)                    # [2L*N, 3]
+    lvl_f = torch.arange(L, dtype=torch.int64, device=dev).repeat_interleave(N).repeat(2)
+
+    slot, found, _, _, is_plane = _probe_find_flat(vm.ptab, keys_f, lvl_f, cfg)
+    plane_at = _gather_fill(vm.plane, slot, 0.0).to(dtype)
+
+    sizes = torch.tensor([level_size(cfg, l) for l in range(L)], dtype=dtype, device=dev)[lvl_f]
+    center = (keys_f.to(dtype) + 0.5) * sizes[:, None] + plane_at[:, 0:3]
+    normal = plane_at[:, 3:6]
+    radius = plane_at[:, 9]
+    plane_var = _expand_pv(plane_at[:, 10:31])
+
+    rel = p_w.repeat(2 * L, 1) - center
+    var_rep = var.repeat(2 * L, 1, 1)
+    signed_dist = torch.sum(normal * rel, dim=-1)
+    dist = torch.abs(signed_dist)
+    d2c = torch.sum(rel * rel, dim=-1)
+    range_dis2 = torch.clamp(d2c - dist * dist, min=0.0)
+    gate_range = range_dis2 <= (cfg.radius_k * radius) ** 2
+
+    j_nq = torch.cat([rel, -normal], dim=-1)
+    sigma_l = torch.clamp(torch.einsum("ni,nij,nj->n", j_nq, plane_var, j_nq), min=0.0)
+    sigma_l = sigma_l + torch.einsum("ni,nij,nj->n", normal, var_rep, normal)
+    sigma_l = torch.clamp(sigma_l, min=1e-12)
+    gate_sigma = dist < cfg.sigma_num * torch.sqrt(sigma_l)
+    prob = torch.rsqrt(sigma_l) * torch.exp(-0.5 * dist * dist / sigma_l)
+    ok = found & is_plane & gate_range & gate_sigma
+
+    def r2(x, c, l):
+        return x[(c * L + l) * N : (c * L + l + 1) * N]
+
+    rows0 = torch.arange(N, dtype=torch.int64, device=dev)
+    results = []
+    for chain in range(2):
+        best_prob = torch.full((N,), -float("inf"), dtype=dtype, device=dev)
+        b_matched = torch.zeros((N,), dtype=torch.bool, device=dev)
+        b_idx = torch.zeros((N,), dtype=torch.int64, device=dev)   # flat candidate row
+        reachable = torch.ones((N,), dtype=torch.bool, device=dev)
+        for lvl in range(L):
+            okl = r2(ok, chain, lvl) & reachable
+            probl = r2(prob, chain, lvl)
+            better = okl & (probl > best_prob)
+            best_prob = torch.where(better, probl, best_prob)
+            b_matched = b_matched | okl
+            b_idx = torch.where(better, (chain * L + lvl) * N + rows0, b_idx)
+            reachable = reachable & r2(found, chain, lvl) & ~r2(is_plane, chain, lvl)
+        results.append((b_matched, b_idx))
+
+    (m_own, i_own), (m_nbr, i_nbr) = results
+    use_nbr = ~m_own & m_nbr
+    idx = torch.where(use_nbr, i_nbr, i_own)
+    return MatchResult(
+        matched=(m_own | m_nbr) & mask,
+        normal=normal[idx],
+        center=center[idx],
+        plane_var=plane_var[idx],
+        signed_dist=signed_dist[idx],
+        own_keys=keys_f[: L * N].reshape(L, N, 3),
+        own_slot=slot[: L * N].reshape(L, N),
+        own_found=found[: L * N].reshape(L, N),
+        own_plane=is_plane[: L * N].reshape(L, N),
     )
 
 

@@ -81,17 +81,7 @@ def chain_call(params, clocks, rot0, lin0, cov0, brow, etime, egate, eacc, egyr,
         if tuple(a.shape) != s:
             raise ValueError(f"chain_call: argument {i} has shape {tuple(a.shape)}, expected {s}")
     dev = _build.check_tensors("chain_call", args, [F32] * len(args))
-    outs = (
-        torch.empty((nb, 3, 3), dtype=F32, device=dev),
-        torch.empty((nb, 3), dtype=F32, device=dev),
-        torch.empty((nb, 3, 3), dtype=F32, device=dev),
-        torch.empty((nb, 3, 3), dtype=F32, device=dev),
-        torch.empty((nb,), dtype=F32, device=dev),
-        torch.empty((3, 3), dtype=F32, device=dev),
-        torch.empty((27,), dtype=F32, device=dev),
-        torch.empty((30, 30), dtype=F32, device=dev),
-        torch.empty((2,), dtype=F32, device=dev),
-    )
+    outs = empty_chain_outputs(nb, dev)
     _build.launch("chain_stats_launch", args + outs, [nb, kmax, int(bool(use_kin))])
     chain_call.launches += 1
     return outs
@@ -100,38 +90,58 @@ def chain_call(params, clocks, rot0, lin0, cov0, brow, etime, egate, eacc, egyr,
 chain_call.launches = 0
 
 
-def run_chain_stats(carry, packet, params, s40, nmatch_b, use_kin: bool = False):
-    """Pack a scan's chain inputs, run ``chain_call`` and unpack; the same
-    contract as the JAX package's ``run_chain_stats``: returns (carry with
-    the final state, cov and clocks; per-bucket rot [NB,3,3], pos [NB,3],
-    rot_cov, pos_cov [NB,3,3], nmatch [NB] int32)."""
+def empty_chain_outputs(nb: int, dev):
+    """The nine outputs of a chain kernel (module doc), uninitialised."""
+    shapes = ((nb, 3, 3), (nb, 3), (nb, 3, 3), (nb, 3, 3), (nb,), (3, 3), (27,), (30, 30), (2,))
+    return tuple(torch.empty(s, dtype=F32, device=dev) for s in shapes)
+
+
+def pack_state_and_events(carry, packet, params, use_kin: bool):
+    """A scan's chain inputs that do not depend on the match, as the chain
+    kernels take them: (params [40], clocks [2], rot0, lin0, cov0) and
+    (etime, egate, eacc, egyr, efp, efv, ect)."""
     nb, kmax = packet.imu_time.shape
     noise = params.noise
     dev = carry.cov.device
-    z2 = torch.zeros(2, dtype=F32, device=dev)
     pvec = torch.cat([
         noise.q_diag, noise.imu_meas_r, params.g_over_acc_norm.reshape(1),
-        noise.kin_meas_noise.reshape(1), z2,
+        noise.kin_meas_noise.reshape(1), torch.zeros(2, dtype=F32, device=dev),
     ])
     clocks = torch.stack([carry.last_predict_t, carry.last_update_t])
-    brow = torch.stack(
-        [packet.bucket_time, packet.bucket_mask.to(F32), nmatch_b.to(F32)], dim=1
-    )
     if use_kin:
-        efp = packet.foot_pos.reshape(nb, kmax, 12)
-        efv = packet.foot_vel.reshape(nb, kmax, 12)
+        efp = packet.foot_pos.reshape(nb, kmax, 12).contiguous()
+        efv = packet.foot_vel.reshape(nb, kmax, 12).contiguous()
         ect = packet.contact.to(F32)
     else:  # the IMU-only kernel never reads them
         efp = efv = torch.zeros((nb, kmax, 12), dtype=F32, device=dev)
         ect = torch.zeros((nb, kmax, 4), dtype=F32, device=dev)
-    (orot, opos, orotcov, oposcov, onm, frot, flin, fcov, fclocks) = chain_call(
-        pvec.contiguous(), clocks, carry.state.rot.contiguous(), carry.state.lin.contiguous(),
-        carry.cov.contiguous(), brow.contiguous(), packet.imu_time.contiguous(),
-        packet.imu_mask.to(F32), packet.imu_acc.contiguous(), packet.imu_gyr.contiguous(),
-        efp.contiguous(), efv.contiguous(), ect, s40.contiguous(), use_kin=use_kin,
-    )
+    head = (pvec, clocks, carry.state.rot.contiguous(), carry.state.lin.contiguous(),
+            carry.cov.contiguous())
+    events = (packet.imu_time.contiguous(), packet.imu_mask.to(F32), packet.imu_acc.contiguous(),
+              packet.imu_gyr.contiguous(), efp, efv, ect)
+    return head, events
+
+
+def unpack_chain_outputs(carry, outs):
+    """A chain kernel's nine outputs as the chains' common return value:
+    (carry with the final state, cov and clocks; per-bucket rot [NB,3,3],
+    pos [NB,3], rot_cov, pos_cov [NB,3,3], nmatch [NB] int32)."""
+    orot, opos, orotcov, oposcov, onm, frot, flin, fcov, fclocks = outs
     new_carry = carry._replace(
         state=State(rot=frot, lin=flin), cov=fcov,
         last_predict_t=fclocks[0], last_update_t=fclocks[1],
     )
     return new_carry, orot, opos, orotcov, oposcov, onm.to(torch.int32)
+
+
+def run_chain_stats(carry, packet, params, s40, nmatch_b, use_kin: bool = False):
+    """Pack a scan's chain inputs, run ``chain_call`` and unpack; the same
+    contract as the JAX package's ``run_chain_stats``: returns (carry with
+    the final state, cov and clocks; per-bucket rot [NB,3,3], pos [NB,3],
+    rot_cov, pos_cov [NB,3,3], nmatch [NB] int32)."""
+    head, events = pack_state_and_events(carry, packet, params, use_kin)
+    brow = torch.stack(
+        [packet.bucket_time, packet.bucket_mask.to(F32), nmatch_b.to(F32)], dim=1
+    )
+    outs = chain_call(*head, brow.contiguous(), *events, s40.contiguous(), use_kin=use_kin)
+    return unpack_chain_outputs(carry, outs)

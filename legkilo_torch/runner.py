@@ -1,7 +1,8 @@
 """Odometry runner: host orchestration of the per-scan filter (subset of legkilo_tpu/runner.py).
 
 Sensor streams -> PacketBuilder -> ``process_scan_deferred`` on the port's
-kernels -> trajectory.  Covers streaming replay with pipelined
+kernels (the fused main path, or the per-point path with
+``tpu_chain_impl: jax``) -> trajectory.  Covers streaming replay with pipelined
 materialisation (up to ``tpu_pipeline_depth`` scans in flight: the card
 runs scan k while the host builds scan k+1), the auto-escalation latch for
 iterated matching, the match-collapse alarm, the sensor-gap soft reset,
@@ -87,6 +88,16 @@ def bench_config() -> Config:
     cfg.tpu.use_pallas_insert = True
     cfg.tpu.use_pallas_pose = True
     cfg.tpu.use_pallas_refit = True
+    return cfg
+
+
+def bench_config_points() -> Config:
+    """bench.py's workload on the per-point path: ``chain_impl="jax"`` (match
+    rows in bucket layout, the per-point chain kernel, the claiming insert)
+    with the pose and refit kernels on.  The chain, match and insert
+    switches stay as bench.py sets them; that path does not read them."""
+    cfg = bench_config()
+    cfg.tpu.chain_impl = "jax"
     return cfg
 
 

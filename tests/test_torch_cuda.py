@@ -27,8 +27,8 @@ def test_kernels_match_plain_on_card(cuda_device):
 
     chip_smoke.phase_build()
     recs = chip_smoke.phase_kernels(torch, cuda_device)
-    assert set(recs) == {"chain_stats", "chain_stats_kin", "keys", "select", "moments", "fit",
-                         "pose", "pose_384"}
+    assert set(recs) == {"chain_stats", "chain_stats_kin", "chain_points", "chain_points_kin",
+                         "keys", "select", "moments", "fit", "pose", "pose_384"}
 
 
 @pytest.mark.cuda
@@ -128,3 +128,30 @@ def test_kernels_other_shapes_on_card(cuda_device, use_kin):
 
     margs = cs.moments_inputs(torch, cuda_device, rng, r=300)
     assert cs.rel_err(insert_rows.moments_call(*margs), insert_rows.moments_plain(*margs)) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_kin", [False, True], ids=["imu", "kin"])
+def test_chain_points_other_shapes_on_card(cuda_device, use_kin):
+    """The per-point chain off the path's shape: K = 2 event slots, P = 200
+    points a bucket (not a multiple of the block), with its empty and its
+    gated-off bucket; chip_smoke's tolerances; and the wrapper refuses a
+    wrong shape without launching."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from legkilo_torch.ops import chain_points as cp
+
+    args = cs.chain_points_inputs(torch, cuda_device, np.random.default_rng(5), use_kin, nb=9, k=2, p=200)
+    got = cp.chain_points_call(*args, use_kin=use_kin)
+    ref = cp.chain_points_plain(*args, use_kin=use_kin)
+    for i, (a, b) in enumerate(zip(got, ref)):
+        assert cs.rel_err(a, b) <= (1e-3 if i in (2, 3, 7) else 1e-4), i
+    assert int(got[4][3]) == 0 and int(got[4][6]) == 0 and int(got[4].sum()) > 500
+    n0 = cp.chain_points_call.launches
+    with pytest.raises(ValueError, match="expected"):
+        cp.chain_points_call(*args[:18], args[18][:, :100].contiguous(), use_kin=use_kin)
+    with pytest.raises(ValueError, match="contiguous"):
+        cp.chain_points_call(*args[:14], args[14].transpose(1, 2).contiguous().transpose(1, 2),
+                             *args[15:], use_kin=use_kin)
+    assert cp.chain_points_call.launches == n0

@@ -292,7 +292,7 @@ def test_cli_config_file_off_the_port_path_raises(tmp_path):
 @pytest.mark.parametrize("change", [
     ("tpu", "pipeline", "sequential"), ("tpu", "use_pallas", False),
     ("tpu", "use_pallas_match", False), ("tpu", "use_pallas_insert", False),
-    ("tpu", "match_pose", "spline"), ("tpu", "chain_impl", "jax"),
+    ("tpu", "match_pose", "spline"), ("tpu", "chain_impl", "pallas"),
     ("tpu", "match_cap", 1100),
     ("voxel_map", "insert_row_cap", 1000), ("tpu", "dtype", "float64"),
 ])
@@ -307,6 +307,7 @@ def test_unported_options_raise(change):
 @pytest.mark.parametrize("change", [
     ("tpu", "use_pallas_pose", True), ("tpu", "use_pallas_refit", True),
     ("tpu", "match_pose", "const_vel"), ("voxel_map", "map_sliding_en", True),
+    ("tpu", "chain_impl", "jax"),
 ])
 def test_ported_options_run(change):
     """The options this package used to refuse: a runner takes each and
