@@ -15,6 +15,9 @@ Phases, each printing its own lines:
    pose kernel at MP = 384 too),
    held against its plain PyTorch version on the same inputs within the
    stated tolerance, and timed with CUDA events (kernel and plain version).
+   The fused chain's IMU branch (the one-warp kernel) runs with a gated-off
+   and an empty bucket, its two launches must be bit-equal, and its ptxas
+   registers, spills (must be 0) and shared memory are printed.
    The refit rows are those of a short run's map plus zero padding, and the
    slots on which kernel and plain version took different branches are
    counted.
@@ -213,6 +216,17 @@ def chain_inputs(torch, dev, rng, use_kin, nb=28, k=1):
             f(etime), f(egate), f(eacc), f(egyr), f(efp), f(efv), f(ect), s40.to(dev)]
 
 
+def chain_holes(args):
+    """Bucket nb // 3 of ``chain_inputs`` gated off and bucket 2 nb // 3
+    empty (no match: its statistics and count zero), in place and without a
+    draw; at NB < 3 both are bucket 0."""
+    nb = args[5].shape[0]
+    args[5][nb // 3, 1] = 0.0
+    args[5][2 * nb // 3, 2] = 0.0
+    args[13][2 * nb // 3] = 0.0
+    return args
+
+
 def chain_points_inputs(torch, dev, rng, use_kin, nb=28, k=1, p=256):
     """The per-point chain's inputs: the state, clocks and events of
     ``chain_inputs``, and per bucket P match rows as ``_batched_match``
@@ -397,6 +411,34 @@ def phase_build():
                 log(f"[ptxas] {line}")
 
 
+def ptxas_entry(fragment: str) -> dict:
+    """Registers, static shared bytes, stack frame and spill bytes that the
+    build's ptxas log (-Xptxas -v) reports for the kernel whose mangled name
+    holds ``fragment``."""
+    import re
+
+    from legkilo_torch.ops import _build
+
+    with open(_build.ptxas_log_path()) as fh:
+        lines = fh.read().splitlines()
+    for n, line in enumerate(lines):
+        if "Compiling entry function" in line and fragment in line:
+            block = []
+            for nxt in lines[n + 1:]:
+                if "Compiling entry function" in nxt or nxt.startswith("=="):
+                    break
+                block.append(nxt)
+            body = "\n".join(block)
+
+            def total(pat):
+                return sum(int(x) for x in re.findall(pat, body))
+
+            return dict(registers=total(r"Used (\d+) registers"), smem=total(r"(\d+) bytes smem"),
+                        stack=total(r"(\d+) bytes stack frame"),
+                        spills=total(r"(\d+) bytes spill stores") + total(r"(\d+) bytes spill loads"))
+    raise RuntimeError(f"the ptxas log has no kernel named like {fragment!r}")
+
+
 def phase_kernels(torch, dev):
     """Each kernel against its plain version; returns {name: record}."""
     from legkilo_torch.ops import chain_points as cp
@@ -411,24 +453,40 @@ def phase_kernels(torch, dev):
 
     for name, use_kin in (("chain_stats", False), ("chain_stats_kin", True)):
         args = chain_inputs(torch, dev, rng, use_kin)
+        if not use_kin:  # the one-warp kernel: with its gated-off and its empty bucket
+            chain_holes(args)
         got = cs.chain_call(*args, use_kin=use_kin)
         torch.cuda.synchronize()
         ref = cs.chain_plain(*args, use_kin=use_kin)
         # Poses: rel 1e-4 of their magnitude; covariances: rel 1e-3 (the
-        # plain version applies F P F^T as columns-then-rows, the kernel as
-        # Q1 + (D Q1^T)^T, and the 18x18 inverse amplifies rounding).
+        # plain version applies F P F^T as columns-then-rows, the kernels as
+        # Q1 + (D Q1^T)^T, the warp kernel reads P H^T as (H P)^T, and the
+        # 18x18 inverse amplifies rounding); match counts and clocks exact.
         tol = [1e-4, 1e-4, 1e-3, 1e-3, 0.0, 1e-4, 1e-4, 1e-3, 0.0]
         errs = [rel_err(a, b) for a, b in zip(got, ref)]
         for i, (e, t) in enumerate(zip(errs, tol)):
             if not e <= t:
                 raise RuntimeError(f"{name}: output {i} rel err {e:.3g} > {t}")
         nb, k = args[6].shape
+        tol_text = "rel 1e-4 poses, 1e-3 covariances"
+        if not use_kin:
+            again = cs.chain_call(*args, use_kin=use_kin)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise RuntimeError(f"{name}: two launches on the same inputs differ")
+            tol_text += "; counts and clocks exact; repeat bit-equal"
+            px = ptxas_entry("chain_warp_kernel")
+            log(f"[kernel] {name}: one warp, {px['registers']} registers, {px['spills']} B of spills, "
+                f"{px['stack']} B stack frame, {px['smem']} B static + {nb * (3 + 8 * k) * 4} B staged "
+                f"shared memory; bucket {nb // 3} gated off, bucket {2 * nb // 3} empty (count "
+                f"{int(got[4][2 * nb // 3])}); two launches bit-equal")
+            if px["spills"]:
+                raise RuntimeError(f"{name}: ptxas spills {px['spills']} B in the warp kernel")
         recs[name] = dict(
             max_abs_err=max(max_abs(a, b) for a, b in zip(got, ref)),
             ms=time_call(torch, lambda: cs.chain_call(*args, use_kin=use_kin), 50),
             plain_ms=time_call(torch, lambda: cs.chain_plain(*args, use_kin=use_kin), 3),
             bytes=nbytes(list(args) + list(got)), flops=chain_flops(nb, k, use_kin),
-            tol="rel 1e-4 poses, 1e-3 covariances",
+            tol=tol_text,
         )
         log(f"[kernel] {name}: rel errs {[f'{e:.2e}' for e in errs]}")
 

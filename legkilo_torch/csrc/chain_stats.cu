@@ -9,22 +9,30 @@
 // the information-form point update from the bucket's 40x40 sufficient
 // statistics (core/eskf_fused.point_update_from_stats).
 //
-// Design: the TPU kernel walks the buckets as a sequential grid with the
-// state in VMEM scratch; here ONE thread block walks them in a loop with the
-// state (cov 30x30, rot, lin, the two clocks) in shared memory.  The 128
-// threads split every product over matrix entries; the 3x3 adjugate
-// inverses, exp3 and the state retraction run on one thread.  All
-// arithmetic is fp32 on CUDA cores.
-//
 // Bound on the H100: the chain reads ~200 KB (s40 is 6.4 KB a bucket) and
-// does ~1-3 MFLOP a scan, i.e. well under a microsecond at the card's
-// rates; it is a strictly sequential recursion on one SM, bound by the
-// latency of its ~60-200 block barriers a bucket, not by bytes or flops.
-
-// The predict and the updates are the device functions of lk_chain.cuh,
-// shared with the per-point chain kernel (chain_points.cu).
+// does ~1-4 MFLOP a scan, i.e. well under a microsecond at the card's rates;
+// it is a strictly sequential recursion on one SM, bound by the latency of
+// its critical path, not by bytes or flops.  Two kernels, picked by use_kin:
+//
+// IMU branch (use_kin = 0): chain_warp_kernel, ONE warp of 32 threads.  The
+// TPU kernel walks the buckets as a sequential grid with the state in VMEM
+// scratch and its BlockSpec pipeline fetching bucket b + 1 during bucket b.
+// Here lane c keeps column c of the covariance in registers, every lane
+// keeps its own copy of the nominal state and computes the 3x3 / 6x6
+// inverses and the retraction itself, and the lanes exchange columns and
+// gain rows through warp-private shared buffers: ~9 __syncwarp() a bucket
+// (K = 1) and no block barrier.  The event and bucket rows are copied to
+// shared memory before the walk, and each bucket's statistics into a
+// two-slot ring with cp.async one bucket ahead (lk_chain_warp.cuh).
+//
+// Kinematic branch (use_kin = 1): chain_kernel, one block of 128 threads
+// with the state in shared memory; the threads split every product over
+// matrix entries and the small inverses, exp3 and the retraction run on one
+// thread (lk_chain.cuh, shared with the per-point chain kernel,
+// chain_points.cu); ~60-200 block barriers a bucket.
 
 #include "lk_chain.cuh"
+#include "lk_chain_warp.cuh"
 
 namespace {
 
@@ -80,6 +88,7 @@ __device__ void update_points(Shared& sh, Stats& st, const float* s40) {
   info_update(sh, st.nq, 7, st.nq + 6, 7);  // A = nq[0:6, 0:6], b = nq[0:6, 6]
 }
 
+// The kinematic branch as one block (module note; lk_chain.cuh).
 __global__ void __launch_bounds__(NT)
 chain_kernel(const float* __restrict__ params, const float* __restrict__ clocks,
              const float* __restrict__ rot0, const float* __restrict__ lin0,
@@ -105,6 +114,98 @@ chain_kernel(const float* __restrict__ params, const float* __restrict__ clocks,
   store_final(sh, frot, flin, fcov, fclocks);
 }
 
+// The IMU branch as one warp (module note; lk_chain_warp.cuh).
+__global__ void __launch_bounds__(lk_warp::NW)
+chain_warp_kernel(const float* __restrict__ params, const float* __restrict__ clocks,
+                  const float* __restrict__ rot0, const float* __restrict__ lin0,
+                  const float* __restrict__ cov0, const float* __restrict__ brow,
+                  const float* __restrict__ etime, const float* __restrict__ egate,
+                  const float* __restrict__ eacc, const float* __restrict__ egyr,
+                  const float* __restrict__ s40, float* orot, float* opos, float* orotcov,
+                  float* oposcov, float* onm, float* frot, float* flin, float* fcov,
+                  float* fclocks, int nb, int kmax) {
+  namespace w = lk_warp;
+  __shared__ w::Smem sm;
+  extern __shared__ __align__(16) float staged[];  // brow | etime | egate | eacc | egyr
+  const int lane = threadIdx.x;
+  const int nev = nb * kmax;
+  float* s_brow = staged;
+  float* s_et = s_brow + 3 * nb;
+  float* s_eg = s_et + nev;
+  float* s_acc = s_eg + nev;
+  float* s_gyr = s_acc + 3 * nev;
+  w::stage(s_brow, brow, 3 * nb, lane);
+  w::stage(s_et, etime, nev, lane);
+  w::stage(s_eg, egate, nev, lane);
+  w::stage(s_acc, eacc, 3 * nev, lane);
+  w::stage(s_gyr, egyr, 3 * nev, lane);
+  w::stage(sm.prm, params, 40, lane);
+  w::cp_commit();
+  if (nb > 0) w::stage_s40(sm.ring[0], s40, lane);
+  w::cp_commit();
+  float p[30], rot[9], lin[27];
+#pragma unroll
+  for (int r = 0; r < 30; ++r) p[r] = lane < 30 ? cov0[r * 30 + lane] : 0.f;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) rot[k] = rot0[k];
+#pragma unroll
+  for (int k = 0; k < 27; ++k) lin[k] = lin0[k];
+  float lp = clocks[0], lu = clocks[1];
+  w::cp_wait<1>();  // the event rows and params (bucket 0's statistics may still fly)
+  __syncwarp();
+  const float qc = lane < 30 ? sm.prm[lane] : 0.f;
+  const float g_over_an = sm.prm[36];
+  for (int b = 0; b < nb; ++b) {
+    if (b + 1 < nb)
+      w::stage_s40(sm.ring[(b + 1) & 1], s40 + static_cast<size_t>(b + 1) * w::S40, lane);
+    w::cp_commit();  // possibly empty: one group a bucket keeps cp_wait<1> exact
+    for (int k = 0; k < kmax; ++k) {
+      const int ev = b * kmax + k;
+      const float t = s_et[ev], g = s_eg[ev];
+      w::predict(p, rot, lin, qc, lane, (t - lp) * g, (t - lu) * g, sm);
+      w::update_imu(p, rot, lin, lane, s_acc + 3 * ev, s_gyr + 3 * ev, sm.prm + 30, g_over_an,
+                    g, sm);
+      if (g > 0.5f) {
+        lp = t;
+        lu = t;
+      }
+    }
+    const float t = s_brow[3 * b], g = s_brow[3 * b + 1], nm = s_brow[3 * b + 2];
+    w::predict(p, rot, lin, qc, lane, (t - lp) * g, (t - lu) * g, sm);
+    if (g > 0.5f) lp = t;
+    w::cp_wait<1>();  // bucket b's statistics
+    __syncwarp();
+    w::update_stats(p, rot, lin, lane, sm.ring[b & 1], sm);
+    if (g > 0.5f && nm > 0.5f) lu = t;
+    if (lane == 0) {
+#pragma unroll
+      for (int k = 0; k < 9; ++k) orot[9 * b + k] = rot[k];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) opos[3 * b + k] = lin[k];
+      onm[b] = nm;
+    }
+    if (lane < 3) {
+#pragma unroll
+      for (int i = 0; i < 3; ++i) orotcov[9 * b + 3 * i + lane] = p[i];
+    } else if (lane < 6) {
+#pragma unroll
+      for (int i = 0; i < 3; ++i) oposcov[9 * b + 3 * i + lane - 3] = p[3 + i];
+    }
+  }
+  if (lane < 30) {
+#pragma unroll
+    for (int r = 0; r < 30; ++r) fcov[r * 30 + lane] = p[r];
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < 9; ++k) frot[k] = rot[k];
+#pragma unroll
+    for (int k = 0; k < 27; ++k) flin[k] = lin[k];
+    fclocks[0] = lp;
+    fclocks[1] = lu;
+  }
+}
+
 }  // namespace
 
 LK_API int chain_stats_launch(const float* params, const float* clocks, const float* rot0,
@@ -115,8 +216,22 @@ LK_API int chain_stats_launch(const float* params, const float* clocks, const fl
                               float* orotcov, float* oposcov, float* onm, float* frot,
                               float* flin, float* fcov, float* fclocks, int nb, int kmax,
                               int use_kin, void* stream) {
-  chain_kernel<<<1, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      params, clocks, rot0, lin0, cov0, brow, etime, egate, eacc, egyr, efp, efv, ect, s40, orot,
-      opos, orotcov, oposcov, onm, frot, flin, fcov, fclocks, nb, kmax, use_kin);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (use_kin) {
+    chain_kernel<<<1, NT, 0, st>>>(params, clocks, rot0, lin0, cov0, brow, etime, egate, eacc,
+                                   egyr, efp, efv, ect, s40, orot, opos, orotcov, oposcov, onm,
+                                   frot, flin, fcov, fclocks, nb, kmax, use_kin);
+    return static_cast<int>(cudaGetLastError());
+  }
+  // The staged event rows: nb (3 + 8 kmax) floats of dynamic shared memory.
+  const size_t dyn = static_cast<size_t>(nb) * (3 + 8 * kmax) * sizeof(float);
+  if (dyn + sizeof(lk_warp::Smem) > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        chain_warp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(dyn));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  chain_warp_kernel<<<1, lk_warp::NW, dyn, st>>>(params, clocks, rot0, lin0, cov0, brow, etime,
+                                                 egate, eacc, egyr, s40, orot, opos, orotcov,
+                                                 oposcov, onm, frot, flin, fcov, fclocks, nb, kmax);
   return static_cast<int>(cudaGetLastError());
 }

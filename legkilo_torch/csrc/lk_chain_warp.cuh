@@ -1,0 +1,505 @@
+// Device functions of the one-warp ESKF chain (chain_stats.cu's IMU-branch
+// kernel): ONE warp of 32 lanes walks the buckets with the filter state in
+// registers, and nothing waits on a block barrier.
+//
+// Layout.  Lane c holds column c of the 30x30 covariance P in p[0..29]
+// (lanes 30 and 31 hold zeros).  Every lane holds its own copy of the
+// nominal state (rot, lin) and of the two clocks, and computes exp3, the
+// retraction and the small 6x6 and 3x3 inverses itself, from values that
+// every lane read from the same shared-memory words; the copies stay equal
+// without a broadcast of any result.  P is symmetric, so row c of P is lane
+// c's column: P H^T = (H P)^T and P[:, 0:6] need no transpose.  What a lane
+// needs from other lanes' columns goes through a small warp-private shared
+// buffer and one __syncwarp().
+//
+// Order of the arithmetic.  The products keep the summation order of the
+// block kernel (lk_chain.cuh) and of eskf_fused where the layout allows it.
+// Where the layout departs from them (F P F^T as Q1 + Q1 D^T with its lower
+// block from Q1's rows, P H^T read as (H P)^T, P[:, 0:6] read down the
+// columns, S Phi read from S^T, exp3's series), the
+// same factorisation is written in plain torch in
+// tests/test_torch_chain_warp.py and held against chain_plain.
+//
+// Staging.  The caller copies the scan's event and bucket rows to shared
+// memory before the walk, and each bucket's 6,400 B of statistics into a
+// two-slot ring with cp.async one bucket ahead, so no device-memory load
+// sits on the recursion's critical path.
+#pragma once
+
+#include "lk_common.cuh"
+
+namespace lk_warp {
+
+constexpr int NW = 32;     // lanes: one warp
+constexpr int LDQ = 33;    // padded row of the column exchange buffers
+constexpr int LDK = 8;     // 16-byte row of the small buffers: 6 entries, dx, pad
+constexpr int S40 = 1600;  // floats of one bucket's 40x40 statistics
+
+// Warp-private shared memory (static; the staged event rows are dynamic).
+// The members read as float4 come first, so they are 16-byte aligned.
+struct __align__(16) Smem {
+  float ring[2][S40];   // s40 of bucket b in slot b & 1, bucket b + 1 in the other
+  float kb[NW * LDK];   // gain row i at [i * LDK + 0:6], dx[i] at [i * LDK + 6]
+  float sb[6 * LDK];    // a replicated 6x6 matrix: S = H P H^T + R, or I + A P66
+  float xq[NW * LDQ];   // predict: xq[k * LDQ + r] = Q1[r][k], rows 0:9 of column k of Q1
+  float sp[30 * 7];     // S Phi, rows 0:30
+  float nq[21];         // (Phi^T S Phi)[0:3, 0:7]
+  float prm[40];        // q_diag(30) imu_r(6) g_over_acc_norm kin_noise pad(2)
+};
+
+// ---- copies to shared memory (cp.async; complete at cp_wait) ----
+
+static __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+static __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+static __device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this lane's committed groups are still in flight.
+template <int N>
+static __device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---- end of the copies ----
+
+// n floats, any alignment; lane l copies l, l + 32, ...
+static __device__ __forceinline__ void stage(float* dst, const float* src, int n, int lane) {
+  for (int e = lane; e < n; e += NW) cp_async4(dst + e, src + e);
+}
+
+// One bucket's statistics, 16 bytes a copy (src 16-byte aligned).
+static __device__ __forceinline__ void stage_s40(float* dst, const float* src, int lane) {
+#pragma unroll
+  for (int m = 0; m < (S40 / 4 + NW - 1) / NW; ++m) {
+    const int e = lane + NW * m;
+    if (e < S40 / 4) cp_async16(dst + 4 * e, src + 4 * e);
+  }
+}
+
+// Four floats from a 16-byte aligned shared-memory address.
+static __device__ __forceinline__ void ld4(const float* s, float& a, float& b, float& c, float& d) {
+  const float4 v = *reinterpret_cast<const float4*>(s);
+  a = v.x;
+  b = v.y;
+  c = v.z;
+  d = v.w;
+}
+
+static __device__ __forceinline__ void st4(float* s, float a, float b, float c, float d) {
+  *reinterpret_cast<float4*>(s) = make_float4(a, b, c, d);
+}
+
+// A 6x6 matrix from its LDK rows, on every lane.
+static __device__ __forceinline__ void load6x6(const float* s, float (&m)[36]) {
+  float pad0, pad1;
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    ld4(s + i * LDK, m[6 * i], m[6 * i + 1], m[6 * i + 2], m[6 * i + 3]);
+    ld4(s + i * LDK + 4, m[6 * i + 4], m[6 * i + 5], pad0, pad1);
+  }
+}
+
+// ---- 3x3 helpers on a lane's registers (row-major) ----
+
+static __device__ __forceinline__ void mm3(const float* a, const float* b, float* o) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      o[3 * i + j] = a[3 * i] * b[j] + a[3 * i + 1] * b[3 + j] + a[3 * i + 2] * b[6 + j];
+}
+
+// The coefficients of the Rodrigues exponential, sin(t)/t and
+// (1 - cos t)/t^2, from t^2: their Taylor series to t^8, used below
+// theta = 0.5 (a filter step's rotation is far smaller; truncation below
+// 3e-11; it also covers the plain version's small-angle branch).
+static __device__ __forceinline__ void exp3_series(float t2, float& a, float& b) {
+  a = 1.0f + t2 * (-1.0f / 6.0f + t2 * (1.0f / 120.0f + t2 * (-1.0f / 5040.0f + t2 * (1.0f / 362880.0f))));
+  b = 0.5f + t2 * (-1.0f / 24.0f + t2 * (1.0f / 720.0f + t2 * (-1.0f / 40320.0f + t2 * (1.0f / 3628800.0f))));
+}
+
+// The series below theta = 0.5, sinf and cosf above it.
+static __device__ __forceinline__ void exp3_coef(float t2, float& a, float& b) {
+  if (t2 < 0.25f) {
+    exp3_series(t2, a, b);
+  } else {
+    const float t = sqrtf(t2);
+    a = sinf(t) / t;
+    b = (1.0f - cosf(t)) / t2;
+  }
+}
+
+// I + a [w]x + b [w]x^2, written out (the products with the zeros of [w]x
+// dropped).
+static __device__ __forceinline__ void exp3_mat(const float* w, float a, float b, float* o) {
+  const float x01 = w[0] * w[1], x02 = w[0] * w[2], x12 = w[1] * w[2];
+  const float x00 = w[0] * w[0], x11 = w[1] * w[1], x22 = w[2] * w[2];
+  o[0] = 1.0f + b * (-x22 - x11);
+  o[1] = -a * w[2] + b * x01;
+  o[2] = a * w[1] + b * x02;
+  o[3] = a * w[2] + b * x01;
+  o[4] = 1.0f + b * (-x22 - x00);
+  o[5] = -a * w[0] + b * x12;
+  o[6] = -a * w[1] + b * x02;
+  o[7] = a * w[0] + b * x12;
+  o[8] = 1.0f + b * (-x11 - x00);
+}
+
+static __device__ __forceinline__ float norm2(const float* w) {
+  return w[0] * w[0] + w[1] * w[1] + w[2] * w[2];
+}
+
+// Rodrigues exponential Exp(w).
+static __device__ __forceinline__ void exp3(const float* w, float* o) {
+  float a, b;
+  exp3_coef(norm2(w), a, b);
+  exp3_mat(w, a, b, o);
+}
+
+// Exp(w) and Exp(v) under one branch, so their chains interleave.
+static __device__ __forceinline__ void exp3x2(const float* w, const float* v, float* ow, float* ov) {
+  const float tw = norm2(w), tv = norm2(v);
+  float aw, bw, av, bv;
+  if (fmaxf(tw, tv) < 0.25f) {
+    exp3_series(tw, aw, bw);
+    exp3_series(tv, av, bv);
+  } else {
+    exp3_coef(tw, aw, bw);
+    exp3_coef(tv, av, bv);
+  }
+  exp3_mat(w, aw, bw, ow);
+  exp3_mat(v, av, bv, ov);
+}
+
+// rot <- rot Exp(dx[0:3]); lin[0:n] += dx[3:3+n].
+template <int N>
+static __device__ __forceinline__ void retract(float (&rot)[9], float (&lin)[27], const float* dx) {
+  float E[9], R[9];
+  exp3(dx, E);
+  mm3(rot, E, R);
+#pragma unroll
+  for (int k = 0; k < 9; ++k) rot[k] = R[k];
+#pragma unroll
+  for (int k = 0; k < N; ++k) lin[k] += dx[3 + k];
+}
+
+// Adjugate inverse of the 3x3 block at m (row stride ld) into o; the
+// determinant's reciprocal by __fdividef (within 2 ulp, no slow-path branch).
+static __device__ __forceinline__ void inv3(const float* m, int ld, float* o) {
+  const float a = m[0], b = m[1], c = m[2];
+  const float d = m[ld], e = m[ld + 1], f = m[ld + 2];
+  const float g = m[2 * ld], h = m[2 * ld + 1], i = m[2 * ld + 2];
+  const float co[9] = {e * i - f * h, c * h - b * i, b * f - c * e,
+                       f * g - d * i, a * i - c * g, c * d - a * f,
+                       d * h - e * g, b * g - a * h, a * e - b * d};
+  const float inv_det = __fdividef(1.0f, a * co[0] + b * co[3] + c * co[6]);
+#pragma unroll
+  for (int k = 0; k < 9; ++k) o[k] = co[k] * inv_det;
+}
+
+// 6x6 inverse through the Schur complement of the leading 3x3 block, in the
+// order of schur<6, 3> (lk_chain.cuh) and eskf_fused._inv_schur.
+static __device__ __forceinline__ void inv6(const float (&m)[36], float (&o)[36]) {
+  float Ai[9], AiB[9], CAi[9], Sc[9], Si[9], AiBSi[9];
+  inv3(m, 6, Ai);
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      float s = Ai[3 * i] * m[3 + j];  // Ai B
+#pragma unroll
+      for (int t = 1; t < 3; ++t) s += Ai[3 * i + t] * m[6 * t + 3 + j];
+      AiB[3 * i + j] = s;
+      float u = m[6 * (3 + i)] * Ai[j];  // C Ai
+#pragma unroll
+      for (int t = 1; t < 3; ++t) u += m[6 * (3 + i) + t] * Ai[3 * t + j];
+      CAi[3 * i + j] = u;
+    }
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      float s = m[6 * (3 + i)] * AiB[j];
+#pragma unroll
+      for (int t = 1; t < 3; ++t) s += m[6 * (3 + i) + t] * AiB[3 * t + j];
+      Sc[3 * i + j] = m[6 * (3 + i) + 3 + j] - s;
+    }
+  inv3(Sc, 3, Si);
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      float s = AiB[3 * i] * Si[j];
+#pragma unroll
+      for (int t = 1; t < 3; ++t) s += AiB[3 * i + t] * Si[3 * t + j];
+      AiBSi[3 * i + j] = s;
+    }
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      float s = AiBSi[3 * i] * CAi[j];
+#pragma unroll
+      for (int t = 1; t < 3; ++t) s += AiBSi[3 * i + t] * CAi[3 * t + j];
+      o[6 * i + j] = Ai[3 * i + j] + s;
+      o[6 * i + 3 + j] = -AiBSi[3 * i + j];
+      float u = Si[3 * i] * CAi[j];
+#pragma unroll
+      for (int t = 1; t < 3; ++t) u += Si[3 * i + t] * CAi[3 * t + j];
+      o[6 * (3 + i) + j] = -u;
+      o[6 * (3 + i) + 3 + j] = Si[3 * i + j];
+    }
+}
+
+// ---- the filter steps; every lane calls each one ----
+
+// Dual-clock predict (eskf.cc:64-89).  F = I + D with D nonzero in rows 0:9,
+// so F P F^T = Q1 F^T = Q1 + Q1 D^T with Q1 = F P.  Each lane applies D to
+// its own column (Q1 = P + D P, rows 0:9) and publishes rows 0:9 of it; that
+// finishes columns 9:30.  Lane c < 9 then forms column c of Q1 D^T, which
+// is nonzero in columns 0:9 only: rows 0:9 as Q1[r][c] + sum_k Q1[r][k]
+// D[c][k] from the published rows, and rows 9:30 as Q1[c][r] (the result
+// is symmetric, and row c of Q1 on those columns is what lanes 9-29
+// published).  Then the process noise on the diagonal.  The mean over
+// dt_mean, x <- x boxplus f(x) dt (eskf.cc:64-70), reads the old state only:
+// it is formed first, so its latency hides under the rest.
+static __device__ __forceinline__ void predict(float (&p)[30], float (&rot)[9], float (&lin)[27],
+                                               float qc, int lane, float dtm, float dtc,
+                                               Smem& sm) {
+  float rot_n[9], dlin[6], a[9], vb[9], dr[9];
+  {
+    float Em[9], E[9];
+    const float wm[3] = {dtm * lin[18], dtm * lin[19], dtm * lin[20]};
+    const float wc[3] = {-dtc * lin[18], -dtc * lin[19], -dtc * lin[20]};
+    exp3x2(wm, wc, Em, E);
+    mm3(rot, Em, rot_n);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const float* r = rot + 3 * i;
+      const float acc_w = r[0] * lin[15] + r[1] * lin[16] + r[2] * lin[17] + lin[12 + i];
+      dlin[i] = dtm * lin[3 + i];
+      dlin[3 + i] = dtm * acc_w;
+      // rot [imu_a]x, row i, written out
+      const float rs[3] = {r[1] * lin[17] - r[2] * lin[16], r[2] * lin[15] - r[0] * lin[17],
+                           r[0] * lin[16] - r[1] * lin[15]};
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        a[3 * i + j] = E[3 * i + j] - (i == j ? 1.0f : 0.0f);
+        vb[3 * i + j] = -dtc * rs[j];
+        dr[3 * i + j] = dtc * r[j];
+      }
+    }
+  }
+  float d[9];  // (D P)[0:9, lane]
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    d[r] = a[3 * r] * p[0] + a[3 * r + 1] * p[1] + a[3 * r + 2] * p[2] + dtc * p[21 + r];
+    d[3 + r] = dtc * p[6 + r];
+    d[6 + r] = vb[3 * r] * p[0] + vb[3 * r + 1] * p[1] + vb[3 * r + 2] * p[2] + dtc * p[15 + r] +
+               (dr[3 * r] * p[18] + dr[3 * r + 1] * p[19] + dr[3 * r + 2] * p[20]);
+  }
+#pragma unroll
+  for (int r = 0; r < 9; ++r) {
+    p[r] += d[r];
+    sm.xq[lane * LDQ + r] = p[r];
+  }
+  __syncwarp();
+  if (lane < 9) {
+    // Row `lane` of D: f on columns 0:3, dtc on column k1, e on columns 18:21.
+    float f0 = 0.f, f1 = 0.f, f2 = 0.f, e0 = 0.f, e1 = 0.f, e2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      if (lane == i) {
+        f0 = a[3 * i]; f1 = a[3 * i + 1]; f2 = a[3 * i + 2];
+      }
+      if (lane == 6 + i) {
+        f0 = vb[3 * i]; f1 = vb[3 * i + 1]; f2 = vb[3 * i + 2];
+        e0 = dr[3 * i]; e1 = dr[3 * i + 1]; e2 = dr[3 * i + 2];
+      }
+    }
+    const int k1 = lane < 3 ? 21 + lane : (lane < 6 ? 3 + lane : 9 + lane);
+    const float* x0 = sm.xq;
+    const float* xk = sm.xq + k1 * LDQ;
+    const float* x18 = sm.xq + 18 * LDQ;
+#pragma unroll
+    for (int r = 0; r < 9; ++r) {
+      p[r] += f0 * x0[r] + f1 * x0[LDQ + r] + f2 * x0[2 * LDQ + r] + dtc * xk[r] +
+              (e0 * x18[r] + e1 * x18[LDQ + r] + e2 * x18[2 * LDQ + r]);
+    }
+#pragma unroll
+    for (int r = 9; r < 30; ++r) p[r] = sm.xq[r * LDQ + lane];
+  }
+#pragma unroll
+  for (int r = 0; r < 30; ++r)
+    if (r == lane) p[r] += (dtc * dtc) * qc;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) rot[k] = rot_n[k];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) lin[k] += dlin[k];
+}
+
+// The downdate P -= K M of a lane's column, with row i of the gain K and
+// dx[i] at kb[i * LDK] and the lane's column of M in m; then every lane's
+// retraction by dx.
+static __device__ __forceinline__ void downdate_retract(float (&p)[30], float (&rot)[9],
+                                                        float (&lin)[27], const float (&m)[6],
+                                                        const float* kb) {
+  float dx[30];
+#pragma unroll
+  for (int i = 0; i < 30; ++i) {
+    float k0, k1, k2, k3, k4, k5, pad;
+    ld4(kb + i * LDK, k0, k1, k2, k3);
+    ld4(kb + i * LDK + 4, k4, k5, dx[i], pad);
+    const float v = k0 * m[0] + k1 * m[1] + k2 * m[2] + k3 * m[3] + k4 * m[4] + k5 * m[5];
+    p[i] = p[i] - v;
+  }
+  retract<27>(rot, lin, dx);
+}
+
+// Structured 6-row IMU update (eskf.cc:125-135).  H P = P[9:15] + P[18:24]
+// is local to each column, and (P H^T)[lane] = (H P)[:, lane] since P is
+// symmetric: lane c forms row c of the gain K = P H^T S^-1 itself.  Row i
+// of S = H P H^T + R is (H P)^T's rows 9 + i and 18 + i: lanes 9-14 add
+// the row of lane + 9 (a shuffle) to their own and publish it.  The gain
+// rows go through kb for the downdate P -= K (H P).
+static __device__ __forceinline__ void update_imu(float (&p)[30], float (&rot)[9],
+                                                  float (&lin)[27], int lane, const float* acc,
+                                                  const float* gyr, const float* r6,
+                                                  float g_over_an, float gate, Smem& sm) {
+  float hp[6], hq[6];
+#pragma unroll
+  for (int t = 0; t < 6; ++t) {
+    hp[t] = p[9 + t] + p[18 + t];
+    hq[t] = __shfl_down_sync(0xffffffffu, hp[t], 9);
+  }
+  if (lane >= 9 && lane < 15) {
+    float* row = sm.sb + (lane - 9) * LDK;
+    st4(row, hp[0] + hq[0], hp[1] + hq[1], hp[2] + hq[2], hp[3] + hq[3]);
+    st4(row + 4, hp[4] + hq[4], hp[5] + hq[5], 0.f, 0.f);
+  }
+  float z[6];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    z[i] = g_over_an * acc[i] - lin[15 + i] - lin[6 + i];
+    z[3 + i] = gyr[i] - lin[18 + i] - lin[9 + i];
+  }
+  __syncwarp();
+  float s[36], si[36];
+  load6x6(sm.sb, s);
+#pragma unroll
+  for (int i = 0; i < 6; ++i) s[7 * i] += r6[i];
+  inv6(s, si);
+  float k[6];
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    float v = hp[0] * si[j];
+#pragma unroll
+    for (int t = 1; t < 6; ++t) v += hp[t] * si[6 * t + j];
+    k[j] = v * gate;
+  }
+  float dxl = k[0] * z[0];
+#pragma unroll
+  for (int t = 1; t < 6; ++t) dxl += k[t] * z[t];
+  st4(sm.kb + lane * LDK, k[0], k[1], k[2], k[3]);
+  st4(sm.kb + lane * LDK + 4, k[4], k[5], dxl, 0.f);
+  __syncwarp();
+  downdate_retract(p, rot, lin, hp, sm.kb);
+}
+
+// Point update from the bucket's statistics S = sum w X X^T at S (a ring
+// slot; eskf_fused.point_update_from_stats), in information form
+// (eskf.update_by_points): lane i < 30 forms row i of S Phi, reading row i
+// of S down its column i (S is symmetric; column reads hit 32 banks), then
+// lane < 21 one of the 21 entries of (Phi^T S Phi)[0:3, :]; rows 3:6 of
+// [A b] = (Phi^T S Phi)[0:6, :] are rows 27:30 of S Phi.  Lanes 0-5
+// form column j of I + A P66 from their own column; every lane inverts it,
+// G = (I + A P66)^-1, and forms row `lane` of K = (P[:, 0:6] G) A and
+// dx = (P[:, 0:6] G) b from its column (P symmetric); P -= K P[0:6, :].
+// S = 0 is an exact no-op.
+static __device__ __forceinline__ void update_stats(float (&p)[30], float (&rot)[9],
+                                                    float (&lin)[27], int lane, const float* S,
+                                                    Smem& sm) {
+  const float* R = rot;
+  if (lane < 30) {  // rows 30:40 of S Phi enter only row 6 of Phi^T S Phi
+    const int i = lane;
+    const float* c = S + i;  // S[i][k] read as S[k][i] = c[40 k]
+    float v[7];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      float s = R[0] * c[40 * (9 * j)];
+#pragma unroll
+      for (int q = 1; q < 9; ++q) s = s + R[q] * c[40 * (9 * j + q)];
+      v[j] = s;
+      v[3 + j] = c[40 * (27 + j)];
+    }
+    float s = c[40 * 39] - c[40 * 27] * lin[0] - c[40 * 28] * lin[1] - c[40 * 29] * lin[2];
+#pragma unroll
+    for (int q = 0; q < 9; ++q) s = s - R[q] * c[40 * (30 + q)];
+    v[6] = s;
+#pragma unroll
+    for (int j = 0; j < 7; ++j) sm.sp[7 * i + j] = v[j];
+  }
+  __syncwarp();
+  if (lane < 21) {  // rows 0:3 of Phi^T (S Phi); rows 3:6 are rows 27:30 of S Phi
+    const int i = lane / 7, j = lane - 7 * (lane / 7);
+    const float* w = sm.sp + 63 * i + j;
+    float v = R[0] * w[0];
+#pragma unroll
+    for (int q = 1; q < 9; ++q) v = v + R[q] * w[7 * q];
+    sm.nq[lane] = v;
+  }
+  __syncwarp();
+  float A[36], b[6];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    const float* row = i < 3 ? sm.nq + 7 * i : sm.sp + 7 * (24 + i);
+#pragma unroll
+    for (int j = 0; j < 6; ++j) A[6 * i + j] = row[j];
+    b[i] = row[6];
+  }
+  if (lane < 6) {  // column `lane` of I + A P66; P66[t][lane] = p[t]
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+      float s = A[6 * i] * p[0];
+#pragma unroll
+      for (int t = 1; t < 6; ++t) s += A[6 * i + t] * p[t];
+      sm.sb[i * LDK + lane] = (i == lane ? 1.0f : 0.0f) + s;
+    }
+  }
+  __syncwarp();
+  float m[36], g[36];
+  load6x6(sm.sb, m);
+  inv6(m, g);
+  float u[6], pt[6];  // u = P[lane, 0:6] G
+#pragma unroll
+  for (int t = 0; t < 6; ++t) {
+    pt[t] = p[t];
+    float s = p[0] * g[t];
+#pragma unroll
+    for (int q = 1; q < 6; ++q) s += p[q] * g[6 * q + t];
+    u[t] = s;
+  }
+  float k[6];
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    float s = u[0] * A[j];
+#pragma unroll
+    for (int t = 1; t < 6; ++t) s += u[t] * A[6 * t + j];
+    k[j] = s;
+  }
+  float dxl = u[0] * b[0];
+#pragma unroll
+  for (int t = 1; t < 6; ++t) dxl += u[t] * b[t];
+  st4(sm.kb + lane * LDK, k[0], k[1], k[2], k[3]);
+  st4(sm.kb + lane * LDK + 4, k[4], k[5], dxl, 0.f);
+  __syncwarp();
+  downdate_retract(p, rot, lin, pt, sm.kb);
+}
+
+}  // namespace lk_warp

@@ -155,3 +155,73 @@ def test_chain_points_other_shapes_on_card(cuda_device, use_kin):
         cp.chain_points_call(*args[:14], args[14].transpose(1, 2).contiguous().transpose(1, 2),
                              *args[15:], use_kin=use_kin)
     assert cp.chain_points_call.launches == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,k", [(28, 1), (56, 1), (8, 2), (1, 1)],
+                         ids=["nb28_k1", "nb56_k1", "nb8_k2", "nb1"])
+def test_chain_warp_kernel_on_card(cuda_device, nb, k):
+    """The IMU branch's one-warp kernel against its plain version, with a
+    gated-off and an empty bucket (at NB = 1 one bucket is both): chip_smoke's
+    tolerances, counts and clocks exact, two launches bit-equal."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from legkilo_torch.ops import chain_stats
+
+    args = cs.chain_holes(cs.chain_inputs(torch, cuda_device, np.random.default_rng(nb + k), False, nb, k))
+    n0 = chain_stats.chain_call.launches
+    got = chain_stats.chain_call(*args, use_kin=False)
+    again = chain_stats.chain_call(*args, use_kin=False)
+    torch.cuda.synchronize()
+    ref = chain_stats.chain_plain(*args, use_kin=False)
+    assert chain_stats.chain_call.launches == n0 + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for i, (a, b) in enumerate(zip(got, ref)):
+        if i in (4, 8):
+            assert torch.equal(a, b), i
+        else:
+            assert cs.rel_err(a, b) <= (1e-3 if i in (2, 3, 7) else 1e-4), i
+    assert int(got[4][2 * nb // 3]) == 0
+
+
+@pytest.mark.cuda
+def test_chain_call_refuses_unaligned_s40_on_card(cuda_device):
+    """The warp kernel copies s40 16 bytes at a time: a view at an offset of
+    one float is refused before any launch."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from legkilo_torch.ops import chain_stats
+
+    args = cs.chain_inputs(torch, cuda_device, np.random.default_rng(2), False, 8, 1)
+    buf = torch.zeros(8 * 1600 + 1, device=cuda_device)
+    s40 = buf[1:].view(8, 40, 40)
+    s40.copy_(args[13])
+    n0 = chain_stats.chain_call.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        chain_stats.chain_call(*args[:13], s40, use_kin=False)
+    assert chain_stats.chain_call.launches == n0
+
+
+@pytest.mark.cuda
+def test_chain_call_routes_by_use_kin_on_card(cuda_device):
+    """use_kin = False launches the one-warp kernel only, use_kin = True the
+    block kernel only (kernel names from torch.profiler)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+    from legkilo_torch.ops import chain_stats
+
+    for use_kin, want, other in ((False, "chain_warp_kernel", "chain_kernel"),
+                                 (True, "chain_kernel", "chain_warp_kernel")):
+        args = cs.chain_inputs(torch, cuda_device, np.random.default_rng(4), use_kin, 8, 1)
+        chain_stats.chain_call(*args, use_kin=use_kin)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            chain_stats.chain_call(*args, use_kin=use_kin)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()]
+        assert any(want in n and other not in n for n in names), names
+        assert not any(other in n and want not in n for n in names), names
