@@ -12,12 +12,13 @@ Phases, each printing its own lines:
    shapes (C = 3584 match rows, L = 3 levels, NB = 28 buckets, K = 1 event
    slot, P = 256 points a bucket, R = 4096 insert rows, B = 1024 refit
    slots, MP = 128 timeline slots; both chains with kin off and on; the
-   pose kernel at MP = 384 too),
+   pose kernel at MP = 384 and 1,280 too),
    held against its plain PyTorch version on the same inputs within the
    stated tolerance, and timed with CUDA events (kernel and plain version).
-   The fused chain's IMU branch (the one-warp kernel) runs with a gated-off
-   and an empty bucket, its two launches must be bit-equal, and its ptxas
-   registers, spills (must be 0) and shared memory are printed.
+   The fused chain (the one-warp kernel, both branches) runs with a
+   gated-off and an empty bucket (and, kin, an event without contact), its
+   two launches must be bit-equal, and each branch's ptxas registers,
+   spills (must be 0) and shared memory are printed.
    The refit rows are those of a short run's map plus zero padding, and the
    slots on which kernel and plain version took different branches are
    counted.
@@ -39,6 +40,12 @@ Phases, each printing its own lines:
    per-point chain kernel, the claiming insert; pose and refit kernels on)
    on the same 24 s workload, uncut ("points"), a profiler window of it, and
    4 s of it with leg kinematics ("points_kin").
+8. Paths that the runs above do not take, on the first 8 s of the same
+   workload: the map slide with the constant-velocity match pose ("slide":
+   a slide threshold of 1 m that the path crosses several times, each
+   slide observed), the per-point path chunked by 32 ("points_chunk"), and
+   2 ms buckets chunked by 32 ("ref2ms": bench.py:350-366, NB = 56,
+   P = 128, the chain kernel at NB = 56).
 
 Each run sets every launch counter to 0 before and reads it after: the
 kernels of the path it drives must have launched, and the others must not.
@@ -63,6 +70,9 @@ ATE_BOUND_M = 0.08
 MAIN_DURATION_S = 24.0   # bench.py's workload, uncut
 FOUR_DURATION_S = 8.0    # the four-kernel configuration, cut
 KIN_DURATION_S = 4.0     # 40 scans of the kin branch
+EXTRA_DURATION_S = 8.0   # the slide, per-point chunked and 2 ms bucket runs
+SLIDE_THRESH_M = 1.0     # the sim's path moves ~5 m in 8 s
+SLIDE_HALF_MAP = 20      # level-0 voxels (10 m) each side of the pose
 CHUNK = 32               # bench.py:190
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12      # fp32 on CUDA cores, H100 SXM data sheet
@@ -217,13 +227,16 @@ def chain_inputs(torch, dev, rng, use_kin, nb=28, k=1):
 
 
 def chain_holes(args):
-    """Bucket nb // 3 of ``chain_inputs`` gated off and bucket 2 nb // 3
-    empty (no match: its statistics and count zero), in place and without a
-    draw; at NB < 3 both are bucket 0."""
+    """Bucket nb // 3 of ``chain_inputs`` gated off, bucket 2 nb // 3
+    empty (no match: its statistics and count zero) and every foot of event
+    slot (nb // 2, 0) out of contact (the kin branch's inputs; the IMU
+    branch's contacts are zero), in place and without a draw; at NB < 3
+    these are all bucket 0."""
     nb = args[5].shape[0]
     args[5][nb // 3, 1] = 0.0
     args[5][2 * nb // 3, 2] = 0.0
     args[13][2 * nb // 3] = 0.0
+    args[12][nb // 2, 0] = 0.0
     return args
 
 
@@ -452,35 +465,34 @@ def phase_kernels(torch, dev):
     recs = {}
 
     for name, use_kin in (("chain_stats", False), ("chain_stats_kin", True)):
-        args = chain_inputs(torch, dev, rng, use_kin)
-        if not use_kin:  # the one-warp kernel: with its gated-off and its empty bucket
-            chain_holes(args)
+        args = chain_holes(chain_inputs(torch, dev, rng, use_kin))
         got = cs.chain_call(*args, use_kin=use_kin)
         torch.cuda.synchronize()
         ref = cs.chain_plain(*args, use_kin=use_kin)
         # Poses: rel 1e-4 of their magnitude; covariances: rel 1e-3 (the
-        # plain version applies F P F^T as columns-then-rows, the kernels as
-        # Q1 + (D Q1^T)^T, the warp kernel reads P H^T as (H P)^T, and the
-        # 18x18 inverse amplifies rounding); match counts and clocks exact.
+        # plain version applies F P F^T as columns-then-rows, the kernel as
+        # Q1 + Q1 D^T, reads P H^T as (H P)^T, forms the kin gain from the
+        # Schur blocks, and the 18x18 inverse amplifies rounding); match
+        # counts and clocks exact.
         tol = [1e-4, 1e-4, 1e-3, 1e-3, 0.0, 1e-4, 1e-4, 1e-3, 0.0]
         errs = [rel_err(a, b) for a, b in zip(got, ref)]
         for i, (e, t) in enumerate(zip(errs, tol)):
             if not e <= t:
                 raise RuntimeError(f"{name}: output {i} rel err {e:.3g} > {t}")
         nb, k = args[6].shape
-        tol_text = "rel 1e-4 poses, 1e-3 covariances"
-        if not use_kin:
-            again = cs.chain_call(*args, use_kin=use_kin)
-            if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                raise RuntimeError(f"{name}: two launches on the same inputs differ")
-            tol_text += "; counts and clocks exact; repeat bit-equal"
-            px = ptxas_entry("chain_warp_kernel")
-            log(f"[kernel] {name}: one warp, {px['registers']} registers, {px['spills']} B of spills, "
-                f"{px['stack']} B stack frame, {px['smem']} B static + {nb * (3 + 8 * k) * 4} B staged "
-                f"shared memory; bucket {nb // 3} gated off, bucket {2 * nb // 3} empty (count "
-                f"{int(got[4][2 * nb // 3])}); two launches bit-equal")
-            if px["spills"]:
-                raise RuntimeError(f"{name}: ptxas spills {px['spills']} B in the warp kernel")
+        again = cs.chain_call(*args, use_kin=use_kin)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise RuntimeError(f"{name}: two launches on the same inputs differ")
+        tol_text = "rel 1e-4 poses, 1e-3 covariances; counts and clocks exact; repeat bit-equal"
+        # The kernel template's instantiation for the branch (mangled name).
+        px = ptxas_entry(f"chain_warp_kernelILb{int(use_kin)}E")
+        staged = nb * (3 + (36 if use_kin else 8) * k) * 4
+        log(f"[kernel] {name}: one warp, {px['registers']} registers, {px['spills']} B of spills, "
+            f"{px['stack']} B stack frame, {px['smem']} B static + {staged} B staged "
+            f"shared memory; bucket {nb // 3} gated off, bucket {2 * nb // 3} empty (count "
+            f"{int(got[4][2 * nb // 3])}); two launches bit-equal")
+        if px["spills"]:
+            raise RuntimeError(f"{name}: ptxas spills {px['spills']} B in the warp kernel")
         recs[name] = dict(
             max_abs_err=max(max_abs(a, b) for a, b in zip(got, ref)),
             ms=time_call(torch, lambda: cs.chain_call(*args, use_kin=use_kin), 50),
@@ -632,15 +644,19 @@ def phase_kernels(torch, dev):
         f"{n_flip} branch flips, head err {e_head:.2e}, plane_var rel {e_pv:.2e}, "
         f"bit-equal {bool(torch.equal(got, ref))}")
 
-    for name, (nb, k) in (("pose", (28, 1)), ("pose_384", (28, 12))):
+    for name, (nb, k) in (("pose", (28, 1)), ("pose_384", (28, 12)), ("pose_1280", (256, 4))):
         pargs = pose_inputs(torch, dev, rng, nb, k)
         got = pp.pose_call(*pargs)
         torch.cuda.synchronize()
         ref = pp.pose_plain(*pargs)
         mp = pargs[1].shape[1]
-        # The JAX package's own kernel-vs-XLA tolerance (rtol 1e-5, atol 1e-6).
+        # The JAX package's own kernel-vs-XLA tolerance (rtol 1e-5, atol 1e-6);
+        # past 1,024 slots (several slots a thread) bit-equal, as one slot a
+        # thread is.
         if not torch.allclose(got, ref, rtol=1e-5, atol=1e-6):
             raise RuntimeError(f"{name}: max abs err {max_abs(got, ref):.3g} at MP = {mp}")
+        if mp > 1024 and not torch.equal(got, ref):
+            raise RuntimeError(f"{name}: not bit-equal to the plain version at MP = {mp}")
         rec = dict(
             max_abs_err=max_abs(got, ref),
             ms=time_call(torch, lambda: pp.pose_call(*pargs), 200),
@@ -699,26 +715,42 @@ def path_config(five=True, points=False):
 
 
 def run_workload(torch, data, tag: str, use_kin=False, five=True, chunk=0, latch=True,
-                 points=False):
+                 points=False, edit=None, slides=False):
     """One run_offline over ``data`` on the card.  ``five`` off leaves the
     pose and refit kernels out (plain torch); ``points`` takes the per-point
     path; ``chunk`` > 1 replays in chunks; ``latch`` off disables the
-    escalation to iterated matching.  Fails on an ATE that is not finite or
-    not under the golden bound, on a kernel of the path that never launched
-    and on a kernel off the path that did."""
+    escalation to iterated matching; ``edit(cfg)`` changes the configuration
+    further and returns the wrappers its path leaves out; ``slides`` replays
+    scan by scan (as run_offline streams) and counts the map slides, each
+    seen as a move of the carry's last slide position, and fails on fewer
+    than two.  Fails on an ATE that is not finite or not under the golden
+    bound, on a kernel of the path that never launched and on a kernel off
+    the path that did."""
     from legkilo_torch.io.tum import ate_rmse
-    from legkilo_torch.runner import run_offline
+    from legkilo_torch.runner import OdometryRunner, replay, run_offline
 
     cfg, on_path = path_config(five, points)
     cfg.only_imu_use = not use_kin
     if not latch:
         cfg.tpu.escalate_after = 0
+    if edit is not None:
+        on_path = on_path - edit(cfg)
+    events = data.kin if use_kin else data.imu
     torch.cuda.reset_peak_memory_stats()
     reset_counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    results = run_offline(cfg, data.scans, data.kin if use_kin else data.imu, device="cuda",
-                          chunk=chunk)
+    n_slides = 0
+    if slides:
+        runner = OdometryRunner(cfg, device="cuda")
+        last = runner.carry.last_slide_pos
+        for _ in replay(runner, data.scans, events):
+            now = runner.carry.last_slide_pos
+            n_slides += int(not torch.equal(now, last))
+            last = now
+        results = runner.results
+    else:
+        results = run_offline(cfg, data.scans, events, device="cuda", chunk=chunk)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counters()
@@ -728,9 +760,13 @@ def run_workload(torch, data, tag: str, use_kin=False, five=True, chunk=0, latch
     ate = ate_rmse(np.stack([p for p, _ in pairs]), np.stack([g for _, g in pairs]), align=False)
     rec = dict(scans=len(results), ate_m=ate, ms_per_scan=wall / len(results) * 1e3,
                max_memory_allocated=torch.cuda.max_memory_allocated(), launches=counts)
+    if slides:
+        rec["slides"] = n_slides
     log(f"[{tag}] {json.dumps(rec)}")
     if len(results) < 30:
         raise RuntimeError(f"{tag}: only {len(results)} scans")
+    if slides and n_slides < 2:
+        raise RuntimeError(f"{tag}: {n_slides} map slides, expected at least 2")
     if not np.isfinite(ate) or ate >= ATE_BOUND_M:
         raise RuntimeError(f"{tag}: ATE {ate:.4f} m >= {ATE_BOUND_M} m")
     missing = sorted(k for k in on_path if counts[k] <= 0)
@@ -739,6 +775,35 @@ def run_workload(torch, data, tag: str, use_kin=False, five=True, chunk=0, latch
         raise RuntimeError(f"{tag}: kernels of the path never launched: {missing}; "
                            f"kernels off the path launched: {stray}")
     return rec
+
+
+def cut(data, duration: float):
+    """``data`` with its scans cut to the first ``duration`` seconds (the
+    event streams stay whole; the replay stops at the last scan)."""
+    import copy
+
+    out = copy.copy(data)
+    out.scans = data.scans[: int(duration * 10)]
+    return out
+
+
+def slide_edit(cfg):
+    """The map slide (map_sliding_en, a threshold the path crosses several
+    times) with the constant-velocity match pose, which takes the pose
+    kernel off the path."""
+    cfg.voxel_map.map_sliding_en = True
+    cfg.voxel_map.sliding_thresh = SLIDE_THRESH_M
+    cfg.voxel_map.half_map_size = SLIDE_HALF_MAP
+    cfg.tpu.match_pose = "const_vel"
+    return {"pose"}
+
+
+def ref2ms_edit(cfg):
+    """bench.py's 2 ms buckets (bench.py:350-366): NB = 56, P = 128."""
+    cfg.tpu.bucket_quantum_ms = 2.0
+    cfg.tpu.max_buckets = 56
+    cfg.tpu.max_points_per_bucket = 128
+    return set()
 
 
 def phase_profile(torch, tag: str, five=True, points=False, n_warm=10, n_prof=20):
@@ -795,7 +860,8 @@ def phase_profile(torch, tag: str, five=True, points=False, n_warm=10, n_prof=20
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
-                    default="build,kernels,main,chunk,stream1,four,profile,kin,points,points_kin")
+                    default="build,kernels,main,chunk,stream1,four,profile,kin,points,points_kin,"
+                            "slide,points_chunk,ref2ms")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -818,7 +884,7 @@ def main(argv=None) -> int:
     phase_build()
     recs = phase_kernels(torch, dev) if "kernels" in phases else {}
     main_rec = kin_rec = points_rec = points_kin_rec = None
-    if phases & {"main", "chunk", "stream1", "four", "points"}:
+    if phases & {"main", "chunk", "stream1", "four", "points", "slide", "points_chunk", "ref2ms"}:
         data = simulate(MAIN_DURATION_S, "main")
         if "main" in phases:
             main_rec = run_workload(torch, data, "main")
@@ -831,9 +897,14 @@ def main(argv=None) -> int:
         if "points" in phases:
             points_rec = run_workload(torch, data, "points", points=True)
         if "four" in phases:
-            n = int(FOUR_DURATION_S * 10)
-            data.scans = data.scans[:n]
-            run_workload(torch, data, "four", five=False)
+            run_workload(torch, cut(data, FOUR_DURATION_S), "four", five=False)
+        extra = cut(data, EXTRA_DURATION_S)
+        if "slide" in phases:
+            run_workload(torch, extra, "slide", edit=slide_edit, slides=True)
+        if "points_chunk" in phases:
+            run_workload(torch, extra, "points_chunk", points=True, chunk=CHUNK)
+        if "ref2ms" in phases:
+            run_workload(torch, extra, "ref2ms", chunk=CHUNK, edit=ref2ms_edit)
     if "profile" in phases:
         p4 = phase_profile(torch, "profile4", five=False)
         p5 = phase_profile(torch, "profile5")
@@ -855,7 +926,7 @@ def main(argv=None) -> int:
 
     kernels = []
     for name, rec in recs.items():
-        if name == "pose_384":  # off the main path's shape: held above, not listed
+        if name in ("pose_384", "pose_1280"):  # off the main path's shape: held above, not listed
             continue
         # The run whose counters give the kernel's launches: each chain on
         # its own path's run, the rest on the main path's.

@@ -18,7 +18,7 @@
 // Design: the TPU kernel runs one grid step a bucket, in order, with the
 // state in VMEM scratch, and contracts over the points with broadcast sums.
 // Here ONE thread block of 128 threads walks the buckets in a loop with the
-// state in shared memory (lk_chain.cuh, shared with chain_stats.cu).  In the
+// state in shared memory (lk_chain.cuh).  In the
 // point update a thread takes the points tid, tid + 128, ... in that order
 // and keeps the 21 distinct entries of A, the 6 of b and sum m in registers;
 // the 28 partial sums are reduced by warp shuffles (a butterfly, so every

@@ -12,121 +12,43 @@
 // Bound on the H100: the chain reads ~200 KB (s40 is 6.4 KB a bucket) and
 // does ~1-4 MFLOP a scan, i.e. well under a microsecond at the card's rates;
 // it is a strictly sequential recursion on one SM, bound by the latency of
-// its critical path, not by bytes or flops.  Two kernels, picked by use_kin:
+// its critical path, not by bytes or flops.
 //
-// IMU branch (use_kin = 0): chain_warp_kernel, ONE warp of 32 threads.  The
-// TPU kernel walks the buckets as a sequential grid with the state in VMEM
-// scratch and its BlockSpec pipeline fetching bucket b + 1 during bucket b.
-// Here lane c keeps column c of the covariance in registers, every lane
-// keeps its own copy of the nominal state and computes the 3x3 / 6x6
-// inverses and the retraction itself, and the lanes exchange columns and
-// gain rows through warp-private shared buffers: ~9 __syncwarp() a bucket
-// (K = 1) and no block barrier.  The event and bucket rows are copied to
-// shared memory before the walk, and each bucket's statistics into a
-// two-slot ring with cp.async one bucket ahead (lk_chain_warp.cuh).
-//
-// Kinematic branch (use_kin = 1): chain_kernel, one block of 128 threads
-// with the state in shared memory; the threads split every product over
-// matrix entries and the small inverses, exp3 and the retraction run on one
-// thread (lk_chain.cuh, shared with the per-point chain kernel,
-// chain_points.cu); ~60-200 block barriers a bucket.
+// One kernel, chain_warp_kernel<KIN>, for both branches (KIN = use_kin):
+// ONE warp of 32 threads.  The TPU kernel walks the buckets as a sequential
+// grid with the state in VMEM scratch and its BlockSpec pipeline fetching
+// bucket b + 1 during bucket b.  Here lane c keeps column c of the
+// covariance in registers, every lane keeps its own copy of the nominal
+// state and computes the small inverses, exp3 and the retraction itself,
+// and the lanes exchange columns and gain rows through warp-private shared
+// buffers: no block barrier; ~9 __syncwarp() a bucket for the IMU branch
+// at K = 1 and 16 for the kinematic branch, whose 18x18 inverse is split
+// over the lanes (lk_chain_warp.cuh).  The event and bucket rows (with the
+// kinematic branch, the feet's rows too) are copied to shared memory
+// before the walk, and each bucket's statistics into a two-slot ring with
+// cp.async one bucket ahead.
 
-#include "lk_chain.cuh"
 #include "lk_chain_warp.cuh"
 
 namespace {
 
-using namespace lk_chain;
-
-// Scratch of the point update: the bucket's statistics and Phi^T S Phi.
-struct Stats {
-  float S[1600];
-  float sphi[280];
-  float nq[49];
-};
-
-// Information-form point update from S = sum w X X^T (eskf_fused
-// point_update_from_stats); S = 0 is an exact no-op.
-__device__ void update_points(Shared& sh, Stats& st, const float* s40) {
-  const int tid = threadIdx.x;
-  for (int e = tid; e < 1600; e += NT) st.S[e] = s40[e];
-  __syncthreads();
-  const float* R = sh.rot;
-  const float* pos = sh.lin;
-  for (int e = tid; e < 280; e += NT) {  // S Phi
-    const int i = e / 7, j = e % 7;
-    const float* Si = st.S + i * 40;
-    float v;
-    if (j < 3) {
-      v = R[0] * Si[9 * j];
-      for (int q = 1; q < 9; ++q) v = v + R[q] * Si[9 * j + q];
-    } else if (j < 6) {
-      v = Si[24 + j];
-    } else {
-      v = Si[39] - Si[27] * pos[0] - Si[28] * pos[1] - Si[29] * pos[2];
-      for (int q = 0; q < 9; ++q) v = v - R[q] * Si[30 + q];
-    }
-    st.sphi[e] = v;
-  }
-  __syncthreads();
-  for (int e = tid; e < 49; e += NT) {  // Phi^T (S Phi)
-    const int i = e / 7, j = e % 7;
-    const float* W = st.sphi;
-    float v;
-    if (i < 3) {
-      v = R[0] * W[(9 * i) * 7 + j];
-      for (int q = 1; q < 9; ++q) v = v + R[q] * W[(9 * i + q) * 7 + j];
-    } else if (i < 6) {
-      v = W[(24 + i) * 7 + j];
-    } else {
-      v = W[39 * 7 + j] - W[27 * 7 + j] * pos[0] - W[28 * 7 + j] * pos[1] - W[29 * 7 + j] * pos[2];
-      for (int q = 0; q < 9; ++q) v = v - R[q] * W[(30 + q) * 7 + j];
-    }
-    st.nq[e] = v;
-  }
-  __syncthreads();
-  info_update(sh, st.nq, 7, st.nq + 6, 7);  // A = nq[0:6, 0:6], b = nq[0:6, 6]
-}
-
-// The kinematic branch as one block (module note; lk_chain.cuh).
-__global__ void __launch_bounds__(NT)
-chain_kernel(const float* __restrict__ params, const float* __restrict__ clocks,
-             const float* __restrict__ rot0, const float* __restrict__ lin0,
-             const float* __restrict__ cov0, const float* __restrict__ brow,
-             const float* __restrict__ etime, const float* __restrict__ egate,
-             const float* __restrict__ eacc, const float* __restrict__ egyr,
-             const float* __restrict__ efp, const float* __restrict__ efv,
-             const float* __restrict__ ect, const float* __restrict__ s40, float* orot,
-             float* opos, float* orotcov, float* oposcov, float* onm, float* frot, float* flin,
-             float* fcov, float* fclocks, int nb, int kmax, int use_kin) {
-  __shared__ Shared sh;
-  __shared__ Stats st;
-  __shared__ float prm[40];
-  load_state(sh, prm, params, clocks, rot0, lin0, cov0);
-  for (int b = 0; b < nb; ++b) {
-    run_events(sh, prm, b, kmax, etime, egate, eacc, egyr, efp, efv, ect, use_kin);
-    const float t = brow[3 * b], g = brow[3 * b + 1], nm = brow[3 * b + 2];
-    const float lp = sh.clk[0], lu = sh.clk[1];
-    predict(sh, prm, (t - lp) * g, (t - lu) * g);
-    update_points(sh, st, s40 + static_cast<size_t>(b) * 1600);
-    finish_bucket(sh, b, t, g, nm > 0.5f, nm, orot, opos, orotcov, oposcov, onm);
-  }
-  store_final(sh, frot, flin, fcov, fclocks);
-}
-
-// The IMU branch as one warp (module note; lk_chain_warp.cuh).
+// The bucket walk as one warp (module note; lk_chain_warp.cuh); KIN picks
+// the event update.
+template <bool KIN>
 __global__ void __launch_bounds__(lk_warp::NW)
 chain_warp_kernel(const float* __restrict__ params, const float* __restrict__ clocks,
                   const float* __restrict__ rot0, const float* __restrict__ lin0,
                   const float* __restrict__ cov0, const float* __restrict__ brow,
                   const float* __restrict__ etime, const float* __restrict__ egate,
                   const float* __restrict__ eacc, const float* __restrict__ egyr,
-                  const float* __restrict__ s40, float* orot, float* opos, float* orotcov,
-                  float* oposcov, float* onm, float* frot, float* flin, float* fcov,
-                  float* fclocks, int nb, int kmax) {
+                  const float* __restrict__ efp, const float* __restrict__ efv,
+                  const float* __restrict__ ect, const float* __restrict__ s40, float* orot,
+                  float* opos, float* orotcov, float* oposcov, float* onm, float* frot,
+                  float* flin, float* fcov, float* fclocks, int nb, int kmax) {
   namespace w = lk_warp;
-  __shared__ w::Smem sm;
-  extern __shared__ __align__(16) float staged[];  // brow | etime | egate | eacc | egyr
+  __shared__ w::SmemOf<KIN> sm;
+  // brow | etime | egate | eacc | egyr, and with KIN efp | efv | ect
+  extern __shared__ __align__(16) float staged[];
   const int lane = threadIdx.x;
   const int nev = nb * kmax;
   float* s_brow = staged;
@@ -134,11 +56,19 @@ chain_warp_kernel(const float* __restrict__ params, const float* __restrict__ cl
   float* s_eg = s_et + nev;
   float* s_acc = s_eg + nev;
   float* s_gyr = s_acc + 3 * nev;
+  float* s_fp = s_gyr + 3 * nev;
+  float* s_fv = s_fp + 12 * nev;
+  float* s_ct = s_fv + 12 * nev;
   w::stage(s_brow, brow, 3 * nb, lane);
   w::stage(s_et, etime, nev, lane);
   w::stage(s_eg, egate, nev, lane);
   w::stage(s_acc, eacc, 3 * nev, lane);
   w::stage(s_gyr, egyr, 3 * nev, lane);
+  if constexpr (KIN) {
+    w::stage(s_fp, efp, 12 * nev, lane);
+    w::stage(s_fv, efv, 12 * nev, lane);
+    w::stage(s_ct, ect, 4 * nev, lane);
+  }
   w::stage(sm.prm, params, 40, lane);
   w::cp_commit();
   if (nb > 0) w::stage_s40(sm.ring[0], s40, lane);
@@ -163,8 +93,13 @@ chain_warp_kernel(const float* __restrict__ params, const float* __restrict__ cl
       const int ev = b * kmax + k;
       const float t = s_et[ev], g = s_eg[ev];
       w::predict(p, rot, lin, qc, lane, (t - lp) * g, (t - lu) * g, sm);
-      w::update_imu(p, rot, lin, lane, s_acc + 3 * ev, s_gyr + 3 * ev, sm.prm + 30, g_over_an,
-                    g, sm);
+      if constexpr (KIN) {
+        w::update_kin(p, rot, lin, lane, s_acc + 3 * ev, s_gyr + 3 * ev, s_fp + 12 * ev,
+                      s_fv + 12 * ev, s_ct + 4 * ev, sm.prm + 30, sm.prm[37], g_over_an, g, sm);
+      } else {
+        w::update_imu(p, rot, lin, lane, s_acc + 3 * ev, s_gyr + 3 * ev, sm.prm + 30, g_over_an,
+                      g, sm);
+      }
       if (g > 0.5f) {
         lp = t;
         lu = t;
@@ -206,6 +141,28 @@ chain_warp_kernel(const float* __restrict__ params, const float* __restrict__ cl
   }
 }
 
+
+// The staged event rows: nb (3 + 8 kmax) floats of dynamic shared memory,
+// nb (3 + 36 kmax) with the feet's rows; the opt-in above 48 KB in all.
+template <bool KIN>
+int launch_warp(const float* params, const float* clocks, const float* rot0, const float* lin0,
+                const float* cov0, const float* brow, const float* etime, const float* egate,
+                const float* eacc, const float* egyr, const float* efp, const float* efv,
+                const float* ect, const float* s40, float* orot, float* opos, float* orotcov,
+                float* oposcov, float* onm, float* frot, float* flin, float* fcov,
+                float* fclocks, int nb, int kmax, cudaStream_t st) {
+  const size_t dyn = static_cast<size_t>(nb) * (3 + (KIN ? 36 : 8) * kmax) * sizeof(float);
+  if (dyn + sizeof(lk_warp::SmemOf<KIN>) > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        chain_warp_kernel<KIN>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(dyn));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  chain_warp_kernel<KIN><<<1, lk_warp::NW, dyn, st>>>(
+      params, clocks, rot0, lin0, cov0, brow, etime, egate, eacc, egyr, efp, efv, ect, s40, orot,
+      opos, orotcov, oposcov, onm, frot, flin, fcov, fclocks, nb, kmax);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 LK_API int chain_stats_launch(const float* params, const float* clocks, const float* rot0,
@@ -217,21 +174,11 @@ LK_API int chain_stats_launch(const float* params, const float* clocks, const fl
                               float* flin, float* fcov, float* fclocks, int nb, int kmax,
                               int use_kin, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (use_kin) {
-    chain_kernel<<<1, NT, 0, st>>>(params, clocks, rot0, lin0, cov0, brow, etime, egate, eacc,
-                                   egyr, efp, efv, ect, s40, orot, opos, orotcov, oposcov, onm,
-                                   frot, flin, fcov, fclocks, nb, kmax, use_kin);
-    return static_cast<int>(cudaGetLastError());
-  }
-  // The staged event rows: nb (3 + 8 kmax) floats of dynamic shared memory.
-  const size_t dyn = static_cast<size_t>(nb) * (3 + 8 * kmax) * sizeof(float);
-  if (dyn + sizeof(lk_warp::Smem) > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        chain_warp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(dyn));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  chain_warp_kernel<<<1, lk_warp::NW, dyn, st>>>(params, clocks, rot0, lin0, cov0, brow, etime,
-                                                 egate, eacc, egyr, s40, orot, opos, orotcov,
-                                                 oposcov, onm, frot, flin, fcov, fclocks, nb, kmax);
-  return static_cast<int>(cudaGetLastError());
+  if (use_kin)
+    return launch_warp<true>(params, clocks, rot0, lin0, cov0, brow, etime, egate, eacc, egyr,
+                             efp, efv, ect, s40, orot, opos, orotcov, oposcov, onm, frot, flin,
+                             fcov, fclocks, nb, kmax, st);
+  return launch_warp<false>(params, clocks, rot0, lin0, cov0, brow, etime, egate, eacc, egyr, efp,
+                            efv, ect, s40, orot, opos, orotcov, oposcov, onm, frot, flin, fcov,
+                            fclocks, nb, kmax, st);
 }

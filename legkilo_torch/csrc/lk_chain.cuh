@@ -1,14 +1,14 @@
-// Device functions shared by the two ESKF chain kernels (chain_stats.cu,
-// chain_points.cu): one thread block of NT threads holds the filter state in
-// shared memory and runs, per call, the dual-clock predict of the 30x30
-// covariance (eskf.cc:64-89), the structured 6-row IMU update
-// (eskf.cc:125-135), the 18-row kinematic update with the nested-Schur 18x18
-// inverse (KILO.cc:260-314), or the information-form point update from its
-// 6x6 normal equations.  The threads split every product over matrix
-// entries; the 3x3 adjugate inverses, exp3 and the state retraction run on
-// one thread.  All arithmetic is fp32 on CUDA cores.  Every function is
-// called by all threads of the block and ends on a block barrier.  The free
-// functions are static: each kernel source compiles its own copy.
+// Device functions of the per-point ESKF chain kernel (chain_points.cu; the
+// fused chain runs one warp, lk_chain_warp.cuh): one thread block of NT
+// threads holds the filter state in shared memory and runs, per call, the
+// dual-clock predict of the 30x30 covariance (eskf.cc:64-89), the
+// structured 6-row IMU update (eskf.cc:125-135), the 18-row kinematic
+// update with the nested-Schur 18x18 inverse (KILO.cc:260-314), or the
+// information-form point update from its 6x6 normal equations.  The threads
+// split every product over matrix entries; the 3x3 adjugate inverses, exp3
+// and the state retraction run on one thread.  All arithmetic is fp32 on
+// CUDA cores.  Every function is called by all threads of the block and
+// ends on a block barrier.  The free functions are static.
 #pragma once
 
 #include "lk_common.cuh"

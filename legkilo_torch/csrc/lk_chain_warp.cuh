@@ -1,5 +1,5 @@
-// Device functions of the one-warp ESKF chain (chain_stats.cu's IMU-branch
-// kernel): ONE warp of 32 lanes walks the buckets with the filter state in
+// Device functions of the one-warp ESKF chain (chain_stats.cu's kernel, both
+// branches): ONE warp of 32 lanes walks the buckets with the filter state in
 // registers, and nothing waits on a block barrier.
 //
 // Layout.  Lane c holds column c of the 30x30 covariance P in p[0..29]
@@ -13,18 +13,21 @@
 // buffer and one __syncwarp().
 //
 // Order of the arithmetic.  The products keep the summation order of the
-// block kernel (lk_chain.cuh) and of eskf_fused where the layout allows it.
+// block code (lk_chain.cuh) and of eskf_fused where the layout allows it.
 // Where the layout departs from them (F P F^T as Q1 + Q1 D^T with its lower
 // block from Q1's rows, P H^T read as (H P)^T, P[:, 0:6] read down the
-// columns, S Phi read from S^T, exp3's series), the
-// same factorisation is written in plain torch in
-// tests/test_torch_chain_warp.py and held against chain_plain.
+// columns, S Phi read from S^T, exp3's series, the kinematic gain formed
+// from the Schur blocks of S without S^-1), the same factorisation is
+// written in plain torch in tests/test_torch_chain_warp.py and held against
+// chain_plain.
 //
 // Staging.  The caller copies the scan's event and bucket rows to shared
 // memory before the walk, and each bucket's 6,400 B of statistics into a
 // two-slot ring with cp.async one bucket ahead, so no device-memory load
 // sits on the recursion's critical path.
 #pragma once
+
+#include <type_traits>
 
 #include "lk_common.cuh"
 
@@ -46,6 +49,29 @@ struct __align__(16) Smem {
   float nq[21];         // (Phi^T S Phi)[0:3, 0:7]
   float prm[40];        // q_diag(30) imu_r(6) g_over_acc_norm kin_noise pad(2)
 };
+
+constexpr int LDH = 20;  // row of hpb and kg: 18 entries (+ dx) in five 16-byte pieces
+constexpr int L9 = 12;   // row of a 9x9 block: 9 entries in three 16-byte pieces
+
+// The kinematic branch's buffers, after the common ones.  Every array read
+// as float4 holds a multiple of four floats, so each stays 16-byte aligned.
+struct __align__(16) KinSmem : Smem {
+  float hf[4 * 24];      // foot f at hf[24 f]: h_rot (9), h_w (9), z (3), c, r, pad
+  float hpb[NW * LDH];   // lane c's column of H P: hpb[c * LDH + j] = (H P)[j][c]
+  float sk[18 * LDH];    // S = H P H^T + R, row-major
+  float ai[9 * L9];      // A^-1 (A = S[0:9, 0:9])
+  float aib[9 * L9];     // A^-1 B (B = S[0:9, 9:18])
+  float cai[9 * L9];     // C A^-1 (C = S[9:18, 0:9])
+  float sc[9 * L9];      // D - C A^-1 B (D = S[9:18, 9:18])
+  float si[9 * L9];      // its inverse
+  float kg[NW * LDH];    // gain row c at kg[c * LDH + 0:18], dx[c] at kg[c * LDH + 18]
+  float s6[6 * LDK];     // inv9: the Schur complement of its leading 3x3 block
+  float x3[3 * 6];       // inv9: Ai3 M[0:3, 3:9]
+  float y3[6 * 3];       // inv9: M[3:9, 0:3] Ai3
+};
+
+template <bool KIN>
+using SmemOf = typename std::conditional<KIN, KinSmem, Smem>::type;
 
 // ---- copies to shared memory (cp.async; complete at cp_wait) ----
 
@@ -500,6 +526,306 @@ static __device__ __forceinline__ void update_stats(float (&p)[30], float (&rot)
   st4(sm.kb + lane * LDK + 4, k[4], k[5], dxl, 0.f);
   __syncwarp();
   downdate_retract(p, rot, lin, pt, sm.kb);
+}
+
+// ---- the kinematic branch ----
+
+// o = rot [v]x, written out (the products with the zeros of [v]x dropped).
+static __device__ __forceinline__ void rot_skew(const float (&rot)[9], float v0, float v1,
+                                                float v2, float* o) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const float r0 = rot[3 * i], r1 = rot[3 * i + 1], r2 = rot[3 * i + 2];
+    o[3 * i] = r1 * v2 + r2 * -v1;
+    o[3 * i + 1] = r0 * -v2 + r2 * v0;
+    o[3 * i + 2] = r0 * v1 + r1 * -v0;
+  }
+}
+
+// The 9x9 inverse of m (row stride ld, shared memory) into out (row stride
+// L9) through the Schur complement of the leading 3x3 block, in the order of
+// eskf_fused.inv9 (_inv_schur(m, 3, inv3, inv6)).  Every lane inverts the
+// 3x3 block; lanes 0-5 form column l of X = Ai3 M[0:3, 3:9] and of the
+// complement M[3:9, 3:9] - M[3:9, 0:3] X, lanes 8-13 row r of
+// Y = M[3:9, 0:3] Ai3; then every lane inverts the complement (inv6) and
+// forms the four output blocks, which lane 0 stores.  Ends on a __syncwarp().
+static __device__ __forceinline__ void inv9(const float* m, int ld, float* out, int lane,
+                                            KinSmem& sm) {
+  float a3[9];
+  inv3(m, ld, a3);
+  if (lane < 6) {
+    const int l = lane;
+    float x[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      x[i] = a3[3 * i] * m[3 + l] + a3[3 * i + 1] * m[ld + 3 + l] + a3[3 * i + 2] * m[2 * ld + 3 + l];
+      sm.x3[6 * i + l] = x[i];
+    }
+#pragma unroll
+    for (int r = 0; r < 6; ++r) {
+      const float* row = m + (3 + r) * ld;
+      sm.s6[r * LDK + l] = row[3 + l] - (row[0] * x[0] + row[1] * x[1] + row[2] * x[2]);
+    }
+  } else if (lane >= 8 && lane < 14) {
+    const int r = lane - 8;
+    const float* row = m + (3 + r) * ld;
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      sm.y3[3 * r + j] = row[0] * a3[j] + row[1] * a3[3 + j] + row[2] * a3[6 + j];
+  }
+  __syncwarp();
+  float g[36];
+  {
+    float c6[36];
+    load6x6(sm.s6, c6);
+    inv6(c6, g);
+  }
+  float x[18], y[18];
+#pragma unroll
+  for (int k = 0; k < 18; ++k) {
+    x[k] = sm.x3[k];
+    y[k] = sm.y3[k];
+  }
+  float z[18];  // Z = X Si6
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 6; ++j) {
+      float v = x[6 * i] * g[j];
+#pragma unroll
+      for (int t = 1; t < 6; ++t) v += x[6 * i + t] * g[6 * t + j];
+      z[6 * i + j] = v;
+    }
+  if (lane == 0) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {  // Ai3 + Z Y
+        float v = z[6 * i] * y[j];
+#pragma unroll
+        for (int t = 1; t < 6; ++t) v += z[6 * i + t] * y[3 * t + j];
+        out[i * L9 + j] = a3[3 * i + j] + v;
+      }
+#pragma unroll
+      for (int j = 0; j < 6; ++j) out[i * L9 + 3 + j] = -z[6 * i + j];
+    }
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {  // -Si6 Y
+        float v = g[6 * i] * y[j];
+#pragma unroll
+        for (int t = 1; t < 6; ++t) v += g[6 * i + t] * y[3 * t + j];
+        out[(3 + i) * L9 + j] = -v;
+      }
+#pragma unroll
+      for (int j = 0; j < 6; ++j) out[(3 + i) * L9 + 3 + j] = g[6 * i + j];
+    }
+  }
+  __syncwarp();
+}
+
+// y[0:9] = x[0:9] M for a 9x9 block M at L9 rows (shared memory, read as float4).
+static __device__ __forceinline__ void vm9(const float (&x)[9], const float* m, float (&y)[9]) {
+  float pad0, pad1, pad2;
+#pragma unroll
+  for (int i = 0; i < 9; ++i) {
+    float r[9];
+    ld4(m + i * L9, r[0], r[1], r[2], r[3]);
+    ld4(m + i * L9 + 4, r[4], r[5], r[6], r[7]);
+    ld4(m + i * L9 + 8, r[8], pad0, pad1, pad2);
+#pragma unroll
+    for (int j = 0; j < 9; ++j) y[j] = i == 0 ? x[0] * r[j] : y[j] + x[i] * r[j];
+  }
+}
+
+// The 18-row kinematic + IMU update (KILO.cc:260-314, eskf.cc:137-145;
+// eskf_fused.build_kin_obs / update_by_kin_imu).  H is nonzero on the
+// columns rot 0:3, vel 6:9, ba 9:12, bw 12:15, imu_a 18:21, imu_w 21:24:
+// rows 0:6 are the IMU rows (ba + imu_a, bw + imu_w), foot f's rows 6+3f:9+3f
+// are c_f [-R [w x p + v]x, I (vel), -R [p]x (imu_w)].
+//   1. lanes 0-3 build foot `lane`'s blocks, z and r into hf;
+//   2. lane c forms its column of H P (= row c of P H^T, P symmetric) and
+//      publishes it in hpb;
+//   3. lane j < 18 forms column j of S = H (H P)^T + R from the published
+//      columns into sk;
+//   4. S^-1 as its Schur blocks (eskf_fused.inv18 = _inv_schur(S, 9, inv9,
+//      inv9)): Ai = inv9(A); lanes 0-8 column l of Ai B and of the
+//      complement D - C (Ai B), lanes 16-24 row r of C Ai; Si = inv9(D - C Ai B);
+//   5. lane c forms its gain row without S^-1: with [u v] its row of P H^T,
+//      w = (v - u Ai B) Si and K[c] = [u Ai - w C Ai, w] (times the gate),
+//      and dx[c] = K[c] z, and publishes them in kg;
+//   6. each lane downdates its column, P -= K (H P), and retracts by dx.
+// Nine __syncwarp() in all.
+static __device__ __forceinline__ void update_kin(float (&p)[30], float (&rot)[9],
+                                                  float (&lin)[27], int lane, const float* acc,
+                                                  const float* gyr, const float* fp,
+                                                  const float* fv, const float* ct,
+                                                  const float* r6, float kin_noise,
+                                                  float g_over_an, float gate, KinSmem& sm) {
+  if (lane < 4) {  // 1. foot `lane`
+    const int f = lane;
+    const float p0 = fp[3 * f], p1 = fp[3 * f + 1], p2 = fp[3 * f + 2];
+    const float c = ct[f];
+    // w x p + v, w = imu_w (lin 18:21)
+    const float u0 = -lin[20] * p1 + lin[19] * p2 + fv[3 * f];
+    const float u1 = lin[20] * p0 + -lin[18] * p2 + fv[3 * f + 1];
+    const float u2 = -lin[19] * p0 + lin[18] * p1 + fv[3 * f + 2];
+    float hr[9], hw[9];
+    rot_skew(rot, u0, u1, u2, hr);
+    rot_skew(rot, p0, p1, p2, hw);
+    float zf[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      zf[i] = (-lin[3 + i] - (rot[3 * i] * u0 + rot[3 * i + 1] * u1 + rot[3 * i + 2] * u2)) * c;
+    float* o = sm.hf + 24 * f;
+    st4(o, -hr[0] * c, -hr[1] * c, -hr[2] * c, -hr[3] * c);
+    st4(o + 4, -hr[4] * c, -hr[5] * c, -hr[6] * c, -hr[7] * c);
+    st4(o + 8, -hr[8] * c, -hw[0] * c, -hw[1] * c, -hw[2] * c);
+    st4(o + 12, -hw[3] * c, -hw[4] * c, -hw[5] * c, -hw[6] * c);
+    st4(o + 16, -hw[7] * c, -hw[8] * c, zf[0], zf[1]);
+    st4(o + 20, zf[2], c, c > 0.5f ? kin_noise : 1.0f, 0.f);
+  }
+  __syncwarp();
+  {  // 2. (H P)[:, lane]
+    float hp[18];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      hp[i] = p[9 + i] + p[18 + i];
+      hp[3 + i] = p[12 + i] + p[21 + i];
+    }
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      const float* h = sm.hf + 24 * f;
+      float a[24];
+#pragma unroll
+      for (int q = 0; q < 6; ++q) ld4(h + 4 * q, a[4 * q], a[4 * q + 1], a[4 * q + 2], a[4 * q + 3]);
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+        hp[6 + 3 * f + i] = a[3 * i] * p[0] + a[3 * i + 1] * p[1] + a[3 * i + 2] * p[2] +
+                            a[21] * p[6 + i] + a[9 + 3 * i] * p[21] + a[10 + 3 * i] * p[22] +
+                            a[11 + 3 * i] * p[23];
+    }
+    float* o = sm.hpb + lane * LDH;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) st4(o + 4 * q, hp[4 * q], hp[4 * q + 1], hp[4 * q + 2], hp[4 * q + 3]);
+    st4(o + 16, hp[16], hp[17], 0.f, 0.f);
+  }
+  __syncwarp();
+  if (lane < 18) {  // 3. column `lane` of S: row `lane` of H P read down the columns
+    const int j = lane;
+    float x[24];
+#pragma unroll
+    for (int t = 0; t < 24; ++t) x[t] = (t >= 3 && t < 6) || (t >= 15 && t < 18) ? 0.f : sm.hpb[t * LDH + j];
+    float* o = sm.sk + j;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      o[i * LDH] = x[9 + i] + x[18 + i] + (i == j ? r6[i] : 0.f);
+      o[(3 + i) * LDH] = x[12 + i] + x[21 + i] + (3 + i == j ? r6[3 + i] : 0.f);
+    }
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      const float* h = sm.hf + 24 * f;
+      float a[24];
+#pragma unroll
+      for (int q = 0; q < 6; ++q) ld4(h + 4 * q, a[4 * q], a[4 * q + 1], a[4 * q + 2], a[4 * q + 3]);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        const int row = 6 + 3 * f + i;
+        o[row * LDH] = a[3 * i] * x[0] + a[3 * i + 1] * x[1] + a[3 * i + 2] * x[2] +
+                       a[21] * x[6 + i] + a[9 + 3 * i] * x[21] + a[10 + 3 * i] * x[22] +
+                       a[11 + 3 * i] * x[23] + (row == j ? a[22] : 0.f);
+      }
+    }
+  }
+  __syncwarp();
+  inv9(sm.sk, LDH, sm.ai, lane, sm);  // 4. Ai
+  if (lane < 9) {  // column l of Ai B, then of D - C (Ai B)
+    const int l = lane;
+    float b[9], v[9];
+#pragma unroll
+    for (int t = 0; t < 9; ++t) b[t] = sm.sk[t * LDH + 9 + l];
+#pragma unroll
+    for (int i = 0; i < 9; ++i) {
+      const float* a = sm.ai + i * L9;
+      float s = a[0] * b[0];
+#pragma unroll
+      for (int t = 1; t < 9; ++t) s += a[t] * b[t];
+      v[i] = s;
+      sm.aib[i * L9 + l] = s;
+    }
+#pragma unroll
+    for (int i = 0; i < 9; ++i) {
+      const float* c = sm.sk + (9 + i) * LDH;
+      float s = c[0] * v[0];
+#pragma unroll
+      for (int t = 1; t < 9; ++t) s += c[t] * v[t];
+      sm.sc[i * L9 + l] = c[9 + l] - s;
+    }
+  } else if (lane >= 16 && lane < 25) {  // row r of C Ai
+    const int r = lane - 16;
+    float c[9], y[9];
+#pragma unroll
+    for (int t = 0; t < 9; ++t) c[t] = sm.sk[(9 + r) * LDH + t];
+    vm9(c, sm.ai, y);
+#pragma unroll
+    for (int j = 0; j < 9; ++j) sm.cai[r * L9 + j] = y[j];
+  }
+  __syncwarp();
+  inv9(sm.sc, L9, sm.si, lane, sm);  // Si
+  float hp[20];  // the lane's column of H P again (it is not kept live across the inverses)
+#pragma unroll
+  for (int q = 0; q < 5; ++q) ld4(sm.hpb + lane * LDH + 4 * q, hp[4 * q], hp[4 * q + 1], hp[4 * q + 2], hp[4 * q + 3]);
+  {  // 5. gain row `lane` and dx[lane]
+    float u[9], v[9], t1[9], w[9], k1[9], k2[9];
+#pragma unroll
+    for (int t = 0; t < 9; ++t) {
+      u[t] = hp[t];
+      v[t] = hp[9 + t];
+    }
+    vm9(u, sm.aib, t1);
+#pragma unroll
+    for (int t = 0; t < 9; ++t) t1[t] = v[t] - t1[t];
+    vm9(t1, sm.si, w);
+    vm9(u, sm.ai, k1);
+    vm9(w, sm.cai, k2);
+    float k[18], z[18];
+#pragma unroll
+    for (int t = 0; t < 9; ++t) {
+      k[t] = (k1[t] - k2[t]) * gate;
+      k[9 + t] = w[t] * gate;
+    }
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      z[i] = g_over_an * acc[i] - lin[15 + i] - lin[6 + i];
+      z[3 + i] = gyr[i] - lin[18 + i] - lin[9 + i];
+    }
+#pragma unroll
+    for (int f = 0; f < 4; ++f)
+#pragma unroll
+      for (int i = 0; i < 3; ++i) z[6 + 3 * f + i] = sm.hf[24 * f + 18 + i];
+    float dxl = k[0] * z[0];
+#pragma unroll
+    for (int t = 1; t < 18; ++t) dxl += k[t] * z[t];
+    float* o = sm.kg + lane * LDH;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) st4(o + 4 * q, k[4 * q], k[4 * q + 1], k[4 * q + 2], k[4 * q + 3]);
+    st4(o + 16, k[16], k[17], dxl, 0.f);
+  }
+  __syncwarp();
+  float dx[30];  // 6. P -= K (H P), column `lane`; then the retraction
+#pragma unroll
+  for (int i = 0; i < 30; ++i) {
+    float k[20];
+#pragma unroll
+    for (int q = 0; q < 5; ++q) ld4(sm.kg + i * LDH + 4 * q, k[4 * q], k[4 * q + 1], k[4 * q + 2], k[4 * q + 3]);
+    float v = k[0] * hp[0];
+#pragma unroll
+    for (int t = 1; t < 18; ++t) v += k[t] * hp[t];
+    p[i] = p[i] - v;
+    dx[i] = k[18];
+  }
+  retract<27>(rot, lin, dx);
 }
 
 }  // namespace lk_warp

@@ -15,17 +15,19 @@
 //   prefix product of the delta rotations exp(w dt), left to right
 //   two cumulative sums: velocity dv = dt (R_start a + g), position dt v_start
 //
-// One thread block, one thread a slot (MP <= 1024).  Every cumulative
-// structure is an inclusive Hillis-Steele doubling scan through shared
-// memory: a slot reads its neighbour n to the left (or the identity past the
-// start), then all write back; the matrix combine keeps the order
-// shifted @ current.  The doubling order and lk::F (no FMA contraction) are
+// One thread block; each thread takes SPT slots (i, i + T, ... for a block
+// of T = MP / SPT <= 1,024 threads), so MP runs to 6,400, where the
+// 9 x MP floats of shared memory reach the 227 KB a block may opt in to.
+// Every cumulative structure is an inclusive Hillis-Steele doubling scan
+// through shared memory: a slot reads its neighbour n to the left (or the
+// identity past the start), then all write back; the matrix combine keeps
+// the order shifted @ current.  A slot's arithmetic does not depend on SPT.  The doubling order and lk::F (no FMA contraction) are
 // those of ops/pose_prop.pose_plain, so kernel and plain version round the
 // sums and products alike.  Masked and padded slots (gate 0) have dt = 0
 // and are exact no-ops.
 //
 // Bound on the H100: 10.9 KB in and out at MP = 128 and ~0.5 k flops a slot;
-// one block of MP threads and ~5 log2(MP) barrier pairs: launch and
+// one block of MP / SPT threads and ~5 log2(MP) barrier pairs: launch and
 // barrier latency, not bandwidth or arithmetic, set its time.
 
 #include "lk_common.cuh"
@@ -41,144 +43,215 @@ constexpr int kRot = 0, kPos = 9, kVel = 12, kBa = 15, kBw = 18, kGrav = 21, kIm
 constexpr float kNeg = -3.0e38f;
 constexpr float kSmallAngle = 1e-6f;  // core/so3._SMALL_ANGLE
 
-// x[k] of the slot n to the left, or fill[k] for the first n slots.  buf holds K rows of mp.
-template <int K>
-__device__ __forceinline__ void shift(const F x[K], int n, const F fill[K], F o[K], float* buf,
-                                      int mp) {
-  const int i = threadIdx.x;
+// Slot j of this thread: SPT slots a thread, strided by the block.
+template <int SPT>
+__device__ __forceinline__ int slot(int j) {
+  return threadIdx.x + j * static_cast<int>(blockDim.x);
+}
+
+// x[j][k] of the slot n to the left of each of this thread's slots, or
+// fill[k] for the first n slots.  buf holds K rows of mp.
+template <int K, int SPT>
+__device__ __forceinline__ void shift(const F (&x)[SPT][K], int n, const F (&fill)[K],
+                                      F (&o)[SPT][K], float* buf, int mp) {
 #pragma unroll
-  for (int k = 0; k < K; ++k) buf[k * mp + i] = x[k].v;
+  for (int j = 0; j < SPT; ++j)
+#pragma unroll
+    for (int k = 0; k < K; ++k) buf[k * mp + slot<SPT>(j)] = x[j][k].v;
   __syncthreads();
 #pragma unroll
-  for (int k = 0; k < K; ++k) o[k] = i >= n ? F(buf[k * mp + i - n]) : fill[k];
+  for (int j = 0; j < SPT; ++j) {
+    const int i = slot<SPT>(j);
+#pragma unroll
+    for (int k = 0; k < K; ++k) o[j][k] = i >= n ? F(buf[k * mp + i - n]) : fill[k];
+  }
   __syncthreads();
 }
 
-__global__ void pose_kernel(const float* __restrict__ par, const float* __restrict__ in,
-                            float* __restrict__ out, int mp) {
+template <int SPT>
+__global__ void __launch_bounds__(1024)
+pose_kernel(const float* __restrict__ par, const float* __restrict__ in,
+            float* __restrict__ out, int mp) {
   extern __shared__ float buf[];  // [9, mp]
-  const int i = threadIdx.x;
   auto s = [&](int k) { return F(par[k]); };
 
-  const F t(in[0 * mp + i]);
-  const bool gate = in[1 * mp + i] > 0.5f;
+  F t[SPT], dt[SPT];
+  bool gate[SPT];
   // Latch scan state: has-event flag, then the six post-update rates.
-  F lat[7], zero7[7], lsh[7];
-  lat[0] = F(in[2 * mp + i]);
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    lat[1 + k] = F(in[(3 + k) * mp + i]) - s(kBw + k);
-    lat[4 + k] = s(kGsc) * F(in[(6 + k) * mp + i]) - s(kBa + k);
-  }
+  F lat[SPT][7], lsh[SPT][7], zero7[7];
 #pragma unroll
   for (int k = 0; k < 7; ++k) zero7[k] = F(0.f);
-  for (int n = 1; n < mp; n *= 2) {
-    shift<7>(lat, n, zero7, lsh, buf, mp);
-    const bool has = lat[0] > F(0.5f);
 #pragma unroll
-    for (int k = 1; k < 7; ++k) lat[k] = sel(has, lat[k], lsh[k]);
-    lat[0] = lk::fmax(lat[0], lsh[0]);
+  for (int j = 0; j < SPT; ++j) {
+    const int i = slot<SPT>(j);
+    t[j] = F(in[0 * mp + i]);
+    gate[j] = in[1 * mp + i] > 0.5f;
+    lat[j][0] = F(in[2 * mp + i]);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      lat[j][1 + k] = F(in[(3 + k) * mp + i]) - s(kBw + k);
+      lat[j][4 + k] = s(kGsc) * F(in[(6 + k) * mp + i]) - s(kBa + k);
+    }
   }
-  shift<7>(lat, 1, zero7, lsh, buf, mp);
-  const bool has_p = lsh[0] > F(0.5f);
-  F w_seg[3], a_seg[3];
+  for (int n = 1; n < mp; n *= 2) {
+    shift<7, SPT>(lat, n, zero7, lsh, buf, mp);
 #pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    w_seg[k] = sel(has_p, lsh[1 + k], s(kImuW + k));
-    a_seg[k] = sel(has_p, lsh[4 + k], s(kImuA + k));
+    for (int j = 0; j < SPT; ++j) {
+      const bool has = lat[j][0] > F(0.5f);
+#pragma unroll
+      for (int k = 1; k < 7; ++k) lat[j][k] = sel(has, lat[j][k], lsh[j][k]);
+      lat[j][0] = lk::fmax(lat[j][0], lsh[j][0]);
+    }
+  }
+  shift<7, SPT>(lat, 1, zero7, lsh, buf, mp);
+  F w_seg[SPT][3], a_seg[SPT][3];
+#pragma unroll
+  for (int j = 0; j < SPT; ++j) {
+    const bool has_p = lsh[j][0] > F(0.5f);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      w_seg[j][k] = sel(has_p, lsh[j][1 + k], s(kImuW + k));
+      a_seg[j][k] = sel(has_p, lsh[j][4 + k], s(kImuA + k));
+    }
   }
 
   // ---- per-segment dt from the last-predict clock ----
   const F lp = s(kLp);
-  F tv[1] = {sel(gate, t, F(kNeg))}, tsh[1];
+  F tv[SPT][1], tsh[SPT][1];
   const F neg1[1] = {F(kNeg)};
-  for (int n = 1; n < mp; n *= 2) {
-    shift<1>(tv, n, neg1, tsh, buf, mp);
-    tv[0] = lk::fmax(tv[0], tsh[0]);
-  }
-  const F t_end[1] = {lk::fmax(tv[0], lp)};
   const F lp1[1] = {lp};
-  shift<1>(t_end, 1, lp1, tsh, buf, mp);
-  const F dt = sel(gate, t - tsh[0], F(0.f));
+#pragma unroll
+  for (int j = 0; j < SPT; ++j) tv[j][0] = sel(gate[j], t[j], F(kNeg));
+  for (int n = 1; n < mp; n *= 2) {
+    shift<1, SPT>(tv, n, neg1, tsh, buf, mp);
+#pragma unroll
+    for (int j = 0; j < SPT; ++j) tv[j][0] = lk::fmax(tv[j][0], tsh[j][0]);
+  }
+#pragma unroll
+  for (int j = 0; j < SPT; ++j) tv[j][0] = lk::fmax(tv[j][0], lp);  // t_end
+  shift<1, SPT>(tv, 1, lp1, tsh, buf, mp);
+#pragma unroll
+  for (int j = 0; j < SPT; ++j) dt[j] = sel(gate[j], t[j] - tsh[j][0], F(0.f));
 
   // ---- d_r = exp(w_seg dt): Rodrigues with the Taylor branch ----
-  const F wx = w_seg[0] * dt, wy = w_seg[1] * dt, wz = w_seg[2] * dt;
-  const F th2 = wx * wx + wy * wy + wz * wz;
-  const F th = lk::fsqrt(th2);
-  const bool small = th < F(kSmallAngle);
-  const F safe = sel(small, F(1.f), th);
-  const F a_c = sel(small, F(1.f) - th2 * F((float)(1.0 / 6.0)), lk::fsin(safe) / safe);
-  const F b_c = sel(small, F(0.5f) - th2 * F((float)(1.0 / 24.0)), (F(1.f) - lk::fcos(safe)) / (safe * safe));
-  const F kk[9] = {-(wy * wy + wz * wz), wx * wy, wx * wz,
-                   wx * wy, -(wx * wx + wz * wz), wy * wz,
-                   wx * wz, wy * wz, -(wx * wx + wy * wy)};
-  const F kx[9] = {F(0.f), -wz, wy, wz, F(0.f), -wx, -wy, wx, F(0.f)};
   const F eye[9] = {F(1.f), F(0.f), F(0.f), F(0.f), F(1.f), F(0.f), F(0.f), F(0.f), F(1.f)};
-  F pref[9], psh[9], tmp[9];
+  F pref[SPT][9], psh[SPT][9];
 #pragma unroll
-  for (int k = 0; k < 9; ++k) pref[k] = eye[k] + a_c * kx[k] + b_c * kk[k];
+  for (int j = 0; j < SPT; ++j) {
+    const F wx = w_seg[j][0] * dt[j], wy = w_seg[j][1] * dt[j], wz = w_seg[j][2] * dt[j];
+    const F th2 = wx * wx + wy * wy + wz * wz;
+    const F th = lk::fsqrt(th2);
+    const bool small = th < F(kSmallAngle);
+    const F safe = sel(small, F(1.f), th);
+    const F a_c = sel(small, F(1.f) - th2 * F((float)(1.0 / 6.0)), lk::fsin(safe) / safe);
+    const F b_c = sel(small, F(0.5f) - th2 * F((float)(1.0 / 24.0)), (F(1.f) - lk::fcos(safe)) / (safe * safe));
+    const F kk[9] = {-(wy * wy + wz * wz), wx * wy, wx * wz,
+                     wx * wy, -(wx * wx + wz * wz), wy * wz,
+                     wx * wz, wy * wz, -(wx * wx + wy * wy)};
+    const F kx[9] = {F(0.f), -wz, wy, wz, F(0.f), -wx, -wy, wx, F(0.f)};
+#pragma unroll
+    for (int k = 0; k < 9; ++k) pref[j][k] = eye[k] + a_c * kx[k] + b_c * kk[k];
+  }
 
   // ---- inclusive prefix product, order-preserving: shifted @ current ----
   for (int n = 1; n < mp; n *= 2) {
-    shift<9>(pref, n, eye, psh, buf, mp);
+    shift<9, SPT>(pref, n, eye, psh, buf, mp);
+#pragma unroll
+    for (int j = 0; j < SPT; ++j) {
+      F tmp[9];
+#pragma unroll
+      for (int r = 0; r < 3; ++r)
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          tmp[3 * r + c] = psh[j][3 * r + 0] * pref[j][0 + c] + psh[j][3 * r + 1] * pref[j][3 + c] +
+                           psh[j][3 * r + 2] * pref[j][6 + c];
+#pragma unroll
+      for (int k = 0; k < 9; ++k) pref[j][k] = tmp[k];
+    }
+  }
+
+  F r0[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) r0[k] = s(kRot + k);
+  F r_end[SPT][9], r_start[SPT][9];
+#pragma unroll
+  for (int j = 0; j < SPT; ++j)
 #pragma unroll
     for (int r = 0; r < 3; ++r)
 #pragma unroll
       for (int c = 0; c < 3; ++c)
-        tmp[3 * r + c] = psh[3 * r + 0] * pref[0 + c] + psh[3 * r + 1] * pref[3 + c] +
-                         psh[3 * r + 2] * pref[6 + c];
-#pragma unroll
-    for (int k = 0; k < 9; ++k) pref[k] = tmp[k];
-  }
-
-  F r0[9], r_end[9], r_start[9];
-#pragma unroll
-  for (int k = 0; k < 9; ++k) r0[k] = s(kRot + k);
-#pragma unroll
-  for (int r = 0; r < 3; ++r)
-#pragma unroll
-    for (int c = 0; c < 3; ++c)
-      r_end[3 * r + c] = r0[3 * r + 0] * pref[0 + c] + r0[3 * r + 1] * pref[3 + c] +
-                         r0[3 * r + 2] * pref[6 + c];
-  shift<9>(r_end, 1, r0, r_start, buf, mp);
+        r_end[j][3 * r + c] = r0[3 * r + 0] * pref[j][0 + c] + r0[3 * r + 1] * pref[j][3 + c] +
+                              r0[3 * r + 2] * pref[j][6 + c];
+  shift<9, SPT>(r_end, 1, r0, r_start, buf, mp);
 
   // ---- v_end = vel0 + cumsum(dt (r_start a_seg + grav)) ----
-  F cs[3], csh[3], zero3[3] = {F(0.f), F(0.f), F(0.f)};
+  F cs[SPT][3], csh[SPT][3];
+  const F zero3[3] = {F(0.f), F(0.f), F(0.f)};
 #pragma unroll
-  for (int k = 0; k < 3; ++k)
-    cs[k] = dt * (r_start[3 * k + 0] * a_seg[0] + r_start[3 * k + 1] * a_seg[1] +
-                  r_start[3 * k + 2] * a_seg[2] + s(kGrav + k));
+  for (int j = 0; j < SPT; ++j)
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      cs[j][k] = dt[j] * (r_start[j][3 * k + 0] * a_seg[j][0] + r_start[j][3 * k + 1] * a_seg[j][1] +
+                          r_start[j][3 * k + 2] * a_seg[j][2] + s(kGrav + k));
   for (int n = 1; n < mp; n *= 2) {
-    shift<3>(cs, n, zero3, csh, buf, mp);
+    shift<3, SPT>(cs, n, zero3, csh, buf, mp);
 #pragma unroll
-    for (int k = 0; k < 3; ++k) cs[k] = cs[k] + csh[k];
-  }
-  F v_end[3], vel0[3], v_start[3];
+    for (int j = 0; j < SPT; ++j)
 #pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    vel0[k] = s(kVel + k);
-    v_end[k] = vel0[k] + cs[k];
+      for (int k = 0; k < 3; ++k) cs[j][k] = cs[j][k] + csh[j][k];
   }
-  shift<3>(v_end, 1, vel0, v_start, buf, mp);
+  F vel0[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) vel0[k] = s(kVel + k);
+#pragma unroll
+  for (int j = 0; j < SPT; ++j)
+#pragma unroll
+    for (int k = 0; k < 3; ++k) cs[j][k] = vel0[k] + cs[j][k];  // v_end
+  shift<3, SPT>(cs, 1, vel0, csh, buf, mp);                      // v_start
 
   // ---- p_end = pos0 + cumsum(dt v_start) ----
 #pragma unroll
-  for (int k = 0; k < 3; ++k) cs[k] = dt * v_start[k];
-  for (int n = 1; n < mp; n *= 2) {
-    shift<3>(cs, n, zero3, csh, buf, mp);
+  for (int j = 0; j < SPT; ++j)
 #pragma unroll
-    for (int k = 0; k < 3; ++k) cs[k] = cs[k] + csh[k];
+    for (int k = 0; k < 3; ++k) cs[j][k] = dt[j] * csh[j][k];
+  for (int n = 1; n < mp; n *= 2) {
+    shift<3, SPT>(cs, n, zero3, csh, buf, mp);
+#pragma unroll
+    for (int j = 0; j < SPT; ++j)
+#pragma unroll
+      for (int k = 0; k < 3; ++k) cs[j][k] = cs[j][k] + csh[j][k];
   }
 
 #pragma unroll
-  for (int k = 0; k < 9; ++k) out[k * mp + i] = r_end[k].v;
+  for (int j = 0; j < SPT; ++j) {
+    const int i = slot<SPT>(j);
 #pragma unroll
-  for (int k = 0; k < 3; ++k) out[(9 + k) * mp + i] = (s(kPos + k) + cs[k]).v;
+    for (int k = 0; k < 9; ++k) out[k * mp + i] = r_end[j][k].v;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) out[(9 + k) * mp + i] = (s(kPos + k) + cs[j][k]).v;
+  }
+}
+
+template <int SPT>
+int launch(const float* par, const float* in, float* out, int mp, cudaStream_t st) {
+  const int smem = 9 * mp * static_cast<int>(sizeof(float));
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(pose_kernel<SPT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  pose_kernel<SPT><<<1, mp / SPT, smem, st>>>(par, in, out, mp);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// MP a multiple of 128 up to 6,400 (the wrapper checks): SPT slots a thread,
+// the least power of two that keeps the block at 1,024 threads or fewer.
 LK_API int pose_launch(const float* par, const float* in, float* out, int mp, void* stream) {
-  pose_kernel<<<1, mp, 9 * mp * sizeof(float), static_cast<cudaStream_t>(stream)>>>(par, in, out, mp);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (mp <= 1024) return launch<1>(par, in, out, mp, st);
+  if (mp <= 2048) return launch<2>(par, in, out, mp, st);
+  if (mp <= 4096) return launch<4>(par, in, out, mp, st);
+  return launch<8>(par, in, out, mp, st);
 }

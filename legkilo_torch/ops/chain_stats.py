@@ -11,11 +11,11 @@ Replaces the JAX package's Pallas chain kernel (ops/pallas/chain_stats.py:
     -> orot [NB,3,3], opos [NB,3], orotcov/oposcov [NB,3,3], onm [NB],
        frot [3,3], flin [27], fcov [30,30], fclocks [2]
 
-On a CUDA tensor it launches ``csrc/chain_stats.cu``: the IMU branch as one
+On a CUDA tensor it launches ``csrc/chain_stats.cu``: both branches as one
 warp with the covariance in registers and each bucket's statistics copied
-to shared memory a bucket ahead (so ``s40`` must be 16-byte aligned), the
-kinematic branch as one thread block with the state in shared memory; see
-the source for the design and what bounds it.  On a CPU tensor it runs
+to shared memory a bucket ahead (so ``s40`` must be 16-byte aligned); the
+kinematic branch splits its 18x18 inverse over the lanes.  See the source
+for the design and what bounds it.  On a CPU tensor it runs
 ``chain_plain``, the same recursion in eskf_fused ops (the port of the JAX
 package's ``filter_deferred._chain_fused_core``).
 """
@@ -83,7 +83,7 @@ def chain_call(params, clocks, rot0, lin0, cov0, brow, etime, egate, eacc, egyr,
         if tuple(a.shape) != s:
             raise ValueError(f"chain_call: argument {i} has shape {tuple(a.shape)}, expected {s}")
     dev = _build.check_tensors("chain_call", args, [F32] * len(args))
-    if not use_kin and s40.data_ptr() % 16:
+    if s40.data_ptr() % 16:
         raise ValueError("chain_call: s40 is not 16-byte aligned (the kernel copies it 16 B at a time)")
     outs = empty_chain_outputs(nb, dev)
     _build.launch("chain_stats_launch", args + outs, [nb, kmax, int(bool(use_kin))])
@@ -116,7 +116,7 @@ def pack_state_and_events(carry, packet, params, use_kin: bool):
         efp = packet.foot_pos.reshape(nb, kmax, 12).contiguous()
         efv = packet.foot_vel.reshape(nb, kmax, 12).contiguous()
         ect = packet.contact.to(F32)
-    else:  # the IMU-only kernel never reads them
+    else:  # the IMU branch never reads them
         efp = efv = torch.zeros((nb, kmax, 12), dtype=F32, device=dev)
         ect = torch.zeros((nb, kmax, 4), dtype=F32, device=dev)
     head = (pvec, clocks, carry.state.rot.contiguous(), carry.state.lin.contiguous(),

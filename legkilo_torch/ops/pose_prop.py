@@ -11,7 +11,8 @@ contract over the flat event/bucket timeline (MP slots, a multiple of 128):
 The latched rates, the last-predict clock, the prefix product of the delta
 rotations and the two cumulative sums are inclusive doubling
 (Hillis-Steele) scans.  On a CUDA tensor ``pose_call`` launches
-``csrc/pose_prop.cu`` (one block, one thread a slot, MP <= 1024); on a CPU
+``csrc/pose_prop.cu`` (one block, up to 1,024 threads of one to eight slots
+each, MP <= ``MAX_MP``); on a CPU
 tensor it runs ``pose_plain``, which takes the same doubling steps in the
 same order, so the two round their sums and products alike.  Padded slots
 (gate 0) are exact no-ops.
@@ -31,7 +32,7 @@ P_ROT, P_POS, P_VEL, P_BA, P_BW, P_GRAV, P_IMU_W, P_IMU_A, P_LP, P_GSC = (
 PAR_W = 32
 # rows layout: t(0) gate(1) is_ev(2) gyr(3:6) acc(6:9)
 IN_W = 9
-MAX_MP = 1024  # one thread a slot in one block
+MAX_MP = 6400  # 9 x MP floats of shared memory: the 227 KB one block may opt in to
 
 _NEG = -3.0e38
 _SMALL_ANGLE = 1e-6  # core/so3._SMALL_ANGLE
@@ -125,7 +126,7 @@ def pose_call(par, rows):
     args = (par.reshape(-1), rows)
     if rows.shape[0] != IN_W or mp % 128 != 0 or not 0 < mp <= MAX_MP:
         raise ValueError(f"pose_call: rows {tuple(rows.shape)}, expected ({IN_W}, MP) with MP a "
-                         f"multiple of 128 up to {MAX_MP}")
+                         f"multiple of 128 up to {MAX_MP} (the kernel's shared memory: 9 x MP floats)")
     if args[0].numel() != PAR_W:
         raise ValueError(f"pose_call: par must hold {PAR_W} floats")
     dev = _build.check_tensors("pose_call", args, [F32] * 2)

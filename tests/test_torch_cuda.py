@@ -28,7 +28,7 @@ def test_kernels_match_plain_on_card(cuda_device):
     chip_smoke.phase_build()
     recs = chip_smoke.phase_kernels(torch, cuda_device)
     assert set(recs) == {"chain_stats", "chain_stats_kin", "chain_points", "chain_points_kin",
-                         "keys", "select", "moments", "fit", "pose", "pose_384"}
+                         "keys", "select", "moments", "fit", "pose", "pose_384", "pose_1280"}
 
 
 @pytest.mark.cuda
@@ -58,8 +58,8 @@ def test_pose_and_fit_wrappers_refuse_bad_input_on_card(cuda_device):
 
     par = torch.zeros(32, device=cuda_device)
     n0 = pp.pose_call.launches, pfr.fit_rows_call.launches
-    with pytest.raises(ValueError, match="multiple of 128"):   # one block: MP <= 1024
-        pp.pose_call(par, torch.zeros(9, 1152, device=cuda_device))
+    with pytest.raises(ValueError, match="up to 6400"):   # 9 x MP floats of shared memory
+        pp.pose_call(par, torch.zeros(9, 6528, device=cuda_device))
     with pytest.raises(ValueError, match="multiple of 128"):
         pp.pose_call(par, torch.zeros(9, 100, device=cuda_device))
     with pytest.raises(ValueError, match="32 floats"):
@@ -92,6 +92,26 @@ def test_pose_kernel_at_256_slots_on_card(cuda_device):
     pargs = cs.pose_inputs(torch, cuda_device, np.random.default_rng(3), 28, 5)
     assert pargs[1].shape[1] == 256
     assert torch.allclose(pp.pose_call(*pargs), pp.pose_plain(*pargs), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,k", [(256, 4), (1000, 5)], ids=["mp1280", "mp6016"])
+def test_pose_kernel_past_1024_slots_on_card(cuda_device, nb, k):
+    """Past 1,024 timeline slots each thread takes several (two at
+    MP = 1,280, eight at 6,016): bit-equal to the plain version, as one slot
+    a thread is."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from legkilo_torch.ops import pose_prop as pp
+
+    pargs = cs.pose_inputs(torch, cuda_device, np.random.default_rng(3), nb, k)
+    assert pargs[1].shape[1] == (nb * (k + 1) + 127) // 128 * 128 > 1024
+    n0 = pp.pose_call.launches
+    got = pp.pose_call(*pargs)
+    torch.cuda.synchronize()
+    assert pp.pose_call.launches == n0 + 1
+    assert torch.equal(got, pp.pose_plain(*pargs))
 
 
 @pytest.mark.cuda
@@ -158,23 +178,25 @@ def test_chain_points_other_shapes_on_card(cuda_device, use_kin):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("use_kin", [False, True], ids=["imu", "kin"])
 @pytest.mark.parametrize("nb,k", [(28, 1), (56, 1), (8, 2), (1, 1)],
                          ids=["nb28_k1", "nb56_k1", "nb8_k2", "nb1"])
-def test_chain_warp_kernel_on_card(cuda_device, nb, k):
-    """The IMU branch's one-warp kernel against its plain version, with a
-    gated-off and an empty bucket (at NB = 1 one bucket is both): chip_smoke's
-    tolerances, counts and clocks exact, two launches bit-equal."""
+def test_chain_warp_kernel_on_card(cuda_device, nb, k, use_kin):
+    """The one-warp kernel of either branch against its plain version, with
+    a gated-off and an empty bucket and, kin, an event without contact (at
+    NB = 1 one bucket is all three): chip_smoke's tolerances, counts and
+    clocks exact, two launches bit-equal."""
     import numpy as np
 
     import chip_smoke as cs
     from legkilo_torch.ops import chain_stats
 
-    args = cs.chain_holes(cs.chain_inputs(torch, cuda_device, np.random.default_rng(nb + k), False, nb, k))
+    args = cs.chain_holes(cs.chain_inputs(torch, cuda_device, np.random.default_rng(nb + k), use_kin, nb, k))
     n0 = chain_stats.chain_call.launches
-    got = chain_stats.chain_call(*args, use_kin=False)
-    again = chain_stats.chain_call(*args, use_kin=False)
+    got = chain_stats.chain_call(*args, use_kin=use_kin)
+    again = chain_stats.chain_call(*args, use_kin=use_kin)
     torch.cuda.synchronize()
-    ref = chain_stats.chain_plain(*args, use_kin=False)
+    ref = chain_stats.chain_plain(*args, use_kin=use_kin)
     assert chain_stats.chain_call.launches == n0 + 2
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     for i, (a, b) in enumerate(zip(got, ref)):
@@ -186,7 +208,8 @@ def test_chain_warp_kernel_on_card(cuda_device, nb, k):
 
 
 @pytest.mark.cuda
-def test_chain_call_refuses_unaligned_s40_on_card(cuda_device):
+@pytest.mark.parametrize("use_kin", [False, True], ids=["imu", "kin"])
+def test_chain_call_refuses_unaligned_s40_on_card(cuda_device, use_kin):
     """The warp kernel copies s40 16 bytes at a time: a view at an offset of
     one float is refused before any launch."""
     import numpy as np
@@ -194,34 +217,40 @@ def test_chain_call_refuses_unaligned_s40_on_card(cuda_device):
     import chip_smoke as cs
     from legkilo_torch.ops import chain_stats
 
-    args = cs.chain_inputs(torch, cuda_device, np.random.default_rng(2), False, 8, 1)
+    args = cs.chain_inputs(torch, cuda_device, np.random.default_rng(2), use_kin, 8, 1)
     buf = torch.zeros(8 * 1600 + 1, device=cuda_device)
     s40 = buf[1:].view(8, 40, 40)
     s40.copy_(args[13])
     n0 = chain_stats.chain_call.launches
     with pytest.raises(ValueError, match="16-byte aligned"):
-        chain_stats.chain_call(*args[:13], s40, use_kin=False)
+        chain_stats.chain_call(*args[:13], s40, use_kin=use_kin)
     assert chain_stats.chain_call.launches == n0
 
 
 @pytest.mark.cuda
 def test_chain_call_routes_by_use_kin_on_card(cuda_device):
-    """use_kin = False launches the one-warp kernel only, use_kin = True the
-    block kernel only (kernel names from torch.profiler)."""
+    """Both branches launch the one-warp kernel, each its own instantiation
+    (use_kin = False chain_warp_kernel<false>, True chain_warp_kernel<true>),
+    and no block chain_kernel is left: in one torch.profiler window over a
+    launch of each branch, the chain kernels on the card, in launch order,
+    are exactly those two."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke as cs
     from legkilo_torch.ops import chain_stats
 
-    for use_kin, want, other in ((False, "chain_warp_kernel", "chain_kernel"),
-                                 (True, "chain_kernel", "chain_warp_kernel")):
-        args = cs.chain_inputs(torch, cuda_device, np.random.default_rng(4), use_kin, 8, 1)
+    calls = [(use_kin, cs.chain_inputs(torch, cuda_device, np.random.default_rng(4), use_kin, 8, 1))
+             for use_kin in (False, True)]
+    for use_kin, args in calls:
         chain_stats.chain_call(*args, use_kin=use_kin)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for use_kin, args in calls:
             chain_stats.chain_call(*args, use_kin=use_kin)
-            torch.cuda.synchronize()
-        names = [e.key for e in prof.key_averages()]
-        assert any(want in n and other not in n for n in names), names
-        assert not any(other in n and want not in n for n in names), names
+        torch.cuda.synchronize()
+    kernels = sorted((e.time_range.start, e.name) for e in prof.events()
+                     if "CUDA" in str(e.device_type) and "chain" in e.name)
+    names = [n for _, n in kernels]
+    assert len(names) == 2, names
+    assert "chain_warp_kernel<false>" in names[0] and "chain_warp_kernel<true>" in names[1], names

@@ -356,7 +356,7 @@ def _pose_setup(rng, nb, k):
     return jc, JPacket(**{f: jnp.asarray(v) for f, v in fields.items()}), jparams, fields
 
 
-@pytest.mark.parametrize("nb,k,mp", [(28, 1, 128), (28, 5, 256), (28, 12, 384)])
+@pytest.mark.parametrize("nb,k,mp", [(28, 1, 128), (28, 5, 256), (28, 12, 384), (256, 4, 1280)])
 def test_pose_plain_matches_jax_kernel_and_xla_path(rng, nb, k, mp):
     import jax
 
@@ -372,10 +372,18 @@ def test_pose_plain_matches_jax_kernel_and_xla_path(rng, nb, k, mp):
     assert np.abs(N(pb_t) - np.asarray(jc.state.pos)).max() > 0.01    # the state moved
     # rtol 1e-5, atol 1e-6: the JAX package's own kernel-vs-XLA tolerance
     # (tests/test_pose_prop_pallas.py); the doubling scans and cumsum round
-    # their sums in another order.
+    # their sums in another order.  Past 1,024 slots (a 1.024 s timeline)
+    # positions against JAX take atol 1e-5 m: XLA on the CPU contracts the
+    # products into FMAs and eager torch does not, the rotation prefix
+    # product parts by ~2e-6 after 1,280 factors, and the double integration
+    # of a gravity-sized acceleration carries that into the positions
+    # (measured 4.5e-6 m); each side's kernel still matches its own XLA form
+    # at the shared tolerance (port 2.4e-7 m, JAX 5.4e-7 m).
+    pos_atol = 1e-6 if mp <= 1024 else 1e-5
     for rb, pb in ((rb_k, pb_k), (rb_x, pb_x), (rb_p, pb_p)):
         np.testing.assert_allclose(N(rb_t), N(rb), rtol=1e-5, atol=1e-6)
-        np.testing.assert_allclose(N(pb_t), N(pb), rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(N(pb_t), N(pb), rtol=1e-5, atol=1e-6 if pb is pb_p else pos_atol)
+    np.testing.assert_allclose(np.asarray(pb_k), np.asarray(pb_x), rtol=1e-5, atol=1e-6)
 
 
 def test_pose_plain_rows_match_jax_kernel_rows(rng):

@@ -1,16 +1,21 @@
 """Where the one-warp chain kernel spends its cycles, on the card.
 
-    python3 tools/chain_warp_phases.py [DIR ...]    (default: legkilo_torch/csrc)
+    python3 tools/chain_warp_phases.py [--kin] [DIR ...]    (default: legkilo_torch/csrc)
 
 Each DIR holds a version of ``chain_stats.cu`` and ``lk_chain_warp.cuh`` (the
-fused chain's IMU-branch kernel, ``chain_warp_kernel``).  For each version it
+fused chain's kernel, ``chain_warp_kernel<KIN>``); ``--kin`` takes the
+kinematic branch (``KIN = true``), else the IMU branch.  For each version it
 builds three copies with nvcc (as is; with clock64() stamps around each call
 of the bucket loop; with stamps around every __syncwarp() of the filter steps
-and after each 6x6 inverse and downdate), prints ptxas's registers and spills,
-holds the kernel against ``chain_plain`` on chip_smoke's inputs (NB = 28,
-K = 1; NB = 56, K = 1; NB = 8, K = 2; a gated-off and an empty bucket), times
+and after each 6x6 and 9x9 inverse, downdate and the kinematic downdate),
+prints ptxas's registers and spills, holds the kernel against ``chain_plain``
+on chip_smoke's inputs (NB = 28, K = 1; NB = 56, K = 1; NB = 8, K = 2; a
+gated-off and an empty bucket, and, kin, an event without contact), times
 the versions with CUDA events in alternating order, and prints cycles a
-bucket by phase.  A stamp costs ~120 cycles, which the fine table includes.
+bucket by phase.  In the kinematic update the fine stamps read, in order:
+the H build, H P, S, the first 9x9 inverse (two rounds), Ai B / C Ai / the
+complement, the second 9x9 inverse, the gain row, the downdate, the
+retraction.  A stamp costs ~120 cycles, which the fine table includes.
 Builds and SASS go to build/chain_warp_phases/ (git-ignored).  Needs one card
 and nvcc; compare two versions only inside one run.
 """
@@ -36,11 +41,16 @@ NSTAMP = 64
 LAUNCH = r'''
 extern "C" int probe_launch(const float* params, const float* clocks, const float* rot0, const float* lin0,
     const float* cov0, const float* brow, const float* etime, const float* egate, const float* eacc,
-    const float* egyr, const float* s40, float* orot, float* opos, float* orotcov, float* oposcov,
-    float* onm, float* frot, float* flin, float* fcov, float* fclocks, long long* stamps, int nb, int kmax) {
-  const size_t dyn = static_cast<size_t>(nb) * (3 + 8 * kmax) * sizeof(float);
-  chain_warp_kernel<<<1, 32, dyn>>>(params, clocks, rot0, lin0, cov0, brow, etime, egate, eacc, egyr, s40,
-      orot, opos, orotcov, oposcov, onm, frot, flin, fcov, fclocks, STAMPARG nb, kmax);
+    const float* egyr, const float* efp, const float* efv, const float* ect, const float* s40, float* orot,
+    float* opos, float* orotcov, float* oposcov, float* onm, float* frot, float* flin, float* fcov,
+    float* fclocks, long long* stamps, int nb, int kmax, int use_kin) {
+  const size_t dyn = static_cast<size_t>(nb) * (3 + (use_kin ? 36 : 8) * kmax) * sizeof(float);
+  if (use_kin)
+    chain_warp_kernel<true><<<1, 32, dyn>>>(params, clocks, rot0, lin0, cov0, brow, etime, egate, eacc, egyr,
+        efp, efv, ect, s40, orot, opos, orotcov, oposcov, onm, frot, flin, fcov, fclocks, STAMPARG nb, kmax);
+  else
+    chain_warp_kernel<false><<<1, 32, dyn>>>(params, clocks, rot0, lin0, cov0, brow, etime, egate, eacc, egyr,
+        efp, efv, ect, s40, orot, opos, orotcov, oposcov, onm, frot, flin, fcov, fclocks, STAMPARG nb, kmax);
   return (int)cudaGetLastError();
 }
 '''
@@ -69,7 +79,15 @@ def fine_header(tag, d):
             labels += [f"{func}:{i} work", f"{func}:{i} sync"]
             continue
         out.append(ln)
-        if re.search(r"^\s*(inv6\(|downdate_retract\()", ln) and ln.rstrip().endswith(";") \
+        if func == "update_kin" and ln.strip() == "retract<27>(rot, lin, dx);":
+            out.pop()  # the stamp goes before the retraction: the downdate ends there
+            labels.append(f"{func}:{i} downdate")
+            out.append(f"{ind}PS({len(labels) - 1});")
+            out.append(ln)
+            labels.append(f"{func}:{i} retract")
+            out.append(f"{ind}PS({len(labels) - 1});")
+            continue
+        if re.search(r"^\s*(inv6\(|inv9\(|downdate_retract\()", ln) and ln.rstrip().endswith(";") \
                 or "lin[k] += dlin[k];" in ln:
             labels.append(f"{func}:{i} {ln.strip().split('(')[0][:24]}")
             out.append(f"{ind}PS({len(labels) - 1});")
@@ -81,8 +99,8 @@ def fine_header(tag, d):
 
 def make_source(d, mode):
     s = open(os.path.join(d, "chain_stats.cu")).read()
-    a = s.index("__global__ void __launch_bounds__(lk_warp::NW)")
-    b = s.index("}  // namespace", a)
+    a = s.index("template <bool KIN>\n__global__ void __launch_bounds__(lk_warp::NW)")
+    b = s.index("\n}\n", a) + 3   # the kernel's closing brace
     k = s[a:b]
     if mode == "coarse":
         k = k.replace("float* fclocks, int nb, int kmax) {", "float* fclocks, long long* stamps, int nb, int kmax) {\n  long long acc[6] = {0, 0, 0, 0, 0, 0}; long long t_last = 0;")
@@ -96,8 +114,8 @@ def make_source(d, mode):
             if "w::predict(" in ln:
                 n_pred += 1
                 out.append(st(0 if n_pred == 1 else 2))
-            if "w::update_imu(" in ln:
-                while not lines[i].rstrip().endswith(");"):
+            if "if constexpr (KIN) {" in ln and "w::update_kin(" in lines[i + 1]:
+                while lines[i] != "      }":   # the end of the if/else on the branch
                     i += 1
                     out.append(lines[i])
                 out.append(st(1))
@@ -132,7 +150,10 @@ def build(tag, d, mode):
 
 
 def main():
-    dirs = sys.argv[1:] or [os.path.join(ROOT, "legkilo_torch", "csrc")]
+    argv = sys.argv[1:]
+    use_kin = "--kin" in argv
+    argv = [a for a in argv if a != "--kin"]
+    dirs = argv or [os.path.join(ROOT, "legkilo_torch", "csrc")]
     tags = [os.path.basename(os.path.normpath(d)) for d in dirs]
     procs = []
     for tag, d in zip(tags, dirs):
@@ -148,7 +169,7 @@ def main():
             if "Used" in ln or "spill" in ln:
                 print(f"[phases] {tag} {mode}: {ln.strip()}")
         lib = ctypes.CDLL(so)
-        lib.probe_launch.argtypes = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 2
+        lib.probe_launch.argtypes = [ctypes.c_void_p] * 24 + [ctypes.c_int] * 3
         libs[(tag, mode)] = lib
         if labels:
             fine_labels[tag] = labels
@@ -156,15 +177,17 @@ def main():
             with open(os.path.join(OUT, f"sass_{tag}.txt"), "w") as fh:
                 subprocess.run([os.path.join(os.path.dirname(NVCC), "cuobjdump"), "-sass", so], stdout=fh, stderr=subprocess.STDOUT)
     dev = torch.device("cuda")
+    branch = "kin" if use_kin else "imu"
     for nb, k in ((28, 1), (56, 1), (8, 2)):
-        args = cs.chain_holes(cs.chain_inputs(torch, dev, np.random.default_rng(7), False, nb, k))
-        ref = chain_stats.chain_plain(*args, use_kin=False)
-        inp = args[0:10] + [args[13]]
+        args = cs.chain_holes(cs.chain_inputs(torch, dev, np.random.default_rng(7), use_kin, nb, k))
+        ref = chain_stats.chain_plain(*args, use_kin=use_kin)
+        inp = list(args)
         stamps = torch.zeros(NSTAMP, dtype=torch.int64, device=dev)
 
         def run(tag, mode):
             outs = chain_stats.empty_chain_outputs(nb, dev)
-            rc = libs[(tag, mode)].probe_launch(*[t.data_ptr() for t in inp + list(outs)], stamps.data_ptr(), nb, k)
+            rc = libs[(tag, mode)].probe_launch(*[t.data_ptr() for t in inp + list(outs)], stamps.data_ptr(), nb, k,
+                                                int(use_kin))
             assert rc == 0, rc
             return outs
         res = {}
@@ -174,19 +197,19 @@ def main():
             errs = [cs.rel_err(a, b) for a, b in zip(got, ref)]
             ok = all(e <= t for e, t in zip(errs, [1e-4, 1e-4, 1e-3, 1e-3, 0, 1e-4, 1e-4, 1e-3, 0]))
             res[tag] = []
-            print(f"[phases] nb={nb} k={k} {tag}: {'OK' if ok else 'FAIL'} errs {['%.1e' % e for e in errs]}")
+            print(f"[phases] {branch} nb={nb} k={k} {tag}: {'OK' if ok else 'FAIL'} errs {['%.1e' % e for e in errs]}")
         order = tags + tags[::-1] + tags + tags[::-1]
         for tag in order:
             res[tag].append(cs.time_call(torch, lambda: run(tag, "plain"), 100))
         for tag in tags:
-            print(f"[phases] nb={nb} k={k} {tag}: ms {' '.join('%.4f' % x for x in res[tag])}")
+            print(f"[phases] {branch} nb={nb} k={k} {tag}: ms {' '.join('%.4f' % x for x in res[tag])}")
         if nb == 28:
             for tag in tags:
                 stamps.zero_()
                 run(tag, "coarse")
                 torch.cuda.synchronize()
                 st = stamps.cpu().numpy()[:5] / nb
-                names = ["ev_predict", "imu_update", "bkt_predict", "s40_wait", "stats_update"]
+                names = ["ev_predict", f"{branch}_update", "bkt_predict", "s40_wait", "stats_update"]
                 print(f"[phases] {tag} cycles/bucket: " + ", ".join(f"{n} {v:.0f}" for n, v in zip(names, st)) + f", sum {st.sum():.0f}")
             for tag in tags:
                 stamps.zero_()
