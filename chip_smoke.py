@@ -21,7 +21,11 @@ Phases, each printing its own lines:
    spills (must be 0) and shared memory are printed.
    The refit rows are those of a short run's map plus zero padding, and the
    slots on which kernel and plain version took different branches are
-   counted.
+   counted.  The select kernel (one launch a call) runs at NB = 28 and at
+   the 2 ms bucket shape (NB = 56, "select_56"), each also with its rows'
+   bucket indices shuffled and one bucket empty; two launches must be
+   bit-equal, and its ptxas registers, spills (must be 0) and shared
+   memory are printed.
 3. The main path end to end: runner.run_offline on the bench.py workload
    (24 s sim, 8000 points a scan, seed 7) on the card with all five kernel
    switches on, streaming ("main"), with every launch counter set to 0
@@ -81,6 +85,7 @@ REPLACES = {
     "chain_stats_kin": "legkilo_tpu/ops/pallas/chain_stats.py:348",
     "keys": "legkilo_tpu/ops/pallas/match_geom.py:74",
     "select": "legkilo_tpu/ops/pallas/match_geom.py:254",
+    "select_56": "legkilo_tpu/ops/pallas/match_geom.py:254",
     "moments": "legkilo_tpu/ops/pallas/insert_rows.py:46",
     "fit": "legkilo_tpu/ops/pallas/plane_fit_rows.py:122",
     "pose": "legkilo_tpu/ops/pallas/pose_prop.py:57",
@@ -92,6 +97,7 @@ SOURCES = {
     "chain_stats_kin": "legkilo_torch/csrc/chain_stats.cu",
     "keys": "legkilo_torch/csrc/match_geom.cu",
     "select": "legkilo_torch/csrc/match_geom.cu",
+    "select_56": "legkilo_torch/csrc/match_geom.cu",
     "moments": "legkilo_torch/csrc/insert_rows.cu",
     "fit": "legkilo_torch/csrc/plane_fit_rows.cu",
     "pose": "legkilo_torch/csrc/pose_prop.cu",
@@ -152,14 +158,20 @@ def max_abs(a, b) -> float:
     return float((a.double() - b.double()).abs().max())
 
 
+def bucket_targets(torch, bidx, nb):
+    """Each row's bucket as the plain version reads bidx (its int64 cast),
+    with ``nb`` for a row in no bucket."""
+    b = bidx.long()
+    return torch.where((b >= 0) & (b < nb), b, torch.full_like(b, nb))
+
+
 def select_sums_vs_plain(torch, out, s40, nm, r_out, r_s40, r_nm, bidx, nb):
     """The select kernel's per-bucket s40 and match counts against the plain
     version's, with the terms of the rows whose gate flipped (matched on one
     side only) taken out of each side's sums in float64.  Returns (rel err
     of s40, whether the counts agree)."""
     flip = out[0] != r_out[0]
-    b = bidx[0].long()[flip]
-    tgt = torch.where(b < nb, b, torch.full_like(b, nb))
+    tgt = bucket_targets(torch, bidx[0][flip], nb)
 
     def flipped_terms(o):
         x = o[6:46, flip].double()
@@ -173,6 +185,60 @@ def select_sums_vs_plain(torch, out, s40, nm, r_out, r_s40, r_nm, bidx, nb):
     ps, pn = flipped_terms(r_out)
     e_s40 = rel_err(s40.double() - ks, r_s40.double() - ps)
     return e_s40, torch.equal(nm.double() - kn, r_nm.double() - pn)
+
+
+SELECT_TOL = ("matched on >= 99.9% rows; rel 1e-4 rows; sums rel 1e-5 vs float64 of its rows "
+              "and rel 1e-4 vs plain (flipped rows' terms out), counts exact; repeat bit-equal")
+
+
+def select_check(torch, sargs, levels, nb, min_same=0.999):
+    """select_call against select_plain on ``sargs`` (SELECT_TOL): a gate
+    (rsqrt/exp/sqrt differ in the last ulp) may flip only on a knife edge,
+    so matched may differ on at most 1 - ``min_same`` of the rows and the
+    rest are compared at rel 1e-4; s40 and the counts are held against
+    float64 sums of the kernel's own rows (order of summation only) and
+    against the plain version's with the flipped rows' terms taken out of
+    both; a second launch on the same inputs must be bit-equal.  Returns
+    (kernel outputs, plain outputs, {flips, e_rows, e_sum, e_s40})."""
+    from legkilo_torch.ops import match_geom as mg
+
+    got = mg.select_call(*sargs, levels, nb)
+    again = mg.select_call(*sargs, levels, nb)
+    torch.cuda.synchronize()
+    ref = mg.select_plain(*sargs, levels, nb)
+    out, s40, nm = got
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise RuntimeError(f"select at NB = {nb}: two launches on the same inputs differ")
+    same = out[0] == ref[0][0]
+    if float(same.float().mean()) < min_same:
+        raise RuntimeError(f"select at NB = {nb}: matched differs on {int((~same).sum())} rows")
+    e_rows = rel_err(out[:, same], ref[0][:, same])
+    x = out[6:46].double()
+    tgt = bucket_targets(torch, sargs[7][0], nb)
+    s64 = torch.zeros(nb + 1, 40, 40, dtype=torch.float64, device=out.device).index_add_(
+        0, tgt, (x * out[1].double()).T[:, :, None] * x.T[:, None, :])[:nb].reshape(nb * 40, 40)
+    e_sum = rel_err(s40, s64)
+    nm64 = torch.zeros(nb + 1, dtype=torch.float64, device=out.device).index_add_(
+        0, tgt, out[0].double())[:nb]
+    if not (e_rows <= 1e-4 and e_sum <= 1e-5 and torch.equal(nm.double(), nm64[:, None].expand(nb, 128))):
+        raise RuntimeError(f"select at NB = {nb}: rel errs rows {e_rows:.3g} sums {e_sum:.3g}")
+    e_s40, nm_same = select_sums_vs_plain(torch, out, s40, nm, *ref, sargs[7], nb)
+    if not (e_s40 <= 1e-4 and nm_same):
+        raise RuntimeError(f"select at NB = {nb}: vs plain: s40 rel err {e_s40:.3g}, counts equal {nm_same}")
+    return got, ref, dict(flips=int((~same).sum()), e_rows=e_rows, e_sum=e_sum, e_s40=e_s40)
+
+
+def shuffled_bidx(torch, sargs, rng, empty=None):
+    """``sargs`` with the rows' bucket indices permuted at random (every
+    bucket's rows scattered over the whole range, padding rows among them)
+    and, with ``empty``, that bucket's rows moved to bucket 0."""
+    out = list(sargs)
+    c = sargs[7].shape[1]
+    bidx = sargs[7][:, torch.as_tensor(rng.permutation(c), device=sargs[7].device)].contiguous()
+    if empty is not None:
+        bidx[bidx == float(empty)] = 0.0
+    out[7] = bidx
+    return out
 
 
 # ----------------------------------------------------------------- inputs --
@@ -556,43 +622,33 @@ def phase_kernels(torch, dev):
     )
     log(f"[kernel] keys: exact keys, rel errs piw {e_piw:.2e} covs {e_cov:.2e}")
 
-    sargs = select_inputs(torch, dev, rng, got)
-    out, s40, nm = mg.select_call(*sargs, 3, 28)
-    torch.cuda.synchronize()
-    r_out, r_s40, r_nm = mg.select_plain(*sargs, 3, 28)
-    # Rows: a gate (rsqrt/exp/sqrt differ in the last ulp) may flip only on
-    # a knife edge; allow 1 row in 1000, compare the rest at rel 1e-4.
-    same = out[0] == r_out[0]
-    if float(same.float().mean()) < 0.999:
-        raise RuntimeError(f"select: matched differs on {int((~same).sum())} rows")
-    e_rows = rel_err(out[:, same], r_out[:, same])
-    # Sums: the kernel's s40/nm against float64 sums of its own rows (order
-    # of summation only), and against the plain version's, always: the
-    # flipped rows' terms are taken out of both sides.
-    x = out[6:46].double()
-    b = sargs[7][0].long()
-    tgt = torch.where(b < 28, b, torch.full_like(b, 28))
-    s64 = torch.zeros(29, 40, 40, dtype=torch.float64, device=dev).index_add_(
-        0, tgt, (x * out[1].double()).T[:, :, None] * x.T[:, None, :])[:28].reshape(28 * 40, 40)
-    e_sum = rel_err(s40, s64)
-    nm64 = torch.zeros(29, dtype=torch.float64, device=dev).index_add_(0, tgt, out[0].double())[:28]
-    if not (e_rows <= 1e-4 and e_sum <= 1e-5 and torch.equal(nm[:, 0].double(), nm64)):
-        raise RuntimeError(f"select: rel errs rows {e_rows:.3g} sums {e_sum:.3g}")
-    e_s40, nm_same = select_sums_vs_plain(torch, out, s40, nm, r_out, r_s40, r_nm, sargs[7], 28)
-    if not (e_s40 <= 1e-4 and nm_same):
-        raise RuntimeError(f"select: vs plain: s40 rel err {e_s40:.3g}, counts equal {nm_same}")
-    c = sargs[1].shape[1]
-    recs["select"] = dict(
-        max_abs_err=max(max_abs(out[:, same], r_out[:, same]), max_abs(s40, r_s40), max_abs(nm, r_nm)),
-        ms=time_call(torch, lambda: mg.select_call(*sargs, 3, 28), 200),
-        plain_ms=time_call(torch, lambda: mg.select_plain(*sargs, 3, 28), 10),
-        bytes=nbytes(list(sargs) + [out, s40, nm]),
-        flops=c * (6 * 200 + 80 + 820 * 3),  # 6 candidates, features, s40 sums
-        tol="matched on >= 99.9% rows; rel 1e-4 rows; sums rel 1e-5 vs float64 of its rows "
-            "and rel 1e-4 vs plain (flipped rows' terms out), counts exact",
-    )
-    log(f"[kernel] select: {int((~same).sum())} gate flips, rel errs rows {e_rows:.2e} "
-        f"sums {e_sum:.2e} s40-vs-plain {e_s40:.2e}")
+    px = ptxas_entry("select_kernel")
+    log(f"[kernel] select: one launch a call, {px['registers']} registers, {px['spills']} B of spills, "
+        f"{px['stack']} B stack frame, {px['smem']} B static shared memory (its staging is dynamic, "
+        f"sized at launch)")
+    if px["spills"]:
+        raise RuntimeError(f"select: ptxas spills {px['spills']} B")
+    srng = np.random.default_rng(17)  # the later kernels' inputs stay as they were
+    for name, nb in (("select", 28), ("select_56", 56)):
+        sargs = select_inputs(torch, dev, rng if nb == 28 else srng, got, nb=nb)
+        (out, s40, nm), (r_out, r_s40, r_nm), e = select_check(torch, sargs, 3, nb)
+        # The same rows with their bucket indices shuffled (bucket 1 empty):
+        # each bucket block gathers its rows wherever they lie.
+        _, _, e_sh = select_check(torch, shuffled_bidx(torch, sargs, srng, empty=1), 3, nb)
+        c = sargs[1].shape[1]
+        same = out[0] == r_out[0]
+        recs[name] = dict(
+            max_abs_err=max(max_abs(out[:, same], r_out[:, same]), max_abs(s40, r_s40), max_abs(nm, r_nm)),
+            ms=time_call(torch, lambda: mg.select_call(*sargs, 3, nb), 200),
+            plain_ms=time_call(torch, lambda: mg.select_plain(*sargs, 3, nb), 10),
+            bytes=nbytes(list(sargs) + [out, s40, nm]),
+            flops=c * (6 * 200 + 80 + 820 * 3),  # 6 candidates, features, s40 sums
+            tol=SELECT_TOL,
+        )
+        log(f"[kernel] {name}: NB = {nb}, {e['flips']} gate flips, rel errs rows {e['e_rows']:.2e} "
+            f"sums {e['e_sum']:.2e} s40-vs-plain {e['e_s40']:.2e}; shuffled bidx, bucket 1 empty: "
+            f"{e_sh['flips']} flips, rows {e_sh['e_rows']:.2e} sums {e_sh['e_sum']:.2e} "
+            f"s40-vs-plain {e_sh['e_s40']:.2e}; two launches bit-equal")
 
     margs = moments_inputs(torch, dev, rng)
     got = ir.moments_call(*margs)
@@ -883,7 +939,7 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     phase_build()
     recs = phase_kernels(torch, dev) if "kernels" in phases else {}
-    main_rec = kin_rec = points_rec = points_kin_rec = None
+    main_rec = kin_rec = points_rec = points_kin_rec = ref2ms_rec = None
     if phases & {"main", "chunk", "stream1", "four", "points", "slide", "points_chunk", "ref2ms"}:
         data = simulate(MAIN_DURATION_S, "main")
         if "main" in phases:
@@ -904,7 +960,7 @@ def main(argv=None) -> int:
         if "points_chunk" in phases:
             run_workload(torch, extra, "points_chunk", points=True, chunk=CHUNK)
         if "ref2ms" in phases:
-            run_workload(torch, extra, "ref2ms", chunk=CHUNK, edit=ref2ms_edit)
+            ref2ms_rec = run_workload(torch, extra, "ref2ms", chunk=CHUNK, edit=ref2ms_edit)
     if "profile" in phases:
         p4 = phase_profile(torch, "profile4", five=False)
         p5 = phase_profile(torch, "profile5")
@@ -929,8 +985,10 @@ def main(argv=None) -> int:
         if name in ("pose_384", "pose_1280"):  # off the main path's shape: held above, not listed
             continue
         # The run whose counters give the kernel's launches: each chain on
-        # its own path's run, the rest on the main path's.
+        # its own path's run, select at NB = 56 on the 2 ms bucket run, the
+        # rest on the main path's.
         run, counter = {
+            "select_56": (ref2ms_rec, "select"),
             "chain_stats_kin": (kin_rec, "chain_stats"),
             "chain_points": (points_rec, "chain_points"),
             "chain_points_kin": (points_kin_rec, "chain_points"),

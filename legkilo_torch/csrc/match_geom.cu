@@ -4,16 +4,15 @@
 //   keys   -> _keys_kernel   (match_geom.py:74),  driven by keys_call   (:454)
 //   select -> _select_kernel (match_geom.py:254), driven by select_call (:487)
 // and compute what they compute, in their [component, row] layout (row r of
-// component k at k * C + r), one thread per compacted point row.
+// component k at k * C + r).
 //
 // Bound on the H100: neither kernel is bound by the card's rates at the main
-// path's C = 3584 rows.  keys reads 15 and writes 75 floats a row (~1.3 MB);
-// select pass 1 reads ~230 floats a row (~3.3 MB, mostly the gathered plane
-// rows) and writes 46; both are a few microseconds of memory traffic and
-// launch latency dominates.  Pass 2 of select sums the per-bucket 40x40
-// statistics s40 = sum w X X^T: one block per bucket, each thread owning
-// a few of the 820 unique entries and summing rows in ascending order, so
-// the result is deterministic without atomics.
+// path's C = 3584 rows.  keys (one thread a row) reads 15 and writes 75
+// floats a row (~1.3 MB); select reads ~230 floats a row (~3.3 MB, mostly
+// the gathered plane rows), writes 46 and sums the per-bucket 40x40
+// statistics s40 = sum w X X^T; both are a few microseconds of memory
+// traffic and latency dominates.  select is one launch: a block a bucket
+// that gathers its own rows, so the sums read only them (see below).
 
 #include "lk_common.cuh"
 
@@ -163,179 +162,408 @@ __device__ __forceinline__ float nwn(const float n[3], const float w[9]) {
   return out;
 }
 
-__global__ void select_rows_kernel(const float* __restrict__ par, const float* __restrict__ piw,
-                                   const float* __restrict__ bcov, const float* __restrict__ vcs,
-                                   const float* __restrict__ plane, const float* __restrict__ flags,
-                                   const float* __restrict__ mask, float* __restrict__ out, int C,
-                                   int levels) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  const float sigma_num = par[0], radius_k = par[1], ratio = par[2];
-  const int nc = 2 * levels;
-  const float pw[3] = {piw[3 * C + c], piw[4 * C + c], piw[5 * C + c]};
-  float wc[9], ws[9];
-#pragma unroll
-  for (int k = 0; k < 9; ++k) {
-    wc[k] = bcov[k * C + c];
-    ws[k] = bcov[(9 + k) * C + c];
-  }
+// ---------------------------------------------------------------- select --
+//
+// One launch a call.  Blocks 0..NB-1 each own one bucket: the block gathers
+// its bucket's rows in ascending row order (an ordered ballot/popc scan over
+// bidx), runs the row pass on them in groups of at most kGroup rows, writes
+// their 46 outputs, and sums s40 and the match count over exactly those
+// rows.  Blocks NB.. each cover kOrphanSpan rows and run the row pass only,
+// on the rows that belong to no bucket (bidx outside [0, NB): the padding).
+// A bucket is the integer part of bidx (truncated, as the plain version's
+// int64 cast), so every row is written by exactly one block.
+//
+// Row pass, 64 rows a round, in two steps:
+// - candidates: thread t takes candidate m = t / 64 (= chain * L + level,
+//   m < 2L) of row t % 64, so a warp reads 32 rows of one plane column at
+//   once; it computes the candidate's gates, sig, prob and sl and leaves
+//   them in shared memory;
+// - selection: eight lanes a row, lane q reading candidate q's record.
+//   reachable is the product of the earlier levels' found * (1 - isp), read
+//   by shuffles in level order; each chain's pick is the first level of
+//   largest prob among those with ok > 0.5 (prob > best_prob taken in level
+//   order, as select_plain does).  The row's 40 features (lane q the
+//   features q + 8t, from a code a feature), the features times w, and its
+//   matched, w and r_meas go to shared memory; the outputs are written from
+//   there, a warp a component, consecutive lanes on consecutive rows.
+//
+// Sums: thread t < 55 owns a 4x4 tile of the upper triangle of the 40x40,
+// reads each row's feature quads as float4 (x_i w from the row pass) and
+// accumulates each entry in ascending row order as fma(x_i * w, x_j, s) --
+// the sequential order, so s40 is deterministic without atomics -- and
+// mirrors the tile on the store.  Warp kCountWarp counts the bucket's matched
+// rows (nm; a lane a strided subset, then a fixed shuffle tree); the other
+// warps write the outputs meanwhile.
+//
+// Bound on the H100: per bucket ~121 rows of ~230 floats in (~110 KB) and 46
+// out, and 820 FMAs a row for the sums: far below the card's rates.  What
+// bounds it is one block's chain of steps (tools/select_phases.py counts the
+// cycles of each): the bidx scan (one round of loads), two row-pass rounds
+// at main-path sizes, and the sums, row after row from shared memory.
 
-  float ch_matched[2], ch_n[2][3], ch_c[2][3], ch_sl[2];
-  for (int chain = 0; chain < 2; ++chain) {
-    float best_prob = -3.0e38f, b_matched = 0.f, b_sl = 0.f, reachable = 1.f;
-    float b_n[3] = {0.f, 0.f, 0.f}, b_c[3] = {0.f, 0.f, 0.f};
-    for (int lvl = 0; lvl < levels; ++lvl) {
-      const int m = chain * levels + lvl;
-      const float* pr = plane + static_cast<size_t>(m) * 31 * C + c;  // pr[k * C]
-      const float found = flags[m * C + c];
-      const float isp = flags[(nc + m) * C + c];
-      const float cen[3] = {vcs[(3 * m) * C + c] + pr[0], vcs[(3 * m + 1) * C + c] + pr[C],
-                            vcs[(3 * m + 2) * C + c] + pr[2 * C]};
-      const float n3[3] = {pr[3 * C], pr[4 * C], pr[5 * C]};
-      const float radius = pr[9 * C];
-      const float rel[3] = {pw[0] - cen[0], pw[1] - cen[1], pw[2] - cen[2]};
-      const float sdist = n3[0] * rel[0] + n3[1] * rel[1] + n3[2] * rel[2];
-      const float dist = fabsf(sdist);
-      const float d2c = rel[0] * rel[0] + rel[1] * rel[1] + rel[2] * rel[2];
-      const float range_dis2 = fmaxf(d2c - dist * dist, 0.f);
-      const float rk = radius_k * radius;
-      const float gate_range = range_dis2 <= rk * rk ? 1.f : 0.f;
-      // sigma_l = j^T plane_var j + n^T W n, j = [rel, -n]; PSD clamp at 1e-12.
-      const float j6[6] = {rel[0], rel[1], rel[2], -n3[0], -n3[1], -n3[2]};
-      float sig = 0.f;
-#pragma unroll
-      for (int i = 0; i < 6; ++i) {
-        float row = 0.f;
-#pragma unroll
-        for (int jj = 0; jj < 6; ++jj) row = row + pr[(10 + sym21(i, jj)) * C] * j6[jj];
-        sig = sig + j6[i] * row;
-      }
-#pragma unroll
-      for (int k = 0; k < 9; ++k) sig = sig + n3[k / 3] * wc[k] * n3[k % 3];
-      sig = fmaxf(sig, 1e-12f);
-      const float gate_sigma = dist < sigma_num * sqrtf(sig) ? 1.f : 0.f;
-      const float prob = rsqrtf(sig) * expf(-0.5f * dist * dist / sig);
-      const float ok = found * isp * gate_range * gate_sigma * reachable;
-      if (ok > 0.5f && prob > best_prob) {
-        best_prob = prob;
-#pragma unroll
-        for (int i = 0; i < 3; ++i) {
-          b_n[i] = n3[i];
-          b_c[i] = cen[i];
-        }
-        b_sl = sig - nwn(n3, wc);
-      }
-      b_matched = fmaxf(b_matched, ok);
-      reachable = reachable * found * (1.f - isp);
-    }
-    ch_matched[chain] = b_matched;
-    ch_sl[chain] = b_sl;
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      ch_n[chain][i] = b_n[i];
-      ch_c[chain][i] = b_c[i];
-    }
-  }
-  const int sel = ((1.f - ch_matched[0]) * ch_matched[1]) > 0.5f ? 1 : 0;
-  const float matched = fmaxf(ch_matched[0], ch_matched[1]) * mask[c];
-  const float* n = ch_n[sel];
-  const float* cc = ch_c[sel];
-  const float r_meas = ratio * (ch_sl[sel] + nwn(n, ws));
-  const float w = matched / (r_meas + kRJitter);
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kLanesPerRow = 8;                       // one lane a candidate, 2L <= 8
+constexpr int kRowsPerPass = kThreads / kLanesPerRow;  // 64
+constexpr int kGroup = 256;                           // rows staged in shared memory at once
+constexpr int kScanPerThread = 8;                     // bidx words a thread reads a scan step
+constexpr int kScanStep = kThreads * kScanPerThread;  // 4,096 rows
+constexpr int kOrphanSpan = kRowsPerPass;             // rows an orphan block covers: one round
+constexpr int kXStride = 44;   // floats a staged feature row: a multiple of 4 for float4
+constexpr int kTiles = 55;     // 4x4 tiles of the upper triangle: 10 * 11 / 2
+constexpr int kCountWarp = 2;  // first warp without a tile
+constexpr int kCandStride = 68;  // 68 = 4 (mod 32): a warp's 8 candidates x 4 rows on 32 banks
+constexpr int kCandFields = 11;  // found, isp, ok without reachable, prob, sl, n (3), centre (3)
 
-  out[0 * C + c] = matched;
-  out[1 * C + c] = w;
-  out[2 * C + c] = r_meas;
-  out[3 * C + c] = matched;
-  out[4 * C + c] = 0.f;
-  out[5 * C + c] = 0.f;
-  // 40 features: mt (27) = n_c [p_i]x_{i,b} at 9i + 3c + b, n (3), n_c p_a (9), n.c (1).
-  const float p[3] = {piw[0 * C + c], piw[1 * C + c], piw[2 * C + c]};
-  const float sp[9] = {0.f, -p[2], p[1], p[2], 0.f, -p[0], -p[1], p[0], 0.f};
-  float* feat = out + 6 * C + c;
+struct SelectShared {
+  float x[kGroup * kXStride];   // the group's features, a row each
+  float xw[kGroup * kXStride];  // the same times the row's w
+  float cand[kCandFields][8 * kCandStride];  // a round's candidates: [field][m * kCandStride + row]
+  float matched[kGroup], w[kGroup], r[kGroup];
+  int rows[kGroup];                      // the group's rows, ascending
+  int cnt[kScanPerThread * kWarps];      // a scan step's counts, (word, warp) order
+  int step_total;
+};
+
+struct SelectArgs {
+  const float *par, *piw, *bcov, *vcs, *plane, *flags, *mask;
+  float* out;
+  int C, levels;
+};
+
+// Candidate m of row c: found, isp, found * isp * gates, prob, sl, n, centre.
+__device__ __forceinline__ void select_candidate(const SelectArgs& a, float* rec, int m, int c) {
+  constexpr int F = 8 * kCandStride;  // a field's stride in sh.cand
+  const int C = a.C, nc = 2 * a.levels;
+  const float sigma_num = a.par[0], radius_k = a.par[1];
+  float pw[3], wc[9], cen[3], n3[3], pv[21];
+  const float* pr = a.plane + static_cast<size_t>(m) * 31 * C + c;  // column k at pr[k * C]
 #pragma unroll
-  for (int i = 0; i < 3; ++i)
+  for (int k = 0; k < 3; ++k) {
+    pw[k] = __ldg(a.piw + (3 + k) * C + c);
+    cen[k] = __ldg(a.vcs + (3 * m + k) * C + c) + __ldg(pr + k * C);
+    n3[k] = __ldg(pr + (3 + k) * C);
+  }
 #pragma unroll
-    for (int k = 0; k < 3; ++k)
+  for (int k = 0; k < 9; ++k) wc[k] = __ldg(a.bcov + k * C + c);
 #pragma unroll
-      for (int b = 0; b < 3; ++b) feat[(9 * i + 3 * k + b) * C] = n[k] * sp[3 * i + b];
+  for (int k = 0; k < 21; ++k) pv[k] = __ldg(pr + (10 + k) * C);  // 6x6 plane covariance, upper
+  const float found = __ldg(a.flags + m * C + c);
+  const float isp = __ldg(a.flags + (nc + m) * C + c);
+  const float radius = __ldg(pr + 9 * C);
+  const float rel[3] = {pw[0] - cen[0], pw[1] - cen[1], pw[2] - cen[2]};
+  const float sdist = n3[0] * rel[0] + n3[1] * rel[1] + n3[2] * rel[2];
+  const float dist = fabsf(sdist);
+  const float d2c = rel[0] * rel[0] + rel[1] * rel[1] + rel[2] * rel[2];
+  const float range_dis2 = fmaxf(d2c - dist * dist, 0.f);
+  const float rk = radius_k * radius;
+  const float gate_range = range_dis2 <= rk * rk ? 1.f : 0.f;
+  // sigma_l = j^T plane_var j + n^T W n, j = [rel, -n]; PSD clamp at 1e-12.
+  const float j6[6] = {rel[0], rel[1], rel[2], -n3[0], -n3[1], -n3[2]};
+  float sig = 0.f;
 #pragma unroll
-  for (int k = 0; k < 3; ++k) feat[(27 + k) * C] = n[k];
+  for (int ii = 0; ii < 6; ++ii) {
+    float row = 0.f;
 #pragma unroll
-  for (int k = 0; k < 3; ++k)
+    for (int jj = 0; jj < 6; ++jj) row = row + pv[sym21(ii, jj)] * j6[jj];
+    sig = sig + j6[ii] * row;
+  }
 #pragma unroll
-    for (int a = 0; a < 3; ++a) feat[(30 + 3 * k + a) * C] = n[k] * p[a];
-  feat[39 * C] = n[0] * cc[0] + n[1] * cc[1] + n[2] * cc[2];
+  for (int k = 0; k < 9; ++k) sig = sig + n3[k / 3] * wc[k] * n3[k % 3];
+  sig = fmaxf(sig, 1e-12f);
+  const float gate_sigma = dist < sigma_num * sqrtf(sig) ? 1.f : 0.f;
+  rec[0 * F] = found;
+  rec[1 * F] = isp;
+  rec[2 * F] = found * isp * gate_range * gate_sigma;
+  rec[3 * F] = rsqrtf(sig) * expf(-0.5f * dist * dist / sig);
+  rec[4 * F] = sig - nwn(n3, wc);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    rec[(5 + k) * F] = n3[k];
+    rec[(8 + k) * F] = cen[k];
+  }
 }
 
-constexpr int kSumThreads = 256;
-constexpr int kChunk = 128;
-constexpr int kEntries = 820;  // unique entries of a symmetric 40x40
-constexpr int kPerThread = (kEntries + kSumThreads - 1) / kSumThreads;
+// Feature f of a row as a code: n[a] (bits 0-1) times p[b] (bits 2-3),
+// negated (kFeatNeg), or times 0 (kFeatZero) or 1 (kFeatOne); or n . c
+// (kFeatDot).  The 40 features: mt (27) = n_a [p]x_{i,b} at 9i + 3a + b with
+// [p]x = {{0, -p2, p1}, {p2, 0, -p0}, {-p1, p0, 0}}, n (3), n_a p_b (9) at
+// 30 + 3a + b, n . c (1).  The codes of features 8t..8t + 7 are the bytes of
+// word t of kFeatCodes in select_rows, feature 8t + q in byte q:
+//   f  0-8:  32 24  4 33 25  5 34 26  6    f  9-17:  8 32 16  9 33 17 10 34 18
+//   f 18-26: 20  0 32 21  1 33 22  2 34    f 27-29: 64 65 66
+//   f 30-38:  0  4  8  1  5  9  2  6 10    f 39: 128
+constexpr int kFeatNeg = 16, kFeatZero = 32, kFeatOne = 64, kFeatDot = 128;
 
-// One block per bucket b: s40[b] = sum over rows with bidx == b of w X X^T
-// and nm[b, :] = their match count.  Rows are visited in ascending order in
-// chunks; a chunk with no row of this bucket is skipped after one read of
-// its bucket indices.
-__global__ void __launch_bounds__(kSumThreads)
-select_sums_kernel(const float* __restrict__ out46, const float* __restrict__ bidx,
-                   float* __restrict__ s40, float* __restrict__ nm, int C) {
-  __shared__ float xs[40][kChunk + 1];
-  __shared__ float wsh[kChunk];
-  __shared__ float red[kSumThreads];
+// The row pass over sh.rows[0..n_rows), 64 rows a round.
+__device__ void select_rows(const SelectArgs& a, SelectShared& sh, int n_rows) {
+  constexpr int F = 8 * kCandStride;
+  const int lane = threadIdx.x & 31, q = lane & 7;
+  const int C = a.C, levels = a.levels, nc = 2 * levels;
+  const float ratio = a.par[2];
+  const bool cand = q < nc;
+  const int chain = cand && q >= levels ? 1 : 0;
+  const int lvl = cand ? q - chain * levels : 0;
+  constexpr unsigned long long kFeatCodes[5] = {0x1a22051921041820ull, 0x0a11210910200806ull,
+                                                0x2101152000141222ull, 0x0400424140220216ull,
+                                                0x800a060209050108ull};
+  int feat[5];  // lane q's features q + 8t
+#pragma unroll
+  for (int t = 0; t < 5; ++t) feat[t] = static_cast<int>(kFeatCodes[t] >> (8 * q) & 0xffu);
+  for (int i0 = 0; i0 < n_rows; i0 += kRowsPerPass) {
+    if (i0 > 0) __syncthreads();  // the last round's records are read
+    // The selection step's own inputs, loaded first so that their latency
+    // runs under the candidate step.
+    const int i = static_cast<int>(threadIdx.x) / kLanesPerRow;
+    const bool live = i0 + i < n_rows;
+    const int c = sh.rows[live ? i0 + i : n_rows - 1];  // a spare group repeats a row, unstored
+    float ws[9], p[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) p[k] = __ldg(a.piw + k * C + c);
+#pragma unroll
+    for (int k = 0; k < 9; ++k) ws[k] = __ldg(a.bcov + (9 + k) * C + c);
+    const float row_mask = __ldg(a.mask + c);
+    {
+      const int m = threadIdx.x / kRowsPerPass, ic = threadIdx.x % kRowsPerPass;
+      if (m < nc && i0 + ic < n_rows) select_candidate(a, &sh.cand[0][m * kCandStride + ic], m, sh.rows[i0 + ic]);
+    }
+    __syncthreads();
+
+    const float* rec = &sh.cand[0][q * kCandStride + i];
+    const float found = cand ? rec[0 * F] : 0.f, isp = cand ? rec[1 * F] : 0.f;
+    const float ok0 = cand ? rec[2 * F] : 0.f, prob = cand ? rec[3 * F] : 0.f;
+    const float sl = cand ? rec[4 * F] : 0.f;
+    float n3[3], cen[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      n3[k] = cand ? rec[(5 + k) * F] : 0.f;
+      cen[k] = cand ? rec[(8 + k) * F] : 0.f;
+    }
+    // reachable = prod over the chain's earlier levels of found * (1 - isp).
+    float reachable = 1.f;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      if (k + 1 >= levels) break;  // levels is the same in every lane
+      const float fk = __shfl_sync(kFull, found, chain * levels + k, kLanesPerRow);
+      const float ik = __shfl_sync(kFull, isp, chain * levels + k, kLanesPerRow);
+      if (k < lvl) reachable = reachable * fk * (1.f - ik);
+    }
+    const float ok = ok0 * reachable;
+    // Each chain's pick: prob > best_prob in level order, among ok > 0.5.
+    float ch_matched[2];
+    int ch_pick[2];
+#pragma unroll
+    for (int ch = 0; ch < 2; ++ch) {
+      float best_prob = -3.0e38f, b_matched = 0.f;
+      int pick = -1;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (k >= levels) break;
+        const float ok_k = __shfl_sync(kFull, ok, ch * levels + k, kLanesPerRow);
+        const float prob_k = __shfl_sync(kFull, prob, ch * levels + k, kLanesPerRow);
+        if (ok_k > 0.5f && prob_k > best_prob) {
+          best_prob = prob_k;
+          pick = k;
+        }
+        b_matched = fmaxf(b_matched, ok_k);
+      }
+      ch_matched[ch] = b_matched;
+      ch_pick[ch] = pick;
+    }
+    const int sel = ((1.f - ch_matched[0]) * ch_matched[1]) > 0.5f ? 1 : 0;
+    const float matched = fmaxf(ch_matched[0], ch_matched[1]) * row_mask;
+    const int pick = sel ? ch_pick[1] : ch_pick[0];
+    const int src = pick < 0 ? 0 : sel * levels + pick;
+    float n[3], cc[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      n[k] = __shfl_sync(kFull, n3[k], src, kLanesPerRow);
+      cc[k] = __shfl_sync(kFull, cen[k], src, kLanesPerRow);
+    }
+    float s_l = __shfl_sync(kFull, sl, src, kLanesPerRow);
+    if (pick < 0) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) n[k] = cc[k] = 0.f;
+      s_l = 0.f;
+    }
+    if (!live) continue;  // after the last shuffle
+    const float r_meas = ratio * (s_l + nwn(n, ws));
+    const float w = matched / (r_meas + kRJitter);
+    if (q == 0) {
+      sh.matched[i0 + i] = matched;
+      sh.w[i0 + i] = w;
+      sh.r[i0 + i] = r_meas;
+    }
+    // Lane q stores features f = q + 8t, each n[a] times its factor (or n.c).
+    const float ndotc = n[0] * cc[0] + n[1] * cc[1] + n[2] * cc[2];
+    float* xr = sh.x + (i0 + i) * kXStride;
+    float* xwr = sh.xw + (i0 + i) * kXStride;
+#pragma unroll
+    for (int t = 0; t < 5; ++t) {
+      const int fc = feat[t];
+      const int fa = fc & 3, fp = (fc >> 2) & 3;
+      const float na = fa == 0 ? n[0] : fa == 1 ? n[1] : n[2];
+      const float pv = fp == 0 ? p[0] : fp == 1 ? p[1] : p[2];
+      const float factor = fc & kFeatOne ? 1.f : fc & kFeatZero ? 0.f : fc & kFeatNeg ? -pv : pv;
+      const float v = fc & kFeatDot ? ndotc : na * factor;
+      xr[q + 8 * t] = v;
+      xwr[q + 8 * t] = v * w;
+    }
+  }
+}
+
+// One bucket's (or one orphan span's) rows: see the comment above.
+__global__ void __launch_bounds__(kThreads, 1)
+select_kernel(SelectArgs a, const float* __restrict__ bidx, float* __restrict__ s40,
+              float* __restrict__ nm, int n_buckets) {
+  extern __shared__ __align__(16) unsigned char select_smem[];
+  SelectShared& sh = *reinterpret_cast<SelectShared*>(select_smem);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int C = a.C;
   const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  int ei[kPerThread], ej[kPerThread];
-  float acc[kPerThread];
-#pragma unroll
-  for (int k = 0; k < kPerThread; ++k) {
-    int e = tid + k * kSumThreads, i = 0;
-    if (e >= kEntries) e = -1;
-    if (e >= 0) {
-      while (e >= 40 - i) { e -= 40 - i; ++i; }
-      ei[k] = i;
-      ej[k] = i + e;
-    } else {
-      ei[k] = -1;
-      ej[k] = -1;
-    }
-    acc[k] = 0.f;
+  const bool bucket_block = b < n_buckets;
+  const int lo = bucket_block ? 0 : (b - n_buckets) * kOrphanSpan;
+  const int hi = bucket_block ? C : min(C, lo + kOrphanSpan);
+  const float f_nb = static_cast<float>(n_buckets);
+
+  // This thread's sums tile (rows 4ta..4ta + 3, columns 4tb..4tb + 3), ta <= tb.
+  int ta = -1, tb = -1;
+  if (bucket_block && tid < kTiles) {
+    int e = tid;
+    ta = 0;
+    while (e >= 10 - ta) { e -= 10 - ta; ++ta; }
+    tb = ta + e;
   }
-  float cnt = 0.f;
-  for (int r0 = 0; r0 < C; r0 += kChunk) {
-    const int r = r0 + tid;
-    const bool mine = tid < kChunk && r < C && bidx[r] == static_cast<float>(b);
-    if (!__syncthreads_or(mine)) continue;
-    for (int e = tid; e < 40 * kChunk; e += kSumThreads) {
-      const int i = e / kChunk, j = e % kChunk;
-      xs[i][j] = (r0 + j < C) ? out46[(6 + i) * C + r0 + j] : 0.f;
-    }
-    if (tid < kChunk) {
-      wsh[tid] = mine ? out46[1 * C + r] : 0.f;
-      cnt += mine ? out46[0 * C + r] : 0.f;
+  float acc[4][4] = {}, count = 0.f;
+
+  // Process sh.rows[0..n_rows): row pass, then outputs, sums and count side by side.
+  auto process = [&](int n_rows) {
+    select_rows(a, sh, n_rows);
+    __syncthreads();
+    if (bucket_block && ta >= 0) {
+      const float4* xa = reinterpret_cast<const float4*>(sh.xw + 4 * ta);
+      const float4* xb = reinterpret_cast<const float4*>(sh.x + 4 * tb);
+      constexpr int kRow4 = kXStride / 4;
+#pragma unroll 4
+      for (int i = 0; i < n_rows; ++i) {
+        const float4 u4 = xa[i * kRow4], v4 = xb[i * kRow4];
+        const float u[4] = {u4.x, u4.y, u4.z, u4.w}, v[4] = {v4.x, v4.y, v4.z, v4.w};
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[r][q] = fmaf(u[r], v[q], acc[r][q]);
+      }
+    } else if (bucket_block && warp == kCountWarp) {  // lanes over strided rows, then a fixed tree
+      float part = 0.f;
+      for (int i = lane; i < n_rows; i += 32) part += sh.matched[i];
+#pragma unroll
+      for (int d = 16; d > 0; d >>= 1) part += __shfl_xor_sync(kFull, part, d);
+      count = count + part;
+    } else if (!bucket_block || warp > kCountWarp) {  // the outputs: a warp a component
+      const int first = bucket_block ? kCountWarp + 1 : 0;
+      int rr[kGroup / 32];  // this lane's rows: lane, lane + 32, ...
+#pragma unroll
+      for (int j = 0; j < kGroup / 32; ++j) rr[j] = lane + 32 * j < n_rows ? sh.rows[lane + 32 * j] : -1;
+      for (int k = warp - first; k < 46; k += kWarps - first) {
+        const float* src = k >= 6 ? sh.x + k - 6 : k == 1 ? sh.w : k == 2 ? sh.r : sh.matched;
+        const int stride = k >= 6 ? kXStride : 1;
+        const bool zero = k == 4 || k == 5;
+        float* dst = a.out + static_cast<size_t>(k) * C;
+#pragma unroll
+        for (int j = 0; j < kGroup / 32; ++j)
+          if (rr[j] >= 0) dst[rr[j]] = zero ? 0.f : src[(lane + 32 * j) * stride];
+      }
     }
     __syncthreads();
+  };
+
+  // Gather the block's rows in ascending order, kScanStep rows of bidx a step;
+  // a group is processed as soon as it holds kGroup rows.
+  int total = 0, done = 0;
+  for (int base = lo; base < hi; base += kScanStep) {
+    float v[kScanPerThread];
 #pragma unroll
-    for (int k = 0; k < kPerThread; ++k) {
-      if (ei[k] < 0) continue;
-      float s = acc[k];
-      for (int j = 0; j < kChunk; ++j) s += xs[ei[k]][j] * wsh[j] * xs[ej[k]][j];
-      acc[k] = s;
+    for (int j = 0; j < kScanPerThread; ++j) {
+      const int r = base + j * kThreads + tid;
+      v[j] = r < hi ? __ldg(bidx + r) : -1.f;
     }
-  }
+    unsigned bal[kScanPerThread], mine = 0u;
 #pragma unroll
-  for (int k = 0; k < kPerThread; ++k) {
-    if (ei[k] < 0) continue;
-    s40[(static_cast<size_t>(b) * 40 + ei[k]) * 40 + ej[k]] = acc[k];
-    s40[(static_cast<size_t>(b) * 40 + ej[k]) * 40 + ei[k]] = acc[k];
-  }
-  red[tid] = cnt;
-  __syncthreads();
-  for (int s = kSumThreads / 2; s > 0; s >>= 1) {
-    if (tid < s) red[tid] += red[tid + s];
+    for (int j = 0; j < kScanPerThread; ++j) {
+      const int r = base + j * kThreads + tid;
+      const bool in = v[j] > -1.f && v[j] < f_nb;  // NaN is in no bucket
+      const bool f = r < hi && (bucket_block ? in && static_cast<int>(v[j]) == b : !in);
+      bal[j] = __ballot_sync(kFull, f);
+      mine |= (f ? 1u : 0u) << j;
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int j = 0; j < kScanPerThread; ++j) sh.cnt[j * kWarps + warp] = __popc(bal[j]);
+    }
     __syncthreads();
+    if (warp == 0) {  // exclusive scan of the 128 counts, four a lane
+      static_assert(kScanPerThread * kWarps == 4 * 32, "four counts a lane");
+      int c4[4], s = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        c4[k] = sh.cnt[4 * lane + k];
+        s += c4[k];
+      }
+      int incl = s;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int y = __shfl_up_sync(kFull, incl, d);
+        if (lane >= d) incl += y;
+      }
+      int ex = incl - s;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        sh.cnt[4 * lane + k] = ex;
+        ex += c4[k];
+      }
+      if (lane == 31) sh.step_total = incl;
+    }
+    __syncthreads();
+    const int end = total + sh.step_total;
+    const unsigned lt = (1u << lane) - 1u;
+    int pos[kScanPerThread];
+#pragma unroll
+    for (int j = 0; j < kScanPerThread; ++j)
+      pos[j] = total + sh.cnt[j * kWarps + warp] + __popc(bal[j] & lt);
+    for (;;) {
+#pragma unroll
+      for (int j = 0; j < kScanPerThread; ++j) {
+        const int slot = pos[j] - done;
+        if ((mine >> j & 1u) && slot >= 0 && slot < kGroup) sh.rows[slot] = base + j * kThreads + tid;
+      }
+      if (end - done < kGroup) break;
+      __syncthreads();
+      process(kGroup);
+      done += kGroup;
+    }
+    total = end;
+    __syncthreads();  // the next step rewrites sh.cnt
   }
-  if (tid < 128) nm[b * 128 + tid] = red[0];
+  if (total > done) process(total - done);
+
+  if (!bucket_block) return;
+  if (ta >= 0) {  // entries i <= j, mirrored; a diagonal tile's lower half is not stored
+    float* sb = s40 + static_cast<size_t>(b) * 1600;
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int i = 4 * ta + r, j = 4 * tb + q;
+        if (i <= j) {
+          sb[i * 40 + j] = acc[r][q];
+          sb[j * 40 + i] = acc[r][q];
+        }
+      }
+  } else if (warp == kCountWarp) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) nm[b * 128 + 32 * k + lane] = count;
+  }
 }
 
 }  // namespace
@@ -353,12 +581,12 @@ LK_API int select_launch(const float* par, const float* piw, const float* bcov, 
                          const float* plane, const float* flags, const float* mask,
                          const float* bidx, float* out, float* s40, float* nm, int C, int levels,
                          int n_buckets, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int threads = 128;
-  select_rows_kernel<<<lk_blocks(C, threads), threads, 0, s>>>(par, piw, bcov, vc, plane, flags,
-                                                                mask, out, C, levels);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  select_sums_kernel<<<n_buckets, kSumThreads, 0, s>>>(out, bidx, s40, nm, C);
+  const int grid = n_buckets + lk_blocks(C, kOrphanSpan);
+  if (grid <= 0) return 0;
+  constexpr int smem = static_cast<int>(sizeof(SelectShared));  // above 48 KB: the opt-in
+  const cudaError_t e = cudaFuncSetAttribute(select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const SelectArgs a{par, piw, bcov, vc, plane, flags, mask, out, C, levels};
+  select_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a, bidx, s40, nm, n_buckets);
   return static_cast<int>(cudaGetLastError());
 }

@@ -19,9 +19,11 @@ the same row contracts, in the transposed [component, row] layout:
     -> out [46,C] (matched, w, r, matched, 0, 0, X(40)), s40 [NB*40,40],
     nm [NB,128] (every column is the bucket's match count).
 
-On a CUDA tensor each wrapper launches ``csrc/match_geom.cu`` (select as two
-launches: per-row selection, then per-bucket sums); on a CPU tensor it runs
-the plain version, which repeats the kernel's arithmetic in the same order.
+On a CUDA tensor each wrapper launches ``csrc/match_geom.cu`` (select as one
+launch: a block a bucket, which gathers its own rows, selects their planes
+and sums their statistics, and blocks for the rows in no bucket); on a CPU
+tensor it runs the plain version, which repeats the kernel's arithmetic in
+the same order.
 """
 
 from __future__ import annotations
@@ -248,7 +250,8 @@ def select_plain(par, piw_t, bcov_t, vc_t, plane_t, flags_t, mask_t, bidx_t,
 
 def select_call(par, piw_t, bcov_t, vc_t, plane_t, flags_t, mask_t, bidx_t,
                 levels: int, n_buckets: int):
-    """The select kernels on a CUDA tensor, the plain version on a CPU one."""
+    """The select kernel on a CUDA tensor (one launch), the plain version on
+    a CPU one."""
     if par.device.type != "cuda":
         return select_plain(par, piw_t, bcov_t, vc_t, plane_t, flags_t, mask_t, bidx_t,
                             levels, n_buckets)

@@ -28,7 +28,7 @@ def test_kernels_match_plain_on_card(cuda_device):
     chip_smoke.phase_build()
     recs = chip_smoke.phase_kernels(torch, cuda_device)
     assert set(recs) == {"chain_stats", "chain_stats_kin", "chain_points", "chain_points_kin",
-                         "keys", "select", "moments", "fit", "pose", "pose_384", "pose_1280"}
+                         "keys", "select", "select_56", "moments", "fit", "pose", "pose_384", "pose_1280"}
 
 
 @pytest.mark.cuda
@@ -139,12 +139,7 @@ def test_kernels_other_shapes_on_card(cuda_device, use_kin):
     assert cs.rel_err(kg[0], kr[0]) <= 1e-6 and cs.rel_err(kg[1], kr[1]) <= 1e-5
 
     sargs = cs.select_inputs(torch, cuda_device, rng, kg, nb=5, levels=2)
-    sg = match_geom.select_call(*sargs, 2, 5)
-    sr = match_geom.select_plain(*sargs, 2, 5)
-    same = sg[0][0] == sr[0][0]
-    assert float(same.float().mean()) >= 0.99
-    e_s40, nm_same = cs.select_sums_vs_plain(torch, *sg, *sr, sargs[7], 5)
-    assert e_s40 <= 1e-4 and nm_same
+    cs.select_check(torch, sargs, 2, 5)
 
     margs = cs.moments_inputs(torch, cuda_device, rng, r=300)
     assert cs.rel_err(insert_rows.moments_call(*margs), insert_rows.moments_plain(*margs)) <= 1e-4
@@ -254,3 +249,67 @@ def test_chain_call_routes_by_use_kin_on_card(cuda_device):
     names = [n for _, n in kernels]
     assert len(names) == 2, names
     assert "chain_warp_kernel<false>" in names[0] and "chain_warp_kernel<true>" in names[1], names
+
+
+def _select_case(case, dev):
+    """chip_smoke's select inputs for one case: (args, levels, n_buckets)."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from legkilo_torch.ops import match_geom
+
+    rng = np.random.default_rng(11)
+    c, levels, nb = (300, 2, 5) if case == "c300_nb5_l2" else (3584, 3, 56 if case == "nb56_p128" else 28)
+    kargs = cs.keys_inputs(torch, dev, rng, c=c, levels=levels)
+    sargs = cs.select_inputs(torch, dev, rng, match_geom.keys_call(*kargs, levels, 1 << 14), nb=nb, levels=levels)
+    if case == "shuffled":
+        sargs = cs.shuffled_bidx(torch, sargs, rng)
+    elif case == "empty_bucket":
+        sargs[7][sargs[7] == 3.0] = 4.0
+    elif case == "bucket_over_256":
+        sargs[7][0, 100:700] = 2.0   # 600 rows, three groups of at most 256
+    return sargs, levels, nb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["c3584_nb28_l3", "nb56_p128", "c300_nb5_l2", "shuffled", "empty_bucket",
+                                  "bucket_over_256"])
+def test_select_kernel_on_card(cuda_device, case):
+    """The one-launch select kernel against select_plain with chip_smoke's
+    tolerances (matched on >= 99.9 % of rows, rows rel 1e-4, s40 rel 1e-5
+    against float64 sums of its own rows and rel 1e-4 against the plain
+    version with the flipped rows' terms out, counts exact), two launches
+    bit-equal, at the main path's shape, the 2 ms bucket shape, a small one,
+    with the bucket indices shuffled, with an empty bucket and with a bucket
+    of more rows than one group holds."""
+    import chip_smoke as cs
+    from legkilo_torch.ops import match_geom
+
+    sargs, levels, nb = _select_case(case, cuda_device)
+    n0 = match_geom.select_call.launches
+    (out, s40, nm), _, _ = cs.select_check(torch, sargs, levels, nb)
+    assert match_geom.select_call.launches == n0 + 2
+    b = sargs[7][0]
+    if case == "empty_bucket":
+        assert not bool((b == 3.0).any()) and int(nm[3, 0]) == 0 and not bool(s40[120:160].any())
+    if case == "bucket_over_256":
+        assert int((b == 2.0).sum()) > 256 and int(nm[2, 0]) > 0
+
+
+@pytest.mark.cuda
+def test_select_one_kernel_a_call_on_card(cuda_device):
+    """select_call is one launch: under torch.profiler, two calls run
+    exactly two kernels on the card, both the select kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from legkilo_torch.ops import match_geom
+
+    sargs, levels, nb = _select_case("c3584_nb28_l3", cuda_device)
+    match_geom.select_call(*sargs, levels, nb)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            match_geom.select_call(*sargs, levels, nb)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if "CUDA" in str(e.device_type)]
+    assert len(names) == 2 and all("select_kernel" in n for n in names), names
