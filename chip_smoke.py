@@ -18,7 +18,9 @@ Phases, each printing its own lines:
    The fused chain (the one-warp kernel, both branches) runs with a
    gated-off and an empty bucket (and, kin, an event without contact), its
    two launches must be bit-equal, and each branch's ptxas registers,
-   spills (must be 0) and shared memory are printed.
+   spills (must be 0) and shared memory are printed; so does the per-point
+   chain (one warp too, both branches, with its empty and its gated-off
+   bucket).
    The refit rows are those of a short run's map plus zero padding, and the
    slots on which kernel and plain version took different branches are
    counted.  The select kernel (one launch a call) runs at NB = 28 and at
@@ -577,8 +579,9 @@ def phase_kernels(torch, dev):
             raise RuntimeError(f"{name}: non-finite output")
         # As the other chain: poses rel 1e-4, covariances rel 1e-3 (the plain
         # version forms F P F^T and the normal equations with matrix
-        # products, the kernel as Q1 + (D Q1^T)^T and a fixed-order tree over
-        # the points); match counts and clocks exact.
+        # products, the kernel as Q1 + Q1 D^T and a lane's rows at a stride
+        # of 32 added across the warp by a butterfly); match counts and
+        # clocks exact.
         tol = [1e-4, 1e-4, 1e-3, 1e-3, 0.0, 1e-4, 1e-4, 1e-3, 0.0]
         errs = [rel_err(a, b) for a, b in zip(got, ref)]
         for i, (e, t) in enumerate(zip(errs, tol)):
@@ -589,6 +592,13 @@ def phase_kernels(torch, dev):
             raise RuntimeError(f"{name}: two launches on the same inputs differ")
         nb, k = args[7].shape
         p = args[14].shape[1]
+        px = ptxas_entry(f"chain_points_warp_kernelILb{int(use_kin)}E")
+        log(f"[kernel] {name}: one warp, {px['registers']} registers, {px['spills']} B of spills, "
+            f"{px['stack']} B stack frame, {px['smem']} B static + "
+            f"{cp.staged_bytes(nb, k, p, use_kin)} B staged shared memory (the ring of point rows "
+            f"and the event rows); two launches bit-equal")
+        if px["spills"]:
+            raise RuntimeError(f"{name}: ptxas spills {px['spills']} B in the warp kernel")
         recs[name] = dict(
             max_abs_err=max(max_abs(a, b) for a, b in zip(got, ref)),
             ms=time_call(torch, lambda: cp.chain_points_call(*args, use_kin=use_kin), 50),

@@ -26,8 +26,8 @@ the pose and refit kernels on as well):
 same match poses; ``_batched_match`` with ``voxel_map.match_points`` gives
 per-point match rows in bucket layout [NB, P] (compacted to ``match_cap``
 rows for the probe and scattered back); the per-point chain kernel
-(ops/chain_points.py) reduces each bucket's points to its 6x6 normal
-equations inside the chain; the insert recomputes world points and
+(ops/chain_points.py; one warp, as the fused chain) reduces each bucket's
+points to its 6x6 normal equations inside the chain; the insert recomputes world points and
 variances at the chain's post-update bucket poses and goes through the
 claiming ``insert_points``.  The chain, match and insert switches, the
 probe reuse and the multiple-of-128 caps belong to the fused path and are

@@ -32,6 +32,14 @@
 
 namespace {
 
+// The warp's static shared memory: the s40 ring (bucket b in slot b & 1,
+// b + 1 in the other), then the buffers of the filter steps.
+template <bool KIN>
+struct __align__(16) Shared {
+  float ring[2][lk_warp::S40];
+  lk_warp::SmemOf<KIN> sm;
+};
+
 // The bucket walk as one warp (module note; lk_chain_warp.cuh); KIN picks
 // the event update.
 template <bool KIN>
@@ -46,7 +54,9 @@ chain_warp_kernel(const float* __restrict__ params, const float* __restrict__ cl
                   float* opos, float* orotcov, float* oposcov, float* onm, float* frot,
                   float* flin, float* fcov, float* fclocks, int nb, int kmax) {
   namespace w = lk_warp;
-  __shared__ w::SmemOf<KIN> sm;
+  __shared__ Shared<KIN> sh;
+  w::SmemOf<KIN>& sm = sh.sm;
+  float(&ring)[2][w::S40] = sh.ring;
   // brow | etime | egate | eacc | egyr, and with KIN efp | efv | ect
   extern __shared__ __align__(16) float staged[];
   const int lane = threadIdx.x;
@@ -71,7 +81,7 @@ chain_warp_kernel(const float* __restrict__ params, const float* __restrict__ cl
   }
   w::stage(sm.prm, params, 40, lane);
   w::cp_commit();
-  if (nb > 0) w::stage_s40(sm.ring[0], s40, lane);
+  if (nb > 0) w::stage_s40(ring[0], s40, lane);
   w::cp_commit();
   float p[30], rot[9], lin[27];
 #pragma unroll
@@ -87,7 +97,7 @@ chain_warp_kernel(const float* __restrict__ params, const float* __restrict__ cl
   const float g_over_an = sm.prm[36];
   for (int b = 0; b < nb; ++b) {
     if (b + 1 < nb)
-      w::stage_s40(sm.ring[(b + 1) & 1], s40 + static_cast<size_t>(b + 1) * w::S40, lane);
+      w::stage_s40(ring[(b + 1) & 1], s40 + static_cast<size_t>(b + 1) * w::S40, lane);
     w::cp_commit();  // possibly empty: one group a bucket keeps cp_wait<1> exact
     for (int k = 0; k < kmax; ++k) {
       const int ev = b * kmax + k;
@@ -110,7 +120,7 @@ chain_warp_kernel(const float* __restrict__ params, const float* __restrict__ cl
     if (g > 0.5f) lp = t;
     w::cp_wait<1>();  // bucket b's statistics
     __syncwarp();
-    w::update_stats(p, rot, lin, lane, sm.ring[b & 1], sm);
+    w::update_stats(p, rot, lin, lane, ring[b & 1], sm);
     if (g > 0.5f && nm > 0.5f) lu = t;
     if (lane == 0) {
 #pragma unroll
@@ -152,7 +162,7 @@ int launch_warp(const float* params, const float* clocks, const float* rot0, con
                 float* oposcov, float* onm, float* frot, float* flin, float* fcov,
                 float* fclocks, int nb, int kmax, cudaStream_t st) {
   const size_t dyn = static_cast<size_t>(nb) * (3 + (KIN ? 36 : 8) * kmax) * sizeof(float);
-  if (dyn + sizeof(lk_warp::SmemOf<KIN>) > 48 * 1024) {
+  if (dyn + sizeof(Shared<KIN>) > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         chain_warp_kernel<KIN>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(dyn));
     if (e != cudaSuccess) return static_cast<int>(e);

@@ -1,30 +1,34 @@
-// Device functions of the one-warp ESKF chain (chain_stats.cu's kernel, both
-// branches): ONE warp of 32 lanes walks the buckets with the filter state in
-// registers, and nothing waits on a block barrier.
+// Device functions of the one-warp ESKF chain, for both chain kernels and
+// both branches (chain_stats.cu's chain_warp_kernel, chain_points.cu's
+// chain_points_warp_kernel): ONE warp of 32 lanes walks the buckets with the
+// filter state in registers, and nothing waits on a block barrier.
 //
 // Layout.  Lane c holds column c of the 30x30 covariance P in p[0..29]
 // (lanes 30 and 31 hold zeros).  Every lane holds its own copy of the
 // nominal state (rot, lin) and of the two clocks, and computes exp3, the
 // retraction and the small 6x6 and 3x3 inverses itself, from values that
-// every lane read from the same shared-memory words; the copies stay equal
-// without a broadcast of any result.  P is symmetric, so row c of P is lane
-// c's column: P H^T = (H P)^T and P[:, 0:6] need no transpose.  What a lane
+// every lane read from the same shared-memory words or that a butterfly of
+// shuffles left bit-identical on every lane; the copies stay equal without a
+// broadcast of any result.  P is symmetric, so row c of P is lane c's
+// column: P H^T = (H P)^T and P[:, 0:6] need no transpose.  What a lane
 // needs from other lanes' columns goes through a small warp-private shared
 // buffer and one __syncwarp().
 //
-// Order of the arithmetic.  The products keep the summation order of the
-// block code (lk_chain.cuh) and of eskf_fused where the layout allows it.
-// Where the layout departs from them (F P F^T as Q1 + Q1 D^T with its lower
-// block from Q1's rows, P H^T read as (H P)^T, P[:, 0:6] read down the
-// columns, S Phi read from S^T, exp3's series, the kinematic gain formed
-// from the Schur blocks of S without S^-1), the same factorisation is
-// written in plain torch in tests/test_torch_chain_warp.py and held against
-// chain_plain.
+// Order of the arithmetic.  The products keep the summation order of
+// eskf_fused where the layout allows it.  Where the layout departs from it
+// (F P F^T as Q1 + Q1 D^T with its lower block from Q1's rows, P H^T read as
+// (H P)^T, P[:, 0:6] read down the columns, S Phi read from S^T, exp3's
+// series, the kinematic gain formed from the Schur blocks of S without
+// S^-1, the points' normal equations summed a lane a stride of 32 rows and
+// then across the lanes by a butterfly), the same factorisation is written
+// in plain torch in tests/test_torch_chain_warp.py and
+// tests/test_torch_points_warp.py and held against the plain versions.
 //
 // Staging.  The caller copies the scan's event and bucket rows to shared
-// memory before the walk, and each bucket's 6,400 B of statistics into a
-// two-slot ring with cp.async one bucket ahead, so no device-memory load
-// sits on the recursion's critical path.
+// memory before the walk, and each bucket's inputs to the point update (the
+// fused chain's 6,400 B of statistics by cp.async, or the per-point chain's
+// 9 P floats of point rows by bulk copies) into a two-slot ring one bucket
+// ahead, so no device-memory load sits on the recursion's critical path.
 #pragma once
 
 #include <type_traits>
@@ -37,11 +41,12 @@ constexpr int NW = 32;     // lanes: one warp
 constexpr int LDQ = 33;    // padded row of the column exchange buffers
 constexpr int LDK = 8;     // 16-byte row of the small buffers: 6 entries, dx, pad
 constexpr int S40 = 1600;  // floats of one bucket's 40x40 statistics
+constexpr int NACC = 28;   // the point phase's sums: A's upper triangle (21), b (6), sum m
 
-// Warp-private shared memory (static; the staged event rows are dynamic).
-// The members read as float4 come first, so they are 16-byte aligned.
+// Warp-private shared memory (static; the staged rows and the ring are the
+// caller's).  The members read as float4 come first, so they are 16-byte
+// aligned.
 struct __align__(16) Smem {
-  float ring[2][S40];   // s40 of bucket b in slot b & 1, bucket b + 1 in the other
   float kb[NW * LDK];   // gain row i at [i * LDK + 0:6], dx[i] at [i * LDK + 6]
   float sb[6 * LDK];    // a replicated 6x6 matrix: S = H P H^T + R, or I + A P66
   float xq[NW * LDQ];   // predict: xq[k * LDQ + r] = Q1[r][k], rows 0:9 of column k of Q1
@@ -92,6 +97,47 @@ static __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// Bulk copies by the Tensor Memory Accelerator: one lane issues a copy of
+// any multiple of 16 bytes (16-byte aligned both sides); the bytes' arrival
+// completes the phase of an mbarrier in shared memory that every lane waits on.
+static __device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+static __device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// The barriers' initialisation, then visible to the bulk copies.
+static __device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Shared memory read by the lanes before, overwritten by bulk copies after.
+static __device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+static __device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes) : "memory");
+}
+static __device__ __forceinline__ void bulk_copy(float* dst, const float* src, unsigned bytes,
+                                                 unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
+}
+// Wait until the barrier's phase of the given parity has completed.
+static __device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity) : "memory");
+}
+
 // ---- end of the copies ----
 
 // n floats, any alignment; lane l copies l, l + 32, ...
@@ -105,6 +151,34 @@ static __device__ __forceinline__ void stage_s40(float* dst, const float* src, i
   for (int m = 0; m < (S40 / 4 + NW - 1) / NW; ++m) {
     const int e = lane + NW * m;
     if (e < S40 / 4) cp_async16(dst + 4 * e, src + 4 * e);
+  }
+}
+
+// One bucket's P point rows into a ring slot of 9 P floats: pi (3 P) | n
+// (3 P) | nd | r | m (P each).  bulk (P % 4 == 0 and every source 16-byte
+// aligned, the caller's test): lane 0 issues five bulk copies that complete
+// on bar; else every lane 4-byte cp.async copies, in the caller's group.
+static __device__ __forceinline__ void stage_points(float* dst, const float* pi, const float* n,
+                                                    const float* nd, const float* r,
+                                                    const float* m, int P, bool bulk,
+                                                    unsigned long long* bar, int lane) {
+  if (bulk) {
+    if (lane == 0) {
+      const unsigned b1 = 4u * static_cast<unsigned>(P);
+      fence_proxy_async();
+      mbar_expect_tx(bar, 9 * b1);
+      bulk_copy(dst, pi, 3 * b1, bar);
+      bulk_copy(dst + 3 * P, n, 3 * b1, bar);
+      bulk_copy(dst + 6 * P, nd, b1, bar);
+      bulk_copy(dst + 7 * P, r, b1, bar);
+      bulk_copy(dst + 8 * P, m, b1, bar);
+    }
+  } else {
+    stage(dst, pi, 3 * P, lane);
+    stage(dst + 3 * P, n, 3 * P, lane);
+    stage(dst + 6 * P, nd, P, lane);
+    stage(dst + 7 * P, r, P, lane);
+    stage(dst + 8 * P, m, P, lane);
   }
 }
 
@@ -230,7 +304,7 @@ static __device__ __forceinline__ void inv3(const float* m, int ld, float* o) {
 }
 
 // 6x6 inverse through the Schur complement of the leading 3x3 block, in the
-// order of schur<6, 3> (lk_chain.cuh) and eskf_fused._inv_schur.
+// order of eskf_fused._inv_schur.
 static __device__ __forceinline__ void inv6(const float (&m)[36], float (&o)[36]) {
   float Ai[9], AiB[9], CAi[9], Sc[9], Si[9], AiBSi[9];
   inv3(m, 6, Ai);
@@ -438,16 +512,62 @@ static __device__ __forceinline__ void update_imu(float (&p)[30], float (&rot)[9
   downdate_retract(p, rot, lin, hp, sm.kb);
 }
 
+// The information-form point update from the bucket's 6x6 normal equations
+// A = sum w h6 h6^T and b = sum w h6 z, on every lane alike
+// (eskf.update_by_points): lanes 0-5 form column j of I + A P66 from their
+// own column; every lane inverts it, G = (I + A P66)^-1, and forms row
+// `lane` of K = (P[:, 0:6] G) A and dx = (P[:, 0:6] G) b from its column
+// (P symmetric); P -= K P[0:6, :], then the retraction.  A = b = 0 is an
+// exact no-op.
+static __device__ __forceinline__ void info_update(float (&p)[30], float (&rot)[9],
+                                                   float (&lin)[27], int lane,
+                                                   const float (&A)[36], const float (&b)[6],
+                                                   Smem& sm) {
+  if (lane < 6) {  // column `lane` of I + A P66; P66[t][lane] = p[t]
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+      float s = A[6 * i] * p[0];
+#pragma unroll
+      for (int t = 1; t < 6; ++t) s += A[6 * i + t] * p[t];
+      sm.sb[i * LDK + lane] = (i == lane ? 1.0f : 0.0f) + s;
+    }
+  }
+  __syncwarp();
+  float m[36], g[36];
+  load6x6(sm.sb, m);
+  inv6(m, g);
+  float u[6], pt[6];  // u = P[lane, 0:6] G
+#pragma unroll
+  for (int t = 0; t < 6; ++t) {
+    pt[t] = p[t];
+    float s = p[0] * g[t];
+#pragma unroll
+    for (int q = 1; q < 6; ++q) s += p[q] * g[6 * q + t];
+    u[t] = s;
+  }
+  float k[6];
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    float s = u[0] * A[j];
+#pragma unroll
+    for (int t = 1; t < 6; ++t) s += u[t] * A[6 * t + j];
+    k[j] = s;
+  }
+  float dxl = u[0] * b[0];
+#pragma unroll
+  for (int t = 1; t < 6; ++t) dxl += u[t] * b[t];
+  st4(sm.kb + lane * LDK, k[0], k[1], k[2], k[3]);
+  st4(sm.kb + lane * LDK + 4, k[4], k[5], dxl, 0.f);
+  __syncwarp();
+  downdate_retract(p, rot, lin, pt, sm.kb);
+}
+
 // Point update from the bucket's statistics S = sum w X X^T at S (a ring
-// slot; eskf_fused.point_update_from_stats), in information form
-// (eskf.update_by_points): lane i < 30 forms row i of S Phi, reading row i
-// of S down its column i (S is symmetric; column reads hit 32 banks), then
-// lane < 21 one of the 21 entries of (Phi^T S Phi)[0:3, :]; rows 3:6 of
-// [A b] = (Phi^T S Phi)[0:6, :] are rows 27:30 of S Phi.  Lanes 0-5
-// form column j of I + A P66 from their own column; every lane inverts it,
-// G = (I + A P66)^-1, and forms row `lane` of K = (P[:, 0:6] G) A and
-// dx = (P[:, 0:6] G) b from its column (P symmetric); P -= K P[0:6, :].
-// S = 0 is an exact no-op.
+// slot; eskf_fused.point_update_from_stats), in information form: lane
+// i < 30 forms row i of S Phi, reading row i of S down its column i (S is
+// symmetric; column reads hit 32 banks), then lane < 21 one of the 21
+// entries of (Phi^T S Phi)[0:3, :]; rows 3:6 of [A b] = (Phi^T S Phi)[0:6, :]
+// are rows 27:30 of S Phi.  Then info_update.  S = 0 is an exact no-op.
 static __device__ __forceinline__ void update_stats(float (&p)[30], float (&rot)[9],
                                                     float (&lin)[27], int lane, const float* S,
                                                     Smem& sm) {
@@ -489,43 +609,77 @@ static __device__ __forceinline__ void update_stats(float (&p)[30], float (&rot)
     for (int j = 0; j < 6; ++j) A[6 * i + j] = row[j];
     b[i] = row[6];
   }
-  if (lane < 6) {  // column `lane` of I + A P66; P66[t][lane] = p[t]
+  info_update(p, rot, lin, lane, A, b, sm);
+}
+
+// ---- the per-point chain's point phase ----
+
+// The lane's share of a bucket's normal equations from its point rows at s
+// (a ring slot, stage_points' layout), at the post-predict state (rot, lin):
+// the rows lane, lane + 32, ... in that order, each
+//     h6 = [p x R^T n, n],  z = -(n . (R p + t) - nd),  w = m gate (r + 1e-4)^-1,
+// into acc = [A's upper triangle row by row (21) | b (6) | sum m gate].
+static __device__ __forceinline__ void point_rows(const float* s, int P, float gate,
+                                                  const float (&rot)[9], const float (&lin)[27],
+                                                  int lane, float (&acc)[NACC]) {
+  const float* pi = s;
+  const float* n = s + 3 * P;
+  const float* nd = s + 6 * P;
+  const float* r = s + 7 * P;
+  const float* m = s + 8 * P;
+  const float* R = rot;
+#pragma unroll
+  for (int q = 0; q < NACC; ++q) acc[q] = 0.f;
+  for (int e = lane; e < P; e += NW) {
+    const float px = pi[3 * e], py = pi[3 * e + 1], pz = pi[3 * e + 2];
+    const float nx = n[3 * e], ny = n[3 * e + 1], nz = n[3 * e + 2];
+    const float mv = m[e] * gate;
+    // R^T n, then p x R^T n
+    const float ux = nx * R[0] + ny * R[3] + nz * R[6];
+    const float uy = nx * R[1] + ny * R[4] + nz * R[7];
+    const float uz = nx * R[2] + ny * R[5] + nz * R[8];
+    const float h[6] = {py * uz - pz * uy, pz * ux - px * uz, px * uy - py * ux, nx, ny, nz};
+    const float wx = R[0] * px + R[1] * py + R[2] * pz + lin[0];
+    const float wy = R[3] * px + R[4] * py + R[5] * pz + lin[1];
+    const float wz = R[6] * px + R[7] * py + R[8] * pz + lin[2];
+    const float z = -((nx * wx + ny * wy + nz * wz) - nd[e]);
+    const float w = mv * __frcp_rn(r[e] + 1e-4f);  // no division's slow-path branch
+    int q = 0;
 #pragma unroll
     for (int i = 0; i < 6; ++i) {
-      float s = A[6 * i] * p[0];
+      const float hw = h[i] * w;
 #pragma unroll
-      for (int t = 1; t < 6; ++t) s += A[6 * i + t] * p[t];
-      sm.sb[i * LDK + lane] = (i == lane ? 1.0f : 0.0f) + s;
+      for (int j = i; j < 6; ++j) acc[q++] += hw * h[j];
+      acc[21 + i] += hw * z;
     }
+    acc[27] += mv;
   }
-  __syncwarp();
-  float m[36], g[36];
-  load6x6(sm.sb, m);
-  inv6(m, g);
-  float u[6], pt[6];  // u = P[lane, 0:6] G
+}
+
+// The lanes' sums added across the warp by an xor butterfly (offsets 16, 8,
+// 4, 2, 1): at each step lanes l and l ^ off add the same two values, and
+// IEEE addition is commutative, so every lane ends with the bit-identical sum.
+static __device__ __forceinline__ void butterfly(float (&acc)[NACC]) {
 #pragma unroll
-  for (int t = 0; t < 6; ++t) {
-    pt[t] = p[t];
-    float s = p[0] * g[t];
+  for (int off = 16; off > 0; off >>= 1)
 #pragma unroll
-    for (int q = 1; q < 6; ++q) s += p[q] * g[6 * q + t];
-    u[t] = s;
+    for (int q = 0; q < NACC; ++q) acc[q] += __shfl_xor_sync(0xffffffffu, acc[q], off);
+}
+
+// The summed acc as the symmetric A (6x6) and b.
+static __device__ __forceinline__ void normal_eq(const float (&acc)[NACC], float (&A)[36],
+                                                 float (&b)[6]) {
+  int q = 0;
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+#pragma unroll
+    for (int j = i; j < 6; ++j) {
+      A[6 * i + j] = acc[q];
+      A[6 * j + i] = acc[q];
+      ++q;
+    }
+    b[i] = acc[21 + i];
   }
-  float k[6];
-#pragma unroll
-  for (int j = 0; j < 6; ++j) {
-    float s = u[0] * A[j];
-#pragma unroll
-    for (int t = 1; t < 6; ++t) s += u[t] * A[6 * t + j];
-    k[j] = s;
-  }
-  float dxl = u[0] * b[0];
-#pragma unroll
-  for (int t = 1; t < 6; ++t) dxl += u[t] * b[t];
-  st4(sm.kb + lane * LDK, k[0], k[1], k[2], k[3]);
-  st4(sm.kb + lane * LDK + 4, k[4], k[5], dxl, 0.f);
-  __syncwarp();
-  downdate_retract(p, rot, lin, pt, sm.kb);
 }
 
 // ---- the kinematic branch ----

@@ -17,9 +17,13 @@ argument contract, flattened:
     -> orot [NB,3,3], opos [NB,3], orotcov/oposcov [NB,3,3], onm [NB],
        frot [3,3], flin [27], fcov [30,30], fclocks [2]
 
-On a CUDA tensor it launches ``csrc/chain_points.cu`` (one thread block
-walks the buckets with the state in shared memory and reduces each bucket's
-points to the 6x6 normal equations in a fixed order; see the source); on a
+On a CUDA tensor it launches ``csrc/chain_points.cu``: ONE warp walks the
+buckets for either branch (``chain_points_warp_kernel<KIN>``, KIN =
+``use_kin``) on the fused chain's device functions, each bucket's point rows
+staged in shared memory a bucket ahead, each lane summing the rows lane,
+lane + 32, ... and an xor butterfly adding the lanes (see the source).  P
+may be any count up to ``MAX_P`` with the staging within ``STAGED_MAX``
+bytes (``staged_bytes``); the wrapper refuses more before any launch.  On a
 CPU tensor it runs ``chain_points_plain``, the same recursion on the
 dot-product forms of core/eskf.py (the port of ``_chain_jax``'s bucket
 step).  Both use the closed-form Schur inverses; the TPU kernel's body uses
@@ -36,6 +40,15 @@ from . import _build
 from .chain_stats import empty_chain_outputs, pack_state_and_events, unpack_chain_outputs
 
 F32 = torch.float32
+ROW_FLOATS = 9        # a point row in the kernel's ring: pi (3), n (3), nd, r, m
+MAX_P = 2048          # points a bucket: the ring's two slots take 2 x 9 x P floats (147,456 B)
+STAGED_MAX = 207_872  # bytes the kernel stages: 227 KB a block may opt in to, less its static buffers
+
+
+def staged_bytes(nb: int, kmax: int, p: int, use_kin: bool) -> int:
+    """Dynamic shared memory of the kernel: the ring of point rows and the
+    event rows, nb (2 + 8 K) floats, nb (2 + 36 K) with the feet's rows."""
+    return 4 * (2 * ROW_FLOATS * p + nb * (2 + (36 if use_kin else 8) * kmax))
 
 
 def chain_points_plain(params, clocks, rot0, lin0, cov0, btime, bgate, etime, egate, eacc, egyr,
@@ -101,6 +114,11 @@ def chain_points_call(params, clocks, rot0, lin0, cov0, btime, bgate, etime, ega
         if tuple(a.shape) != s:
             raise ValueError(
                 f"chain_points_call: argument {i} has shape {tuple(a.shape)}, expected {s}")
+    if p > MAX_P or staged_bytes(nb, kmax, p, use_kin) > STAGED_MAX:
+        raise ValueError(
+            f"chain_points_call: P = {p} at NB = {nb}, K = {kmax} stages "
+            f"{staged_bytes(nb, kmax, p, use_kin)} B; the kernel takes P <= {MAX_P} and "
+            f"<= {STAGED_MAX} B of shared memory")
     dev = _build.check_tensors("chain_points_call", args, [F32] * len(args))
     outs = empty_chain_outputs(nb, dev)
     _build.launch("chain_points_launch", args + outs, [nb, kmax, p, int(bool(use_kin))])

@@ -139,7 +139,12 @@ def update_stats_cols(rot, lin, P, s40):
     sphi[:, 3:6] = st[:, 27:30]
     sphi[:, 6] = st[:, 39] - ef.umv(st[:, 27:30], lin[0:3]) - ef.umv(st[:, 30:39], rf)
     nq = torch.cat([ef.umm(rf[None, :], sphi[9 * i:9 * i + 9]) for i in range(3)] + [sphi[27:30]])
-    a, b = nq[:, 0:6], nq[:, 6]
+    return info_update_cols(rot, lin, P, nq[:, 0:6], nq[:, 6])
+
+
+def info_update_cols(rot, lin, P, a, b):
+    """The information update from the 6x6 normal equations (a, b), shared
+    by both chain kernels."""
     g = ef.inv6(torch.eye(6) + ef.umm(a, P[0:6, 0:6]))
     u = ef.umm(P[0:6].T, g)                       # row i of P[:, 0:6] = column i's top
     k = ef.umm(u, a)

@@ -174,6 +174,114 @@ def test_chain_points_other_shapes_on_card(cuda_device, use_kin):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("use_kin", [False, True], ids=["imu", "kin"])
+@pytest.mark.parametrize("nb,k,p", [(28, 1, 256), (56, 1, 128), (8, 2, 200), (9, 1, 97), (4, 1, 2048)],
+                         ids=["nb28_k1_p256", "nb56_k1_p128", "nb8_k2_p200", "nb9_k1_p97", "nb4_p_max"])
+def test_chain_points_warp_kernel_on_card(cuda_device, nb, k, p, use_kin):
+    """The one-warp per-point chain of either branch against its plain
+    version at the path's shapes (NB 28 / P 256; 2 ms buckets, NB 56 / P
+    128), with K = 2, at P = 200 (a multiple of 4: 16-byte copies) and
+    P = 97 (4-byte copies), and at P = MAX_P: chip_smoke's tolerances,
+    counts and clocks exact, the empty and the gated-off bucket without a
+    match, two launches bit-equal."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from legkilo_torch.ops import chain_points as cp
+
+    assert p <= cp.MAX_P
+    args = cs.chain_points_inputs(torch, cuda_device, np.random.default_rng(nb + k + p), use_kin, nb, k, p)
+    n0 = cp.chain_points_call.launches
+    got = cp.chain_points_call(*args, use_kin=use_kin)
+    again = cp.chain_points_call(*args, use_kin=use_kin)
+    torch.cuda.synchronize()
+    ref = cp.chain_points_plain(*args, use_kin=use_kin)
+    assert cp.chain_points_call.launches == n0 + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for i, (a, b) in enumerate(zip(got, ref)):
+        if i in (4, 8):
+            assert torch.equal(a, b), i
+        else:
+            assert cs.rel_err(a, b) <= (1e-3 if i in (2, 3, 7) else 1e-4), i
+    assert int(got[4][2 * nb // 3]) == 0 and int(got[4][nb // 3]) == 0 and int(got[4].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_kin", [False, True], ids=["imu", "kin"])
+def test_chain_points_unaligned_rows_give_the_same_bits_on_card(cuda_device, use_kin):
+    """Point rows at an offset of one float (P = 256 but not 16-byte
+    aligned) take the 4-byte copies; the kernel's arithmetic is the same,
+    so the outputs equal those from aligned rows bit for bit."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from legkilo_torch.ops import chain_points as cp
+
+    args = cs.chain_points_inputs(torch, cuda_device, np.random.default_rng(6), use_kin, 8, 1, 256)
+    shifted = list(args)
+    for i in (14, 15, 16, 17, 18):
+        buf = torch.zeros(args[i].numel() + 1, device=cuda_device)
+        shifted[i] = buf[1:].view(args[i].shape)
+        shifted[i].copy_(args[i])
+        assert shifted[i].data_ptr() % 16 and shifted[i].is_contiguous()
+    got = cp.chain_points_call(*args, use_kin=use_kin)
+    off = cp.chain_points_call(*shifted, use_kin=use_kin)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, off))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_kin", [False, True], ids=["imu", "kin"])
+def test_chain_points_refuses_staging_past_shared_memory_on_card(cuda_device, use_kin):
+    """P past MAX_P, or event rows that with the ring pass STAGED_MAX
+    bytes, are refused before any launch."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from legkilo_torch.ops import chain_points as cp
+
+    n0 = cp.chain_points_call.launches
+    args = cs.chain_points_inputs(torch, cuda_device, np.random.default_rng(8), use_kin, 2, 1, cp.MAX_P + 4)
+    with pytest.raises(ValueError, match="shared memory"):
+        cp.chain_points_call(*args, use_kin=use_kin)
+    nb, k = 200, 8 if use_kin else 32
+    assert cp.staged_bytes(nb, k, 64, use_kin) > cp.STAGED_MAX
+    args = cs.chain_points_inputs(torch, cuda_device, np.random.default_rng(8), use_kin, nb, k, 64)
+    with pytest.raises(ValueError, match="shared memory"):
+        cp.chain_points_call(*args, use_kin=use_kin)
+    assert cp.chain_points_call.launches == n0
+
+
+@pytest.mark.cuda
+def test_chain_points_routes_by_use_kin_on_card(cuda_device):
+    """Both branches of the per-point chain launch the one-warp kernel, each
+    its own instantiation, and no block kernel is left: in one
+    torch.profiler window over a launch of each branch, the per-point chain
+    kernels on the card, in launch order, are exactly
+    chain_points_warp_kernel<false> and chain_points_warp_kernel<true>."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+    from legkilo_torch.ops import chain_points as cp
+
+    calls = [(use_kin, cs.chain_points_inputs(torch, cuda_device, np.random.default_rng(4), use_kin, 8, 1, 64))
+             for use_kin in (False, True)]
+    for use_kin, args in calls:
+        cp.chain_points_call(*args, use_kin=use_kin)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for use_kin, args in calls:
+            cp.chain_points_call(*args, use_kin=use_kin)
+        torch.cuda.synchronize()
+    kernels = sorted((e.time_range.start, e.name) for e in prof.events()
+                     if "CUDA" in str(e.device_type) and "chain_points" in e.name)
+    names = [n for _, n in kernels]
+    assert len(names) == 2, names
+    assert "chain_points_warp_kernel<false>" in names[0] and "chain_points_warp_kernel<true>" in names[1], names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_kin", [False, True], ids=["imu", "kin"])
 @pytest.mark.parametrize("nb,k", [(28, 1), (56, 1), (8, 2), (1, 1)],
                          ids=["nb28_k1", "nb56_k1", "nb8_k2", "nb1"])
 def test_chain_warp_kernel_on_card(cuda_device, nb, k, use_kin):

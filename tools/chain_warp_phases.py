@@ -1,23 +1,39 @@
-"""Where the one-warp chain kernel spends its cycles, on the card.
+"""Where the one-warp chain kernels spend their cycles, on the card.
 
-    python3 tools/chain_warp_phases.py [--kin] [DIR ...]    (default: legkilo_torch/csrc)
+    python3 tools/chain_warp_phases.py [--kin] [--points] [DIR ...]
+                                                (default: legkilo_torch/csrc)
 
-Each DIR holds a version of ``chain_stats.cu`` and ``lk_chain_warp.cuh`` (the
-fused chain's kernel, ``chain_warp_kernel<KIN>``); ``--kin`` takes the
-kinematic branch (``KIN = true``), else the IMU branch.  For each version it
-builds three copies with nvcc (as is; with clock64() stamps around each call
-of the bucket loop; with stamps around every __syncwarp() of the filter steps
-and after each 6x6 and 9x9 inverse, downdate and the kinematic downdate),
-prints ptxas's registers and spills, holds the kernel against ``chain_plain``
-on chip_smoke's inputs (NB = 28, K = 1; NB = 56, K = 1; NB = 8, K = 2; a
-gated-off and an empty bucket, and, kin, an event without contact), times
-the versions with CUDA events in alternating order, and prints cycles a
-bucket by phase.  In the kinematic update the fine stamps read, in order:
-the H build, H P, S, the first 9x9 inverse (two rounds), Ai B / C Ai / the
-complement, the second 9x9 inverse, the gain row, the downdate, the
-retraction.  A stamp costs ~120 cycles, which the fine table includes.
-Builds and SASS go to build/chain_warp_phases/ (git-ignored).  Needs one card
-and nvcc; compare two versions only inside one run.
+Each DIR holds a version of the kernel sources.  Without ``--points`` the
+tool takes the fused chain (``chain_stats.cu`` and ``lk_chain_warp.cuh``,
+``chain_warp_kernel<KIN>``); ``--kin`` takes the kinematic branch
+(``KIN = true``), else the IMU branch.  For each version it builds three
+copies with nvcc (as is; with clock64() stamps around each call of the
+bucket loop; with stamps around every __syncwarp() of the filter steps and
+after each 6x6 and 9x9 inverse, downdate and the kinematic downdate),
+prints ptxas's registers and spills, holds the kernel against
+``chain_plain`` on chip_smoke's inputs (NB = 28, K = 1; NB = 56, K = 1;
+NB = 8, K = 2; a gated-off and an empty bucket, and, kin, an event without
+contact), prints whether each version's outputs are ``torch.equal`` to the
+first version's, times the versions with CUDA events in alternating order,
+and prints cycles a bucket by phase.  In the kinematic update the fine
+stamps read, in order: the H build, H P, S, the first 9x9 inverse (two
+rounds), Ai B / C Ai / the complement, the second 9x9 inverse, the gain
+row, the downdate, the retraction.  A stamp costs ~120 cycles, which the
+fine table includes.
+
+With ``--points`` it takes the per-point chain (``chain_points.cu``, any
+version with the entry point ``chain_points_launch``): it builds each
+version as is, holds it against ``chain_points_plain`` on chip_smoke's
+inputs (NB = 28, K = 1, P = 256; NB = 56, K = 1, P = 128; NB = 8, K = 2,
+P = 200; an empty and a gated-off bucket), prints whether the outputs
+equal the first version's, times the versions in alternating order and,
+for a version whose kernel is ``chain_points_warp_kernel<KIN>`` with bulk
+copies, prints cycles a bucket by phase at NB = 28: the staging of the next bucket's rows,
+the event predicts, the event updates, the bucket predict, the wait for the
+rows, the point phase's row loop, its butterfly and the information update.
+
+Builds and SASS go to build/chain_warp_phases/ (git-ignored).  Needs one
+card and nvcc; compare two versions only inside one run.
 """
 import ctypes
 import os
@@ -31,7 +47,7 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 import chip_smoke as cs
-from legkilo_torch.ops import chain_stats
+from legkilo_torch.ops import chain_points, chain_stats
 
 OUT = os.path.join(ROOT, "build", "chain_warp_phases")
 os.makedirs(OUT, exist_ok=True)
@@ -101,6 +117,7 @@ def make_source(d, mode):
     s = open(os.path.join(d, "chain_stats.cu")).read()
     a = s.index("template <bool KIN>\n__global__ void __launch_bounds__(lk_warp::NW)")
     b = s.index("\n}\n", a) + 3   # the kernel's closing brace
+    pre = s[s.index("namespace {\n") + len("namespace {\n"):a]   # what the kernel uses
     k = s[a:b]
     if mode == "coarse":
         k = k.replace("float* fclocks, int nb, int kmax) {", "float* fclocks, long long* stamps, int nb, int kmax) {\n  long long acc[6] = {0, 0, 0, 0, 0, 0}; long long t_last = 0;")
@@ -132,7 +149,7 @@ def make_source(d, mode):
         k = k.replace("float* fclocks, int nb, int kmax) {", "float* fclocks, long long* stamps, int nb, int kmax) {")
         k = k.replace("  const float qc = lane < 30", "  if (lane == 0) { for (int q = 0; q < 64; ++q) w::ps_acc[q] = 0; w::ps_last = clock64(); }\n  __syncwarp();\n  const float qc = lane < 30", 1)
         k = k.rstrip()[:-1] + "  if (lane == 0) for (int q = 0; q < 64; ++q) stamps[q] = w::ps_acc[q];\n}\n"
-    src = '#include "lk_chain_warp.cuh"\nnamespace {\n' + k + "\n}\n" + LAUNCH.replace("STAMPARG", "" if mode == "plain" else "stamps,")
+    src = '#include "lk_chain_warp.cuh"\nnamespace {\n' + pre + k + "\n}\n" + LAUNCH.replace("STAMPARG", "" if mode == "plain" else "stamps,")
     return src
 
 
@@ -149,12 +166,30 @@ def build(tag, d, mode):
     return so, labels, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
+TOL = [1e-4, 1e-4, 1e-3, 1e-3, 0, 1e-4, 1e-4, 1e-3, 0]   # chip_smoke's chain tolerances
+
+
+def report(case, tag, got, ref, first):
+    """A version's outputs against the plain version and the first version's."""
+    errs = [cs.rel_err(a, b) for a, b in zip(got, ref)]
+    ok = all(e <= t for e, t in zip(errs, TOL))
+    same = all(torch.equal(a, b) for a, b in zip(got, first))
+    print(f"[phases] {case} {tag}: {'OK' if ok else 'FAIL'} errs {['%.1e' % e for e in errs]}; "
+          f"torch.equal to the first version: {same}")
+
+
 def main():
     argv = sys.argv[1:]
     use_kin = "--kin" in argv
-    argv = [a for a in argv if a != "--kin"]
+    points = "--points" in argv
+    argv = [a for a in argv if a not in ("--kin", "--points")]
     dirs = argv or [os.path.join(ROOT, "legkilo_torch", "csrc")]
-    tags = [os.path.basename(os.path.normpath(d)) for d in dirs]
+    tags = [os.path.basename(os.path.abspath(os.path.join(d, os.pardir, os.pardir)))
+            if os.path.basename(os.path.abspath(d)) == "csrc" else os.path.basename(os.path.abspath(d))
+            for d in dirs]
+    tags = [t if tags.count(t) == 1 else f"{t}{i}" for i, t in enumerate(tags)]
+    if points:
+        return main_points(dirs, tags, use_kin)
     procs = []
     for tag, d in zip(tags, dirs):
         for mode in ("plain", "coarse", "fine"):
@@ -190,14 +225,12 @@ def main():
                                                 int(use_kin))
             assert rc == 0, rc
             return outs
-        res = {}
+        res, outs = {}, {}
         for tag in tags:
-            got = run(tag, "plain")
+            outs[tag] = got = run(tag, "plain")
             torch.cuda.synchronize()
-            errs = [cs.rel_err(a, b) for a, b in zip(got, ref)]
-            ok = all(e <= t for e, t in zip(errs, [1e-4, 1e-4, 1e-3, 1e-3, 0, 1e-4, 1e-4, 1e-3, 0]))
+            report(f"{branch} nb={nb} k={k}", tag, got, ref, outs[tags[0]])
             res[tag] = []
-            print(f"[phases] {branch} nb={nb} k={k} {tag}: {'OK' if ok else 'FAIL'} errs {['%.1e' % e for e in errs]}")
         order = tags + tags[::-1] + tags + tags[::-1]
         for tag in order:
             res[tag].append(cs.time_call(torch, lambda: run(tag, "plain"), 100))
@@ -220,6 +253,156 @@ def main():
                 print(f"[phases] {tag} fine stamps, cycles/bucket (sum {st[:len(labels)].sum():.0f}):")
                 for lab, v in zip(labels, st):
                     print(f"[phases]   {v:8.0f}  {lab}")
+    print("[phases]", cs.card_line())
+
+
+LAUNCH_POINTS = r'''
+extern "C" int probe_launch(const float* params, const float* clocks, const float* rot0, const float* lin0,
+    const float* cov0, const float* btime, const float* bgate, const float* etime, const float* egate,
+    const float* eacc, const float* egyr, const float* efp, const float* efv, const float* ect, const float* pi,
+    const float* n, const float* nd, const float* r, const float* m, float* orot, float* opos, float* orotcov,
+    float* oposcov, float* onm, float* frot, float* flin, float* fcov, float* fclocks, long long* stamps,
+    int nb, int kmax, int P, int use_kin) {
+  const size_t dyn = (static_cast<size_t>(2) * 9 * P + static_cast<size_t>(nb) * (2 + (use_kin ? 36 : 8) * kmax)) * 4;
+  auto al = [](const void* q) { return reinterpret_cast<uintptr_t>(q) % 16 == 0; };
+  const int bulk = P > 0 && P % 4 == 0 && al(pi) && al(n) && al(nd) && al(r) && al(m);
+  if (use_kin) {
+    cudaFuncSetAttribute(chain_points_warp_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+    chain_points_warp_kernel<true><<<1, 32, dyn>>>(params, clocks, rot0, lin0, cov0, btime, bgate, etime, egate,
+        eacc, egyr, efp, efv, ect, pi, n, nd, r, m, orot, opos, orotcov, oposcov, onm, frot, flin, fcov, fclocks,
+        stamps, nb, kmax, P, bulk);
+  } else {
+    cudaFuncSetAttribute(chain_points_warp_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+    chain_points_warp_kernel<false><<<1, 32, dyn>>>(params, clocks, rot0, lin0, cov0, btime, bgate, etime, egate,
+        eacc, egyr, efp, efv, ect, pi, n, nd, r, m, orot, opos, orotcov, oposcov, onm, frot, flin, fcov, fclocks,
+        stamps, nb, kmax, P, bulk);
+  }
+  return (int)cudaGetLastError();
+}
+'''
+POINT_PHASES = ["stage_next", "ev_predict", "ev_update", "bkt_predict", "rows_wait", "point_rows",
+                "butterfly", "info_update"]
+
+
+def points_stamped_source(d):
+    """chain_points.cu's warp kernel with clock64() stamps after each phase
+    of the bucket loop (POINT_PHASES), summed on lane 0 into stamps[0:8]."""
+    s = open(os.path.join(d, "chain_points.cu")).read()
+    a = s.index("template <bool KIN>\n__global__ void __launch_bounds__(lk_warp::NW)\nchain_points_warp_kernel(")
+    b = s.index("\n}\n", a) + 3
+    k = s[a:b].replace("float* fclocks, int nb, int kmax, int P, int bulk) {",
+                       "float* fclocks, long long* stamps, int nb, int kmax, int P, int bulk) {\n"
+                       "  long long ps_acc[8] = {0, 0, 0, 0, 0, 0, 0, 0}; long long t_last = 0;")
+    k = k.replace("for (int b = 0; b < nb; ++b) {", "for (int b = 0; b < nb; ++b) {\n    __syncwarp(); t_last = clock64();", 1)
+    st = lambda i: f"    __syncwarp(); {{ long long now = clock64(); ps_acc[{i}] += now - t_last; t_last = now; }}"
+    lines, out, n_pred, i = k.split("\n"), [], 0, 0
+    while i < len(lines):
+        ln = lines[i]
+        out.append(ln)
+        if "w::cp_commit();  // possibly empty" in ln:
+            out.append(st(0))
+        if "w::predict(" in ln:
+            n_pred += 1
+            out.append(st(1 if n_pred == 1 else 3))
+        if "if constexpr (KIN) {" in ln and "w::update_kin(" in lines[i + 1]:
+            while lines[i] != "      }":
+                i += 1
+                out.append(lines[i])
+            out.append(st(2))
+        if "// Bucket b's point rows" in ln:
+            while lines[i] != "    __syncwarp();":
+                i += 1
+                out.append(lines[i])
+            out.append(st(4))
+        if "w::point_rows(" in ln:
+            out.append(st(5))
+        if "w::butterfly(" in ln:
+            out.append(st(6))
+        if "if (nm > 0.5f) {" in ln:
+            while lines[i] != "    }":
+                i += 1
+                out.append(lines[i])
+            out.append(st(7))
+        i += 1
+    k = "\n".join(out)
+    k = k.rstrip()[:-1] + "  if (lane == 0) for (int q = 0; q < 8; ++q) stamps[q] = ps_acc[q];\n}\n"
+    return '#include "lk_chain_warp.cuh"\nnamespace {\nconstexpr int ROW_FLOATS = 9;\n' + k + "}\n" + LAUNCH_POINTS
+
+
+def build_points(tag, d, stamped):
+    src = os.path.join(d, "chain_points.cu")
+    if stamped:
+        src = os.path.join(OUT, f"points_{tag}_stamped.cu")
+        open(src, "w").write(points_stamped_source(d))
+    so = os.path.join(OUT, f"points_{tag}_{'stamped' if stamped else 'plain'}.so")
+    cmd = [NVCC, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+           "-shared", "-Xptxas", "-v", "-I", d, src, "-o", so]
+    return so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def main_points(dirs, tags, use_kin):
+    """The per-point chain: each version against chain_points_plain, its
+    bits against the first version's, times in turns, warp phases."""
+    procs = []
+    for tag, d in zip(tags, dirs):
+        warp = "int P, int bulk) {" in open(os.path.join(d, "chain_points.cu")).read()   # stampable
+        for stamped in (False, True) if warp else (False,):
+            procs.append((tag, stamped, *build_points(tag, d, stamped)))
+    libs = {}
+    for tag, stamped, so, p in procs:
+        text, _ = p.communicate()
+        if p.returncode:
+            print(f"[phases] build points {tag} {'stamped' if stamped else 'plain'} FAILED\n{text}")
+            sys.exit(1)
+        for ln in text.splitlines():
+            if "Used" in ln or "spill" in ln:
+                print(f"[phases] points {tag} {'stamped' if stamped else 'plain'}: {ln.strip()}")
+        lib = ctypes.CDLL(so)
+        if stamped:
+            lib.probe_launch.argtypes = [ctypes.c_void_p] * 29 + [ctypes.c_int] * 4
+        else:
+            lib.chain_points_launch.argtypes = [ctypes.c_void_p] * 28 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            with open(os.path.join(OUT, f"sass_points_{tag}.txt"), "w") as fh:
+                subprocess.run([os.path.join(os.path.dirname(NVCC), "cuobjdump"), "-sass", so], stdout=fh,
+                               stderr=subprocess.STDOUT)
+        libs[(tag, stamped)] = lib
+    dev = torch.device("cuda")
+    branch = "points_kin" if use_kin else "points_imu"
+    for nb, k, p in ((28, 1, 256), (56, 1, 128), (8, 2, 200)):
+        args = cs.chain_points_inputs(torch, dev, np.random.default_rng(7), use_kin, nb, k, p)
+        ref = chain_points.chain_points_plain(*args, use_kin=use_kin)
+        ptrs = [t.data_ptr() for t in args]
+        stamps = torch.zeros(8, dtype=torch.int64, device=dev)
+
+        def run(tag, stamped=False):
+            outs = chain_stats.empty_chain_outputs(nb, dev)
+            optrs = [t.data_ptr() for t in outs]
+            if stamped:
+                rc = libs[(tag, True)].probe_launch(*ptrs, *optrs, stamps.data_ptr(), nb, k, p, int(use_kin))
+            else:
+                rc = libs[(tag, False)].chain_points_launch(*ptrs, *optrs, nb, k, p, int(use_kin), None)
+            assert rc == 0, rc
+            return outs
+        res, outs = {}, {}
+        for tag in tags:
+            outs[tag] = got = run(tag)
+            torch.cuda.synchronize()
+            report(f"{branch} nb={nb} k={k} p={p}", tag, got, ref, outs[tags[0]])
+            res[tag] = []
+        for tag in tags + tags[::-1] + tags + tags[::-1]:
+            res[tag].append(cs.time_call(torch, lambda: run(tag), 100))
+        for tag in tags:
+            print(f"[phases] {branch} nb={nb} k={k} p={p} {tag}: ms {' '.join('%.4f' % x for x in res[tag])}")
+        if nb == 28:
+            for tag in tags:
+                if (tag, True) not in libs:
+                    continue
+                stamps.zero_()
+                run(tag, stamped=True)
+                torch.cuda.synchronize()
+                st = stamps.cpu().numpy() / nb
+                print(f"[phases] {tag} {branch} cycles/bucket: "
+                      + ", ".join(f"{n} {v:.0f}" for n, v in zip(POINT_PHASES, st)) + f", sum {st.sum():.0f}")
     print("[phases]", cs.card_line())
 
 
