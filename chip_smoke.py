@@ -12,7 +12,7 @@ Phases, each printing its own lines:
    shapes (C = 3584 match rows, L = 3 levels, NB = 28 buckets, K = 1 event
    slot, P = 256 points a bucket, R = 4096 insert rows, B = 1024 refit
    slots, MP = 128 timeline slots; both chains with kin off and on; the
-   pose kernel at MP = 384 and 1,280 too),
+   pose kernel at MP = 384 and 1,280 too, bit-equal at every MP),
    held against its plain PyTorch version on the same inputs within the
    stated tolerance, and timed with CUDA events (kernel and plain version).
    The fused chain (the one-warp kernel, both branches) runs with a
@@ -27,7 +27,11 @@ Phases, each printing its own lines:
    the 2 ms bucket shape (NB = 56, "select_56"), each also with its rows'
    bucket indices shuffled and one bucket empty; two launches must be
    bit-equal, and its ptxas registers, spills (must be 0) and shared
-   memory are printed.
+   memory are printed.  keys (a block of four warps a 32-row tile) and the
+   two pose instantiations this phase launches print their ptxas lines
+   too (no spills allowed), two keys launches must be bit-equal, and an
+   empty kernel from the library is timed the same way as the launch
+   floor (a line of its own, not in the kernels list).
 3. The main path end to end: runner.run_offline on the bench.py workload
    (24 s sim, 8000 points a scan, seed 7) on the card with all five kernel
    switches on, streaming ("main"), with every launch counter set to 0
@@ -139,6 +143,21 @@ def time_call(torch, fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def launch_floor_ms(torch) -> float:
+    """Device ms a launch of the library's empty kernel (one warp, no
+    work), by ``time_call``: the floor under every kernel time."""
+    from legkilo_torch.ops import _build
+
+    fn = _build._function("lk_empty_launch", 0, 0)
+
+    def go():
+        rc = fn(torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"lk_empty_launch: CUDA error {rc}")
+
+    return time_call(torch, go, 200)
 
 
 def nbytes(tensors) -> int:
@@ -612,6 +631,7 @@ def phase_kernels(torch, dev):
 
     kargs = keys_inputs(torch, dev, rng)
     got = mg.keys_call(*kargs, 3, 1 << 14)
+    again = mg.keys_call(*kargs, 3, 1 << 14)
     torch.cuda.synchronize()
     ref = mg.keys_plain(*kargs, 3, 1 << 14)
     # Keys, centres and probe starts are computed un-fused on both sides:
@@ -622,6 +642,14 @@ def phase_kernels(torch, dev):
     e_piw, e_cov = rel_err(got[0], ref[0]), rel_err(got[1], ref[1])
     if not (e_piw <= 1e-6 and e_cov <= 1e-5):
         raise RuntimeError(f"keys: rel errs piw {e_piw:.3g} covs {e_cov:.3g}")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise RuntimeError("keys: two launches on the same inputs differ")
+    px = ptxas_entry("keys_kernel")
+    log(f"[kernel] keys: a block of four warps a 32-row tile, {px['registers']} registers, "
+        f"{px['spills']} B of spills, {px['stack']} B stack frame, {px['smem']} B static shared memory; "
+        f"two launches bit-equal")
+    if px["spills"]:
+        raise RuntimeError(f"keys: ptxas spills {px['spills']} B")
     c = kargs[1].shape[1]
     recs["keys"] = dict(
         max_abs_err=max(max_abs(a, b) for a, b in zip(got, ref)),
@@ -710,29 +738,34 @@ def phase_kernels(torch, dev):
         f"{n_flip} branch flips, head err {e_head:.2e}, plane_var rel {e_pv:.2e}, "
         f"bit-equal {bool(torch.equal(got, ref))}")
 
+    for spt in (1, 2):  # MP <= 1,024 (pose at 128, pose_384) and MP 1,025-2,048 (pose_1280)
+        px = ptxas_entry(f"pose_kernelILi{spt}E")
+        log(f"[kernel] pose: one block, {spt} slot(s) a thread, {px['registers']} registers, "
+            f"{px['spills']} B of spills, {px['stack']} B stack frame")
+        if px["spills"]:
+            raise RuntimeError(f"pose: ptxas spills {px['spills']} B in pose_kernel<{spt}>")
     for name, (nb, k) in (("pose", (28, 1)), ("pose_384", (28, 12)), ("pose_1280", (256, 4))):
         pargs = pose_inputs(torch, dev, rng, nb, k)
         got = pp.pose_call(*pargs)
         torch.cuda.synchronize()
         ref = pp.pose_plain(*pargs)
         mp = pargs[1].shape[1]
-        # The JAX package's own kernel-vs-XLA tolerance (rtol 1e-5, atol 1e-6);
-        # past 1,024 slots (several slots a thread) bit-equal, as one slot a
-        # thread is.
-        if not torch.allclose(got, ref, rtol=1e-5, atol=1e-6):
-            raise RuntimeError(f"{name}: max abs err {max_abs(got, ref):.3g} at MP = {mp}")
-        if mp > 1024 and not torch.equal(got, ref):
-            raise RuntimeError(f"{name}: not bit-equal to the plain version at MP = {mp}")
+        # The same operations in the same order on both sides: bit-equal.
+        if not torch.equal(got, ref):
+            raise RuntimeError(f"{name}: max abs err {max_abs(got, ref):.3g} at MP = {mp}: "
+                               f"not bit-equal to the plain version")
         rec = dict(
             max_abs_err=max_abs(got, ref),
             ms=time_call(torch, lambda: pp.pose_call(*pargs), 200),
             plain_ms=time_call(torch, lambda: pp.pose_plain(*pargs), 5),
             bytes=nbytes(list(pargs) + [got]), flops=pose_flops(mp),
-            tol="rtol 1e-5, atol 1e-6",
+            tol="bit-equal",
         )
-        log(f"[kernel] {name}: MP = {mp}, max abs err {rec['max_abs_err']:.2e}, "
-            f"bit-equal {bool(torch.equal(got, ref))}")
+        log(f"[kernel] {name}: MP = {mp}, bit-equal")
         recs[name] = rec
+    floor_ms = launch_floor_ms(torch)
+    log(f"[floor] an empty kernel from the library: {floor_ms:.4f} ms a launch "
+        f"(CUDA events, 200 launches queued behind the spin; the floor under every kernel ms above)")
     for name, rec in recs.items():
         rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], rec["flops"])
         log(f"[kernel] {name}: ms {rec['ms']:.4f} plain_ms {rec['plain_ms']:.4f} "

@@ -29,8 +29,8 @@ __device__ __forceinline__ F fmax(F a, F b) { return F(fmaxf(a.v, b.v)); }
 __device__ __forceinline__ F fmin(F a, F b) { return F(fminf(a.v, b.v)); }
 __device__ __forceinline__ F fabs(F a) { return F(fabsf(a.v)); }
 __device__ __forceinline__ F fsqrt(F a) { return F(__fsqrt_rn(a.v)); }
-__device__ __forceinline__ F fsin(F a) { return F(sinf(a.v)); }
 __device__ __forceinline__ F fcos(F a) { return F(cosf(a.v)); }
+__device__ __forceinline__ void fsincos(F a, F& s, F& c) { sincosf(a.v, &s.v, &c.v); }
 __device__ __forceinline__ F sel(bool c, F a, F b) { return c ? a : b; }
 
 }  // namespace lk

@@ -7,12 +7,14 @@
 // component k at k * C + r).
 //
 // Bound on the H100: neither kernel is bound by the card's rates at the main
-// path's C = 3584 rows.  keys (one thread a row) reads 15 and writes 75
-// floats a row (~1.3 MB); select reads ~230 floats a row (~3.3 MB, mostly
-// the gathered plane rows), writes 46 and sums the per-bucket 40x40
-// statistics s40 = sum w X X^T; both are a few microseconds of memory
-// traffic and latency dominates.  select is one launch: a block a bucket
-// that gathers its own rows, so the sums read only them (see below).
+// path's C = 3584 rows.  keys reads 15 and writes 75 floats a row (~1.3 MB,
+// 0.4 us of memory traffic) over a dependent chain of ~650 flops a row, so
+// its time is the chain's latency and the launch: a 32-row tile a block
+// spreads the rows over 112 SMs and splits each row's chain four ways (see
+// below).  select reads ~230 floats a row (~3.3 MB, mostly the gathered
+// plane rows), writes 46 and sums the per-bucket 40x40 statistics
+// s40 = sum w X X^T; it is one launch: a block a bucket that gathers its
+// own rows, so the sums read only them (see below).
 
 #include "lk_common.cuh"
 
@@ -45,92 +47,81 @@ __device__ __forceinline__ void sandwich(const float m[9], const float c[9], flo
       out[3 * i + j] = t[3 * i + 0] * m[3 * j + 0] + t[3 * i + 1] * m[3 * j + 1] + t[3 * i + 2] * m[3 * j + 2];
 }
 
-__global__ void keys_kernel(const float* __restrict__ par, const float* __restrict__ pts,
-                            const float* __restrict__ rb, const float* __restrict__ pb,
-                            float* __restrict__ piw, float* __restrict__ covs, int* __restrict__ keys,
-                            float* __restrict__ vc, int* __restrict__ idx0, int C, int levels,
-                            int capacity) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  const float px = pts[0 * C + c], py = pts[1 * C + c], pz = pts[2 * C + c];
-  const float* e = par + P_EXT_R;
-  const float* et = par + P_EXT_T;
+// ------------------------------------------------------------------ keys --
+//
+// A block of four warps owns a tile of 32 consecutive rows, lane = row, so
+// every store of a component is one 128 B line and C = 3584 rows make 112
+// blocks.  Each warp takes one role for the tile (warp-uniform, no
+// divergence): warp 0 p_i, p_w and the own chain's keys, centres and probe
+// starts; warp 1 the neighbour chain's (it recomputes p_w with the same
+// un-fused expressions, so the same bits); warp 2 the LiDAR-frame sensor
+// covariance bc and its world sandwich w1; warp 3 the rotation sandwich w2,
+// then, behind the one block barrier, w1 + w2 + C_pp in that order.  par,
+// sin(beam) and each level's 1 / size are staged once a block in shared
+// memory (an IEEE division and sinf give the same bits once or per row).
+// The last tile of a ragged C computes row C - 1 for its dead lanes and
+// stores nothing for them.
+constexpr int kKeysRows = 32;
+constexpr int kKeysThreads = 4 * kKeysRows;
 
-  // p_i = ext_r p + ext_t ; p_w = R_b p_i + t_b   (un-fused: they decide the keys)
-  const float pix = LK_ADD(LK_ADD(LK_ADD(LK_MUL(e[0], px), LK_MUL(e[1], py)), LK_MUL(e[2], pz)), et[0]);
-  const float piy = LK_ADD(LK_ADD(LK_ADD(LK_MUL(e[3], px), LK_MUL(e[4], py)), LK_MUL(e[5], pz)), et[1]);
-  const float piz = LK_ADD(LK_ADD(LK_ADD(LK_MUL(e[6], px), LK_MUL(e[7], py)), LK_MUL(e[8], pz)), et[2]);
+__device__ __forceinline__ void p_lidar_to_imu(const float* e, const float* et, float px, float py, float pz,
+                                               float pi[3]) {
+  pi[0] = LK_ADD(LK_ADD(LK_ADD(LK_MUL(e[0], px), LK_MUL(e[1], py)), LK_MUL(e[2], pz)), et[0]);
+  pi[1] = LK_ADD(LK_ADD(LK_ADD(LK_MUL(e[3], px), LK_MUL(e[4], py)), LK_MUL(e[5], pz)), et[1]);
+  pi[2] = LK_ADD(LK_ADD(LK_ADD(LK_MUL(e[6], px), LK_MUL(e[7], py)), LK_MUL(e[8], pz)), et[2]);
+}
+
+__global__ void __launch_bounds__(kKeysThreads)
+keys_kernel(const float* __restrict__ par, const float* __restrict__ pts, const float* __restrict__ rb,
+            const float* __restrict__ pb, float* __restrict__ piw, float* __restrict__ covs,
+            int* __restrict__ keys, float* __restrict__ vc, int* __restrict__ idx0, int C, int levels,
+            int capacity) {
+  __shared__ float sp[64];               // par
+  __shared__ float tangent_var;          // sin(beam)^2
+  __shared__ float inv_sizes[4];         // 1 / size of each level
+  __shared__ float w1s[9][kKeysRows];    // warp 2's sandwich, for warp 3's sum
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kKeysRows + lane;
+  const bool live = row < C;
+  const int c = live ? row : C - 1;
+
+  // The row's inputs are loaded ahead of the barrier.
+  const float px = pts[0 * C + c], py = pts[1 * C + c], pz = pts[2 * C + c];
   float r[9], tb[3];
 #pragma unroll
   for (int i = 0; i < 9; ++i) r[i] = rb[i * C + c];
 #pragma unroll
-  for (int i = 0; i < 3; ++i) tb[i] = pb[i * C + c];
-  float pw[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-    pw[i] = LK_ADD(LK_ADD(LK_ADD(LK_MUL(r[3 * i], pix), LK_MUL(r[3 * i + 1], piy)), LK_MUL(r[3 * i + 2], piz)), tb[i]);
-  piw[0 * C + c] = pix;
-  piw[1 * C + c] = piy;
-  piw[2 * C + c] = piz;
-  piw[3 * C + c] = pw[0];
-  piw[4 * C + c] = pw[1];
-  piw[5 * C + c] = pw[2];
-
-  // Sensor covariance in the LiDAR frame (calcBodyCov, voxel_map.cc:22-40).
-  const float zsafe = fabsf(pz) < 1e-8f ? 1e-4f : pz;
-  const float rng = sqrtf(px * px + py * py + zsafe * zsafe);
-  const float inv_rng = 1.0f / fmaxf(rng, 1e-12f);
-  const float dx = px * inv_rng, dy = py * inv_rng, dz = zsafe * inv_rng;
-  const float dept = par[P_DEPT];
-  const float range_var = dept * dept;
-  const float tsd = sinf(par[P_BEAM] * kDeg2Rad);
-  const float tangent_var = tsd * tsd;
-  float b1z = -(dx + dy) / (fabsf(dz) < 1e-12f ? 1e-12f : dz);
-  const float n1 = 1.0f / sqrtf(1.0f + 1.0f + b1z * b1z);
-  const float b1x = n1, b1y = n1;
-  b1z = b1z * n1;
-  const float c2x = b1y * dz - b1z * dy, c2y = b1z * dx - b1x * dz, c2z = b1x * dy - b1y * dx;
-  const float n2 = 1.0f / sqrtf(fmaxf(c2x * c2x + c2y * c2y + c2z * c2z, 1e-24f));
-  const float b2x = c2x * n2, b2y = c2y * n2, b2z = c2z * n2;
-  const float a[3][2] = {
-      {rng * (-dz * b1y + dy * b1z), rng * (-dz * b2y + dy * b2z)},
-      {rng * (dz * b1x - dx * b1z), rng * (dz * b2x - dx * b2z)},
-      {rng * (-dy * b1x + dx * b1y), rng * (-dy * b2x + dx * b2y)},
-  };
-  const float d3[3] = {dx, dy, dz};
-  float bc[9];
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j)
-      bc[3 * i + j] = range_var * d3[i] * d3[j] + tangent_var * (a[i][0] * a[j][0] + a[i][1] * a[j][1]);
-
-  // World covariance: (R_b E) bc (R_b E)^T + (R_b [p_i]x) C_rr (.)^T + C_pp.
-  float re[9], rc[9];
-  const float sk[9] = {0.f, -piz, piy, piz, 0.f, -pix, -piy, pix, 0.f};
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      re[3 * i + j] = r[3 * i + 0] * e[0 + j] + r[3 * i + 1] * e[3 + j] + r[3 * i + 2] * e[6 + j];
-      rc[3 * i + j] = r[3 * i + 0] * sk[0 + j] + r[3 * i + 1] * sk[3 + j] + r[3 * i + 2] * sk[6 + j];
-    }
-  float w1[9], w2[9];
-  sandwich(re, bc, w1);
-  sandwich(rc, par + P_COV_RR, w2);
-#pragma unroll
-  for (int k = 0; k < 9; ++k) {
-    covs[k * C + c] = w1[k] + w2[k] + par[P_COV_PP + k];
-    covs[(9 + k) * C + c] = w1[k];
-    covs[(18 + k) * C + c] = bc[k];
+  for (int i = 0; i < 3; ++i) tb[i] = warp < 2 ? pb[i * C + c] : 0.f;
+  if (threadIdx.x < 64) sp[threadIdx.x] = par[threadIdx.x];
+  if (threadIdx.x == 64) {
+    const float tsd = sinf(par[P_BEAM] * kDeg2Rad);
+    tangent_var = tsd * tsd;
   }
+  if (threadIdx.x >= 96 && threadIdx.x < 96 + levels) inv_sizes[threadIdx.x - 96] = 1.0f / par[P_SIZES + threadIdx.x - 96];
+  __syncthreads();
+  const float* e = sp + P_EXT_R;
 
-  // Own (chain 0) and neighbour (chain 1) keys, centres and probe starts.
-  for (int chain = 0; chain < 2; ++chain) {
+  float w2[9];
+  if (warp < 2) {
+    // p_i = ext_r p + ext_t ; p_w = R_b p_i + t_b   (un-fused: they decide the keys)
+    float pi[3], pw[3];
+    p_lidar_to_imu(e, sp + P_EXT_T, px, py, pz, pi);
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      pw[i] = LK_ADD(LK_ADD(LK_ADD(LK_MUL(r[3 * i], pi[0]), LK_MUL(r[3 * i + 1], pi[1])), LK_MUL(r[3 * i + 2], pi[2])), tb[i]);
+    if (warp == 0 && live) {
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        piw[i * C + c] = pi[i];
+        piw[(3 + i) * C + c] = pw[i];
+      }
+    }
+    // Own (chain 0, warp 0) or neighbour (chain 1, warp 1) keys, centres and probe starts.
+    const int chain = warp;
     for (int lvl = 0; lvl < levels; ++lvl) {
       const int m = chain * levels + lvl;
-      const float size = par[P_SIZES + lvl];
-      const float inv_size = 1.0f / size;
+      const float size = sp[P_SIZES + lvl];
+      const float inv_size = inv_sizes[lvl];
       float ks[3];
 #pragma unroll
       for (int i = 0; i < 3; ++i) {
@@ -146,12 +137,74 @@ __global__ void keys_kernel(const float* __restrict__ par, const float* __restri
 #pragma unroll
       for (int i = 0; i < 3; ++i) {
         const int ki = static_cast<int>(ks[i]);
-        keys[(3 * m + i) * C + c] = ki;
-        vc[(3 * m + i) * C + c] = LK_MUL(LK_ADD(ks[i], 0.5f), size);
+        if (live) {
+          keys[(3 * m + i) * C + c] = ki;
+          vc[(3 * m + i) * C + c] = LK_MUL(LK_ADD(ks[i], 0.5f), size);
+        }
         h ^= static_cast<uint32_t>(ki) * prime[i];
       }
-      idx0[m * C + c] = static_cast<int>(h & static_cast<uint32_t>(capacity - 1)) + lvl * capacity;
+      if (live) idx0[m * C + c] = static_cast<int>(h & static_cast<uint32_t>(capacity - 1)) + lvl * capacity;
     }
+  } else if (warp == 2) {
+    // Sensor covariance in the LiDAR frame (calcBodyCov, voxel_map.cc:22-40).
+    const float zsafe = fabsf(pz) < 1e-8f ? 1e-4f : pz;
+    const float rng = sqrtf(px * px + py * py + zsafe * zsafe);
+    const float inv_rng = 1.0f / fmaxf(rng, 1e-12f);
+    const float dx = px * inv_rng, dy = py * inv_rng, dz = zsafe * inv_rng;
+    const float dept = sp[P_DEPT];
+    const float range_var = dept * dept;
+    float b1z = -(dx + dy) / (fabsf(dz) < 1e-12f ? 1e-12f : dz);
+    const float n1 = 1.0f / sqrtf(1.0f + 1.0f + b1z * b1z);
+    const float b1x = n1, b1y = n1;
+    b1z = b1z * n1;
+    const float c2x = b1y * dz - b1z * dy, c2y = b1z * dx - b1x * dz, c2z = b1x * dy - b1y * dx;
+    const float n2 = 1.0f / sqrtf(fmaxf(c2x * c2x + c2y * c2y + c2z * c2z, 1e-24f));
+    const float b2x = c2x * n2, b2y = c2y * n2, b2z = c2z * n2;
+    const float a[3][2] = {
+        {rng * (-dz * b1y + dy * b1z), rng * (-dz * b2y + dy * b2z)},
+        {rng * (dz * b1x - dx * b1z), rng * (dz * b2x - dx * b2z)},
+        {rng * (-dy * b1x + dx * b1y), rng * (-dy * b2x + dx * b2y)},
+    };
+    const float d3[3] = {dx, dy, dz};
+    float bc[9];
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        bc[3 * i + j] = range_var * d3[i] * d3[j] + tangent_var * (a[i][0] * a[j][0] + a[i][1] * a[j][1]);
+    // (R_b E) bc (R_b E)^T
+    float re[9], w1[9];
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        re[3 * i + j] = r[3 * i + 0] * e[0 + j] + r[3 * i + 1] * e[3 + j] + r[3 * i + 2] * e[6 + j];
+    sandwich(re, bc, w1);
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+      w1s[k][lane] = w1[k];
+      if (live) {
+        covs[(9 + k) * C + c] = w1[k];
+        covs[(18 + k) * C + c] = bc[k];
+      }
+    }
+  } else {
+    // (R_b [p_i]x) C_rr (R_b [p_i]x)^T
+    float pi[3];
+    p_lidar_to_imu(e, sp + P_EXT_T, px, py, pz, pi);
+    const float sk[9] = {0.f, -pi[2], pi[1], pi[2], 0.f, -pi[0], -pi[1], pi[0], 0.f};
+    float rc[9];
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        rc[3 * i + j] = r[3 * i + 0] * sk[0 + j] + r[3 * i + 1] * sk[3 + j] + r[3 * i + 2] * sk[6 + j];
+    sandwich(rc, sp + P_COV_RR, w2);
+  }
+  __syncthreads();
+  if (warp == 3 && live) {
+#pragma unroll
+    for (int k = 0; k < 9; ++k) covs[k * C + c] = w1s[k][lane] + w2[k] + sp[P_COV_PP + k];
   }
 }
 
@@ -571,8 +624,8 @@ select_kernel(SelectArgs a, const float* __restrict__ bidx, float* __restrict__ 
 LK_API int keys_launch(const float* par, const float* pts, const float* rb, const float* pb,
                        float* piw, float* covs, int* keys, float* vc, int* idx0, int C, int levels,
                        int capacity, void* stream) {
-  const int threads = 128;
-  keys_kernel<<<lk_blocks(C, threads), threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (C <= 0) return 0;
+  keys_kernel<<<lk_blocks(C, kKeysRows), kKeysThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       par, pts, rb, pb, piw, covs, keys, vc, idx0, C, levels, capacity);
   return static_cast<int>(cudaGetLastError());
 }

@@ -21,14 +21,19 @@
 // Every cumulative structure is an inclusive Hillis-Steele doubling scan
 // through shared memory: a slot reads its neighbour n to the left (or the
 // identity past the start), then all write back; the matrix combine keeps
-// the order shifted @ current.  A slot's arithmetic does not depend on SPT.  The doubling order and lk::F (no FMA contraction) are
-// those of ops/pose_prop.pose_plain, so kernel and plain version round the
-// sums and products alike.  Masked and padded slots (gate 0) have dt = 0
-// and are exact no-ops.
+// the order shifted @ current.  A slot's arithmetic does not depend on SPT.
+// The doubling order and lk::F (no FMA contraction) are those of
+// ops/pose_prop.pose_plain, so kernel and plain version round the sums and
+// products alike.  The latch and the clock's cummax, a select and a max,
+// give the same bits in any order, so they share one 8-word scan.  Masked
+// and padded slots (gate 0) have dt = 0 and are exact no-ops.
 //
 // Bound on the H100: 10.9 KB in and out at MP = 128 and ~0.5 k flops a slot;
-// one block of MP / SPT threads and ~5 log2(MP) barrier pairs: launch and
-// barrier latency, not bandwidth or arithmetic, set its time.
+// one block of MP / SPT threads and ~4 log2(MP) barrier pairs: launch and
+// barrier latency, not bandwidth or arithmetic, set its time.  One warp
+// holding the timeline in registers (shuffles, no barrier) was slower at
+// MP = 128: it issues every slot's work on one of the SM's four schedulers
+// (PERF.md section 6).
 
 #include "lk_common.cuh"
 #include "lk_exact.cuh"
@@ -77,10 +82,11 @@ pose_kernel(const float* __restrict__ par, const float* __restrict__ in,
 
   F t[SPT], dt[SPT];
   bool gate[SPT];
-  // Latch scan state: has-event flag, then the six post-update rates.
-  F lat[SPT][7], lsh[SPT][7], zero7[7];
-#pragma unroll
-  for (int k = 0; k < 7; ++k) zero7[k] = F(0.f);
+  // One scan for the latch (has-event flag, then the six post-update rates)
+  // and the last-predict clock (the valid slots' times, word 7).
+  const F lp = s(kLp);
+  F lat[SPT][8], lsh[SPT][8];
+  const F fill[8] = {F(0.f), F(0.f), F(0.f), F(0.f), F(0.f), F(0.f), F(0.f), F(kNeg)};
 #pragma unroll
   for (int j = 0; j < SPT; ++j) {
     const int i = slot<SPT>(j);
@@ -92,18 +98,25 @@ pose_kernel(const float* __restrict__ par, const float* __restrict__ in,
       lat[j][1 + k] = F(in[(3 + k) * mp + i]) - s(kBw + k);
       lat[j][4 + k] = s(kGsc) * F(in[(6 + k) * mp + i]) - s(kBa + k);
     }
+    lat[j][7] = sel(gate[j], t[j], F(kNeg));
   }
   for (int n = 1; n < mp; n *= 2) {
-    shift<7, SPT>(lat, n, zero7, lsh, buf, mp);
+    shift<8, SPT>(lat, n, fill, lsh, buf, mp);
 #pragma unroll
     for (int j = 0; j < SPT; ++j) {
       const bool has = lat[j][0] > F(0.5f);
 #pragma unroll
       for (int k = 1; k < 7; ++k) lat[j][k] = sel(has, lat[j][k], lsh[j][k]);
       lat[j][0] = lk::fmax(lat[j][0], lsh[j][0]);
+      lat[j][7] = lk::fmax(lat[j][7], lsh[j][7]);
     }
   }
-  shift<7, SPT>(lat, 1, zero7, lsh, buf, mp);
+  // Each slot reads the slot before it: the latch, and t_end = max(clock, lp)
+  // with lp before the first slot.
+  const F fill1[8] = {F(0.f), F(0.f), F(0.f), F(0.f), F(0.f), F(0.f), F(0.f), lp};
+#pragma unroll
+  for (int j = 0; j < SPT; ++j) lat[j][7] = lk::fmax(lat[j][7], lp);
+  shift<8, SPT>(lat, 1, fill1, lsh, buf, mp);
   F w_seg[SPT][3], a_seg[SPT][3];
 #pragma unroll
   for (int j = 0; j < SPT; ++j) {
@@ -113,25 +126,8 @@ pose_kernel(const float* __restrict__ par, const float* __restrict__ in,
       w_seg[j][k] = sel(has_p, lsh[j][1 + k], s(kImuW + k));
       a_seg[j][k] = sel(has_p, lsh[j][4 + k], s(kImuA + k));
     }
+    dt[j] = sel(gate[j], t[j] - lsh[j][7], F(0.f));
   }
-
-  // ---- per-segment dt from the last-predict clock ----
-  const F lp = s(kLp);
-  F tv[SPT][1], tsh[SPT][1];
-  const F neg1[1] = {F(kNeg)};
-  const F lp1[1] = {lp};
-#pragma unroll
-  for (int j = 0; j < SPT; ++j) tv[j][0] = sel(gate[j], t[j], F(kNeg));
-  for (int n = 1; n < mp; n *= 2) {
-    shift<1, SPT>(tv, n, neg1, tsh, buf, mp);
-#pragma unroll
-    for (int j = 0; j < SPT; ++j) tv[j][0] = lk::fmax(tv[j][0], tsh[j][0]);
-  }
-#pragma unroll
-  for (int j = 0; j < SPT; ++j) tv[j][0] = lk::fmax(tv[j][0], lp);  // t_end
-  shift<1, SPT>(tv, 1, lp1, tsh, buf, mp);
-#pragma unroll
-  for (int j = 0; j < SPT; ++j) dt[j] = sel(gate[j], t[j] - tsh[j][0], F(0.f));
 
   // ---- d_r = exp(w_seg dt): Rodrigues with the Taylor branch ----
   const F eye[9] = {F(1.f), F(0.f), F(0.f), F(0.f), F(1.f), F(0.f), F(0.f), F(0.f), F(1.f)};
@@ -143,8 +139,10 @@ pose_kernel(const float* __restrict__ par, const float* __restrict__ in,
     const F th = lk::fsqrt(th2);
     const bool small = th < F(kSmallAngle);
     const F safe = sel(small, F(1.f), th);
-    const F a_c = sel(small, F(1.f) - th2 * F((float)(1.0 / 6.0)), lk::fsin(safe) / safe);
-    const F b_c = sel(small, F(0.5f) - th2 * F((float)(1.0 / 24.0)), (F(1.f) - lk::fcos(safe)) / (safe * safe));
+    F sn, cn;
+    lk::fsincos(safe, sn, cn);
+    const F a_c = sel(small, F(1.f) - th2 * F((float)(1.0 / 6.0)), sn / safe);
+    const F b_c = sel(small, F(0.5f) - th2 * F((float)(1.0 / 24.0)), (F(1.f) - cn) / (safe * safe));
     const F kk[9] = {-(wy * wy + wz * wz), wx * wy, wx * wz,
                      wx * wy, -(wx * wx + wz * wz), wy * wz,
                      wx * wz, wy * wz, -(wx * wx + wy * wy)};

@@ -19,11 +19,12 @@ the same row contracts, in the transposed [component, row] layout:
     -> out [46,C] (matched, w, r, matched, 0, 0, X(40)), s40 [NB*40,40],
     nm [NB,128] (every column is the bucket's match count).
 
-On a CUDA tensor each wrapper launches ``csrc/match_geom.cu`` (select as one
-launch: a block a bucket, which gathers its own rows, selects their planes
-and sums their statistics, and blocks for the rows in no bucket); on a CPU
-tensor it runs the plain version, which repeats the kernel's arithmetic in
-the same order.
+On a CUDA tensor each wrapper launches ``csrc/match_geom.cu`` (keys as a
+block of four warps a tile of 32 rows, each warp one part of every row's
+work; select as one launch: a block a bucket, which gathers its own rows,
+selects their planes and sums their statistics, and blocks for the rows in
+no bucket); on a CPU tensor it runs the plain version, which repeats the
+kernel's arithmetic in the same order.
 """
 
 from __future__ import annotations

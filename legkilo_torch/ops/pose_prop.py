@@ -56,32 +56,37 @@ def _steps(mp):
         n *= 2
 
 
+def _latch_clock(s, rows):
+    """w_seg, a_seg (the rates of the last valid event strictly before each
+    slot, else the carried imu rates) and dt (t less the previous valid time
+    or the last predict, 0 where masked), by one doubling scan of 8 words:
+    the latch (has-event flag, six rates) and the clock's cummax (word 7),
+    a select and a max, so their bits do not depend on the order."""
+    t = rows[0]
+    gate = rows[1] > 0.5
+    lat = [rows[2]] + [rows[3 + i] - s[P_BW + i] for i in range(3)]
+    lat += [s[P_GSC] * rows[6 + i] - s[P_BA + i] for i in range(3)]
+    lat.append(torch.where(gate, t, torch.full_like(t, _NEG)))
+    fill = [0.0] * 7 + [_NEG]
+    for n in _steps(rows.shape[1]):
+        sh = [_shift(x, n, f) for x, f in zip(lat, fill)]
+        has = lat[0] > 0.5
+        lat = ([torch.maximum(lat[0], sh[0])] + [torch.where(has, lat[k], sh[k]) for k in range(1, 7)]
+               + [torch.maximum(lat[7], sh[7])])
+    lp = s[P_LP]
+    lat[7] = torch.maximum(lat[7], lp)  # t_end; each slot reads the slot before it, lp before the first
+    lsh = [_shift(x, 1, f) for x, f in zip(lat, [0.0] * 7 + [lp])]
+    has_p = lsh[0] > 0.5
+    w_seg = [torch.where(has_p, lsh[1 + i], s[P_IMU_W + i]) for i in range(3)]
+    a_seg = [torch.where(has_p, lsh[4 + i], s[P_IMU_A + i]) for i in range(3)]
+    return w_seg, a_seg, torch.where(gate, t - lsh[7], torch.zeros_like(t))
+
+
 def pose_plain(par, rows):
     """Plain PyTorch version of the pose kernel (same contract)."""
     s = par.reshape(-1)
     mp = rows.shape[1]
-    t = rows[0]
-    gate = rows[1] > 0.5
-    has = rows[2]
-    val = [rows[3 + i] - s[P_BW + i] for i in range(3)]
-    val += [s[P_GSC] * rows[6 + i] - s[P_BA + i] for i in range(3)]
-
-    # Latch: the rates of the last valid event strictly before each slot.
-    for n in _steps(mp):
-        has_sh = _shift(has, n, 0.0)
-        val = [torch.where(has > 0.5, v, _shift(v, n, 0.0)) for v in val]
-        has = torch.maximum(has, has_sh)
-    has_p = _shift(has, 1, 0.0) > 0.5
-    w_seg = [torch.where(has_p, _shift(val[i], 1, 0.0), s[P_IMU_W + i]) for i in range(3)]
-    a_seg = [torch.where(has_p, _shift(val[3 + i], 1, 0.0), s[P_IMU_A + i]) for i in range(3)]
-
-    # dt replicates the chain's last-predict clock; masked slots are no-ops.
-    lp = s[P_LP]
-    tv = torch.where(gate, t, torch.full_like(t, _NEG))
-    for n in _steps(mp):
-        tv = torch.maximum(tv, _shift(tv, n, _NEG))
-    t_end = torch.maximum(tv, lp)
-    dt = torch.where(gate, t - _shift(t_end, 1, lp), torch.zeros_like(t))
+    w_seg, a_seg, dt = _latch_clock(s, rows)
 
     # d_r = exp_so3(w_seg dt): Rodrigues with the Taylor branch.
     wx, wy, wz = w_seg[0] * dt, w_seg[1] * dt, w_seg[2] * dt

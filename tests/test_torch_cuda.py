@@ -21,6 +21,34 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _profiled_kernels(fn, fragment, launched, windows=3):
+    """(names, n): the device kernels whose name holds ``fragment`` that
+    ``fn`` ran under one torch.profiler window, in launch order, and ``n``,
+    the launches the wrappers' counters (``launched()``) rose by in it.
+
+    The profiler on the H100 sometimes drops device events: in probes of
+    one or two launches a window, one window in 1,360 lost both its
+    kernels, and one run of these tests lost the first kernel of three
+    windows, where three more runs with the same windows lost none; the
+    cause is not known.  A window whose trace holds fewer kernels than the
+    counters say were launched is such a loss, so it is taken again, up
+    to ``windows`` windows; a trace with as many kernels or more is
+    returned as it is, for the caller to check."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(windows):
+        n0 = launched()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = launched() - n0
+        names = [name for _, name in sorted((e.time_range.start, e.name) for e in prof.events()
+                                            if "CUDA" in str(e.device_type) and fragment in e.name)]
+        if len(names) >= n:
+            break
+    return names, n
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card(cuda_device):
     import chip_smoke
@@ -91,7 +119,78 @@ def test_pose_kernel_at_256_slots_on_card(cuda_device):
 
     pargs = cs.pose_inputs(torch, cuda_device, np.random.default_rng(3), 28, 5)
     assert pargs[1].shape[1] == 256
-    assert torch.allclose(pp.pose_call(*pargs), pp.pose_plain(*pargs), rtol=1e-5, atol=1e-6)
+    assert torch.equal(pp.pose_call(*pargs), pp.pose_plain(*pargs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,k", [(28, 1), (28, 12)], ids=["mp128", "mp384"])
+def test_pose_kernel_each_shape_on_card(cuda_device, nb, k):
+    """The main path's MP 128 and MP 384 (12 events a bucket): one launch a
+    call, two launches bit-equal to each other and to ``pose_plain``."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from legkilo_torch.ops import pose_prop as pp
+
+    pargs = cs.pose_inputs(torch, cuda_device, np.random.default_rng(nb + k), nb, k)
+    n0 = pp.pose_call.launches
+    got = pp.pose_call(*pargs)
+    again = pp.pose_call(*pargs)
+    torch.cuda.synchronize()
+    assert pp.pose_call.launches == n0 + 2
+    assert torch.equal(got, again) and torch.equal(got, pp.pose_plain(*pargs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels", [1, 3, 4])
+@pytest.mark.parametrize("c", [128, 300, 3584, 4096])
+def test_keys_kernel_on_card(cuda_device, c, levels):
+    """The 32-row tile kernel at the main path's C = 3584, a ragged C = 300
+    (12 live lanes in the last tile), C = 128 (four tiles) and C = 4096
+    (past the path's cap), at 1 to 4 levels: keys, centres and probe
+    starts ``torch.equal`` to ``keys_plain``, p_i/p_w rel 1e-6 and
+    covariances rel 1e-5 (chip_smoke's tolerances), two launches bit-equal."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from legkilo_torch.ops import match_geom as mg
+
+    kargs = cs.keys_inputs(torch, cuda_device, np.random.default_rng(c + levels), c=c, levels=levels)
+    n0 = mg.keys_call.launches
+    got = mg.keys_call(*kargs, levels, 1 << 14)
+    again = mg.keys_call(*kargs, levels, 1 << 14)
+    torch.cuda.synchronize()
+    assert mg.keys_call.launches == n0 + 2
+    ref = mg.keys_plain(*kargs, levels, 1 << 14)
+    assert [tuple(x.shape) for x in got] == [tuple(x.shape) for x in ref]
+    for i in (2, 3, 4):
+        assert torch.equal(got[i], ref[i]), i
+    assert cs.rel_err(got[0], ref[0]) <= 1e-6 and cs.rel_err(got[1], ref[1]) <= 1e-5
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_keys_wrapper_refuses_bad_input_on_card(cuda_device):
+    """keys_call refuses a wrong row count, a short par, a level count past
+    4, a float64 or a non-contiguous input, each before any launch."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from legkilo_torch.ops import match_geom as mg
+
+    par, pts, rb, pb = cs.keys_inputs(torch, cuda_device, np.random.default_rng(2), c=300, levels=3)
+    n0 = mg.keys_call.launches
+    with pytest.raises(ValueError, match="expected"):
+        mg.keys_call(par, pts, rb[:, :299].contiguous(), pb, 3, 1 << 14)
+    with pytest.raises(ValueError, match="64 floats"):
+        mg.keys_call(par[:32], pts, rb, pb, 3, 1 << 14)
+    with pytest.raises(ValueError, match="levels"):
+        mg.keys_call(par, pts, rb, pb, 5, 1 << 14)
+    with pytest.raises(ValueError, match="dtype"):
+        mg.keys_call(par, pts.double(), rb, pb, 3, 1 << 14)
+    with pytest.raises(ValueError, match="contiguous"):
+        mg.keys_call(par, pts, rb, pb.T.contiguous().T, 3, 1 << 14)
+    assert mg.keys_call.launches == n0
 
 
 @pytest.mark.cuda
@@ -259,7 +358,6 @@ def test_chain_points_routes_by_use_kin_on_card(cuda_device):
     kernels on the card, in launch order, are exactly
     chain_points_warp_kernel<false> and chain_points_warp_kernel<true>."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke as cs
     from legkilo_torch.ops import chain_points as cp
@@ -269,14 +367,9 @@ def test_chain_points_routes_by_use_kin_on_card(cuda_device):
     for use_kin, args in calls:
         cp.chain_points_call(*args, use_kin=use_kin)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for use_kin, args in calls:
-            cp.chain_points_call(*args, use_kin=use_kin)
-        torch.cuda.synchronize()
-    kernels = sorted((e.time_range.start, e.name) for e in prof.events()
-                     if "CUDA" in str(e.device_type) and "chain_points" in e.name)
-    names = [n for _, n in kernels]
-    assert len(names) == 2, names
+    names, n = _profiled_kernels(lambda: [cp.chain_points_call(*a, use_kin=u) for u, a in calls],
+                                 "chain_points", lambda: cp.chain_points_call.launches)
+    assert n == 2 and len(names) == 2, names
     assert "chain_points_warp_kernel<false>" in names[0] and "chain_points_warp_kernel<true>" in names[1], names
 
 
@@ -338,7 +431,6 @@ def test_chain_call_routes_by_use_kin_on_card(cuda_device):
     launch of each branch, the chain kernels on the card, in launch order,
     are exactly those two."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke as cs
     from legkilo_torch.ops import chain_stats
@@ -348,14 +440,9 @@ def test_chain_call_routes_by_use_kin_on_card(cuda_device):
     for use_kin, args in calls:
         chain_stats.chain_call(*args, use_kin=use_kin)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for use_kin, args in calls:
-            chain_stats.chain_call(*args, use_kin=use_kin)
-        torch.cuda.synchronize()
-    kernels = sorted((e.time_range.start, e.name) for e in prof.events()
-                     if "CUDA" in str(e.device_type) and "chain" in e.name)
-    names = [n for _, n in kernels]
-    assert len(names) == 2, names
+    names, n = _profiled_kernels(lambda: [chain_stats.chain_call(*a, use_kin=u) for u, a in calls],
+                                 "chain", lambda: chain_stats.chain_call.launches)
+    assert n == 2 and len(names) == 2, names
     assert "chain_warp_kernel<false>" in names[0] and "chain_warp_kernel<true>" in names[1], names
 
 
@@ -408,16 +495,11 @@ def test_select_kernel_on_card(cuda_device, case):
 def test_select_one_kernel_a_call_on_card(cuda_device):
     """select_call is one launch: under torch.profiler, two calls run
     exactly two kernels on the card, both the select kernel."""
-    from torch.profiler import ProfilerActivity, profile
-
     from legkilo_torch.ops import match_geom
 
     sargs, levels, nb = _select_case("c3584_nb28_l3", cuda_device)
     match_geom.select_call(*sargs, levels, nb)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(2):
-            match_geom.select_call(*sargs, levels, nb)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if "CUDA" in str(e.device_type)]
-    assert len(names) == 2 and all("select_kernel" in n for n in names), names
+    names, n = _profiled_kernels(lambda: [match_geom.select_call(*sargs, levels, nb) for _ in range(2)],
+                                 "", lambda: match_geom.select_call.launches)
+    assert n == 2 and len(names) == 2 and all("select_kernel" in name for name in names), names
