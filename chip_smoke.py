@@ -21,9 +21,15 @@ Phases, each printing its own lines:
    spills (must be 0) and shared memory are printed; so does the per-point
    chain (one warp too, both branches, with its empty and its gated-off
    bucket).
-   The refit rows are those of a short run's map plus zero padding, and the
-   slots on which kernel and plain version took different branches are
-   counted.  The select kernel (one launch a call) runs at NB = 28 and at
+   moments and fit read their rows by index, as the insert hands them
+   over: moments from the chain's per-bucket outputs and the keys
+   kernel's [component, point] rows (R = 4096 gated rows over 3,584
+   points, 200 of them in no bucket), fit from the sentinel-extended
+   tables of a short run's map (its refit rows, then the sentinel row up
+   to the budget); the slots on which fit and its plain version took
+   different branches are counted, both print their ptxas lines (no
+   spills allowed; fit's three moms storage instantiations) and two
+   launches of each must be bit-equal.  The select kernel (one launch a call) runs at NB = 28 and at
    the 2 ms bucket shape (NB = 56, "select_56"), each also with its rows'
    bucket indices shuffled and one bucket empty; two launches must be
    bit-equal, and its ptxas registers, spills (must be 0) and shared
@@ -414,33 +420,64 @@ def select_inputs(torch, dev, rng, keys_out, nb=28, levels=3):
     return [par, piw, covs[0:18].contiguous(), vc, f(plane.reshape(nc * 31, c)), f(flags), f(mask), f(bidx)]
 
 
-def moments_inputs(torch, dev, rng, r=4096):
+def moments_inputs(torch, dev, rng, r=4096, nb=28, n=3584, levels=3):
+    """moments_rows_call's inputs as the insert phase hands them over: the
+    chain's per-bucket outputs, the match phase's point rows in the keys
+    kernel's [component, point] layout (n points in bucket order, the last
+    200 in no bucket: bidx = nb), and R gated rows as gated_insert_rows
+    leaves them (every valid point at level 0, then the first ones again at
+    levels 1, 2, ...; lvl a column of an [R, 7] table; keys of the rows'
+    own voxels)."""
+    from legkilo_torch.ops import insert_rows as ir
+
     f = lambda x: torch.tensor(np.array(x, np.float32, order="C"), device=dev).contiguous()
-    par = np.zeros(16)
-    par[0:9] = rotations(rng, 1, 0.05)[0].reshape(9)
-    p_i = rng.uniform(-10, 10, size=(r, 3))
-    a = rng.normal(size=(r, 3, 3)) * 0.01
-    bc = a @ np.swapaxes(a, 1, 2)
-    rb = rotations(rng, r, 0.3).reshape(r, 9)
-    pb = rng.normal(scale=2.0, size=(r, 3))
-    b = rng.normal(size=(r, 3, 3)) * 1e-3
-    c = rng.normal(size=(r, 3, 3)) * 1e-3
-    brow = np.concatenate([rb, pb, (b @ np.swapaxes(b, 1, 2)).reshape(r, 9),
-                           (c @ np.swapaxes(c, 1, 2)).reshape(r, 9)], 1)
-    size = 0.5 / 2.0 ** rng.integers(0, 3, size=r)
-    pw = np.einsum("rij,rj->ri", rb.reshape(r, 3, 3), p_i) + pb
-    key = np.floor(pw / size[:, None])
-    prow = np.concatenate([p_i, bc.reshape(r, 9)], 1)
-    return f(par), f(prow.T), f(brow.T), f(key.T), f(size[None])
+    ext_r = rotations(rng, 1, 0.05)[0]
+    rots = rotations(rng, nb, 0.3)
+    poss = rng.normal(scale=2.0, size=(nb, 3))
+    covs = [rng.normal(size=(nb, 3, 3)) * 1e-3 for _ in range(2)]
+    rot_covs, pos_covs = (c @ np.swapaxes(c, 1, 2) for c in covs)
+    n_valid = n - 200
+    bidx = np.minimum(np.arange(n) * nb // n_valid, nb)
+    p_i = rng.uniform(-10, 10, size=(n, 3))
+    a = rng.normal(size=(n, 3, 3)) * 0.01
+    body_cov = a @ np.swapaxes(a, 1, 2)
+    lvl = np.minimum(np.arange(r) // n_valid, levels - 1)
+    pidx = np.arange(r) % n_valid
+    b = np.minimum(bidx, nb - 1)[pidx]
+    pw = np.einsum("rij,rj->ri", rots[b], p_i[pidx]) + poss[b]
+    sizes = ir.level_sizes(0.5, levels, dev)
+    keys = np.floor(pw / sizes.cpu().numpy()[lvl][:, None])
+    piw_t = f(np.concatenate([p_i.T, np.zeros((3, n))]))          # the keys kernel's [6, C]
+    covs_t = f(np.concatenate([np.zeros((18, n)), body_cov.reshape(n, 9).T]))   # its [27, C]
+    rows7 = torch.zeros((r, 7), dtype=torch.int64, device=dev)
+    rows7[:, 3] = torch.as_tensor(lvl, device=dev)
+    i64 = lambda x: torch.as_tensor(np.asarray(x, np.int64), device=dev)
+    return (f(ext_r), sizes, f(rots), f(poss), f(rot_covs), f(pos_covs), piw_t[0:3].T,
+            covs_t[18:27].T.reshape(n, 3, 3), i64(pidx), i64(bidx),
+            torch.as_tensor(keys.astype(np.int32), device=dev), rows7[:, 3])
+
+
+def moments_bytes(margs) -> int:
+    """What moments_rows_call must move for these inputs: each input once,
+    the point rows (p_i, its covariance, its bucket) of the points the rows
+    name, and the two outputs."""
+    pidx = margs[8]
+    u = int(pidx.unique().numel())
+    r, nb = pidx.shape[0], margs[2].shape[0]
+    return (4 * (9 + margs[1].numel() + 30 * nb) + u * (4 * 12 + 8)
+            + r * (8 + 12 + 8) + r * 69 * 4)
 
 
 def fit_inputs(torch, dev, budget=1024, n_scans=30):
-    """Refit rows as the insert forms them: the moment and meta rows of the
-    voxels a short five-kernel run left in its map with more points than the
-    refit threshold (at most 5/8 of the budget, about the share a
-    steady-state scan refits), then zero rows up to the budget, as the
-    unfilled refit slots are."""
+    """fit_slots_call's inputs as the insert hands them over: the
+    sentinel-extended tables of the map a short five-kernel run left, and
+    refit rows naming the voxels with more points than the refit threshold
+    (at most 5/8 of the budget, about the share a steady-state scan refits),
+    then the sentinel row up to the budget, as the unfilled refit slots
+    are."""
+    from legkilo_torch.core import voxel_map as vmap
     from legkilo_torch.models import sim
+    from legkilo_torch.ops import plane_fit_rows as pfr
     from legkilo_torch.runner import OdometryRunner, bench_config, replay
 
     data = sim.simulate(sim.SimConfig(duration=(n_scans + 1) * 0.1, scan_points=8000, seed=7))
@@ -449,13 +486,20 @@ def fit_inputs(torch, dev, budget=1024, n_scans=30):
         pass
     vm = runner.carry.vm
     idx = torch.nonzero(vm.meta[:, 0] > 5.0)[:, 0][: budget * 5 // 8]
-    mom = torch.zeros((budget, 69), dtype=torch.float32, device=dev)
-    meta = torch.zeros((budget, 4), dtype=torch.float32, device=dev)
-    mom[: len(idx)] = torch.cat([vm.mom[idx], vm.moms[idx].float()], dim=1)
-    meta[: len(idx)] = vm.meta[idx]
-    par = torch.zeros(8, dtype=torch.float32, device=dev)
-    par[0] = runner.scfg.map_cfg.planer_threshold
-    return (par, mom.T.contiguous(), meta.T.contiguous()), int(len(idx))
+    fs = torch.full((budget,), vm.meta.shape[0], dtype=torch.int64, device=dev)
+    fs[: len(idx)] = idx
+    tables = [vmap._with_sentinel(t) for t in (vm.meta, vm.mom, vm.moms)]
+    par = pfr.fit_par(runner.scfg.map_cfg.planer_threshold, dev)
+    return (par, *tables, fs), int(len(idx))
+
+
+def fit_bytes(fargs) -> int:
+    """What fit_slots_call must move: par, fs, the n, m1/m2 and moms row (in
+    the storage dtype) of each distinct row that fs names once, and the
+    [B, 35] output."""
+    fs = fargs[4]
+    b, u = fs.shape[0], int(fs.unique().numel())
+    return 32 + 8 * b + u * (4 + 36 + 60 * fargs[3].element_size()) + 35 * 4 * b
 
 
 FIT_FLOPS_PER_SLOT = 1600.0  # t 378, w 306, c 68, u 210, t_nn/t_nq 234, eigen ~320, rest ~80
@@ -688,55 +732,76 @@ def phase_kernels(torch, dev):
             f"{e_sh['flips']} flips, rows {e_sh['e_rows']:.2e} sums {e_sh['e_sum']:.2e} "
             f"s40-vs-plain {e_sh['e_s40']:.2e}; two launches bit-equal")
 
+    px = ptxas_entry("moments_kernel")
+    log(f"[kernel] moments: a warp a 32-row tile, rows read by index, {px['registers']} registers, "
+        f"{px['spills']} B of spills, {px['stack']} B stack frame, {px['smem']} B static shared memory")
+    if px["spills"]:
+        raise RuntimeError(f"moments: ptxas spills {px['spills']} B")
     margs = moments_inputs(torch, dev, rng)
-    got = ir.moments_call(*margs)
+    got = ir.moments_rows_call(*margs)
+    again = ir.moments_rows_call(*margs)
     torch.cuda.synchronize()
-    ref = ir.moments_plain(*margs)
-    e_mom = max(rel_err(got[i], ref[i]) for i in range(69))
+    ref = ir.moments_rows_plain(*margs)
+    got69, ref69 = torch.cat(got, dim=1), torch.cat(ref, dim=1)
+    e_mom = max(rel_err(got69[:, i], ref69[:, i]) for i in range(69))
     if not e_mom <= 1e-4:  # per moment row, rel to its magnitude (FMAs)
         raise RuntimeError(f"moments: rel err {e_mom:.3g}")
-    r = margs[1].shape[1]
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise RuntimeError("moments: two launches on the same inputs differ")
+    r, nb = margs[8].shape[0], margs[2].shape[0]
     recs["moments"] = dict(
-        max_abs_err=max_abs(got, ref),
-        ms=time_call(torch, lambda: ir.moments_call(*margs), 200),
-        plain_ms=time_call(torch, lambda: ir.moments_plain(*margs), 20),
-        bytes=nbytes(list(margs) + [got]), flops=380.0 * r,  # ~380 flops a row
-        tol="rel 1e-4 per moment row",
+        max_abs_err=max_abs(got69, ref69),
+        ms=time_call(torch, lambda: ir.moments_rows_call(*margs), 200),
+        plain_ms=time_call(torch, lambda: ir.moments_rows_plain(*margs), 20),
+        bytes=moments_bytes(margs), flops=380.0 * r,  # ~380 flops a row
+        tol="rel 1e-4 per moment row; repeat bit-equal",
     )
-    log(f"[kernel] moments: rel err {e_mom:.2e}")
+    log(f"[kernel] moments: R = {r}, NB = {nb}, rel err {e_mom:.2e}; two launches bit-equal")
 
+    for frag, tag in (("fit_slots_kernelIf", "f32"), ("fit_slots_kernelI6__half", "f16"),
+                      ("fit_slots_kernelI13__nv_bfloat16", "bf16")):
+        px = ptxas_entry(frag)
+        log(f"[kernel] fit ({tag} moms): an eigen warp and two contraction warps (eight lanes a slot) "
+            f"a block of eight slots, {px['registers']} registers, "
+            f"{px['spills']} B of spills, {px['stack']} B stack frame, {px['smem']} B static shared memory")
+        if px["spills"]:
+            raise RuntimeError(f"fit: ptxas spills {px['spills']} B in the {tag} instantiation")
     fargs, n_real = fit_inputs(torch, dev)
-    got = pfr.fit_rows_call(*fargs)
+    got = pfr.fit_slots_call(*fargs)
+    again = pfr.fit_slots_call(*fargs)
     torch.cuda.synchronize()
-    ref = pfr.fit_rows_plain(*fargs)
+    ref = pfr.fit_slots_plain(*fargs)
     if not bool(torch.isfinite(got).all()):
         raise RuntimeError("fit: non-finite output")
+    if not torch.equal(got, again):
+        raise RuntimeError("fit: two launches on the same inputs differ")
     # Kernel and plain version do the same un-fused arithmetic in the same
     # order; they can part only where sqrt, division or cos round apart.  A
     # slot counts as a branch flip when is_plane differs or the normal moved
     # by more than 1e-3 (another eigenvector candidate or fallback); at most
     # 2 of the 1024 may.  On the rest: centre, normal, evals, radius abs 1e-5,
     # plane_var 1e-4 of the row's largest entry.
-    flip = (got[34] != ref[34]) | ((got[3:6] - ref[3:6]).abs().max(dim=0).values > 1e-3)
+    gt, rt = got.T, ref.T
+    flip = (gt[34] != rt[34]) | ((gt[3:6] - rt[3:6]).abs().max(dim=0).values > 1e-3)
     n_flip = int(flip.sum())
     keep = ~flip
-    e_head = max_abs(got[0:10, keep], ref[0:10, keep])
-    pv_scale = ref[10:31, keep].abs().max(dim=0).values.clamp(min=1e-30)
-    e_pv = float(((got[10:31, keep] - ref[10:31, keep]).abs().max(dim=0).values / pv_scale).max())
-    if n_flip > 2 or not (e_head <= 1e-5 and e_pv <= 1e-4 and torch.equal(got[31:34], ref[31:34])):
+    e_head = max_abs(gt[0:10, keep], rt[0:10, keep])
+    pv_scale = rt[10:31, keep].abs().max(dim=0).values.clamp(min=1e-30)
+    e_pv = float(((gt[10:31, keep] - rt[10:31, keep]).abs().max(dim=0).values / pv_scale).max())
+    if n_flip > 2 or not (e_head <= 1e-5 and e_pv <= 1e-4 and torch.equal(gt[31:34], rt[31:34])):
         raise RuntimeError(f"fit: {n_flip} branch flips, head err {e_head:.3g}, plane_var rel {e_pv:.3g}")
-    b = fargs[1].shape[1]
+    b = fargs[4].shape[0]
     recs["fit"] = dict(
-        max_abs_err=max_abs(got[:, keep], ref[:, keep]),
-        ms=time_call(torch, lambda: pfr.fit_rows_call(*fargs), 200),
-        plain_ms=time_call(torch, lambda: pfr.fit_rows_plain(*fargs), 5),
-        bytes=nbytes(list(fargs) + [got]), flops=FIT_FLOPS_PER_SLOT * b,
+        max_abs_err=max_abs(gt[:, keep], rt[:, keep]),
+        ms=time_call(torch, lambda: pfr.fit_slots_call(*fargs), 200),
+        plain_ms=time_call(torch, lambda: pfr.fit_slots_plain(*fargs), 5),
+        bytes=fit_bytes(fargs), flops=FIT_FLOPS_PER_SLOT * b,
         tol="<= 2 branch flips in 1024 slots; abs 1e-5 centre/normal/evals/radius; "
-            "plane_var 1e-4 of the row's largest entry",
+            "plane_var 1e-4 of the row's largest entry; repeat bit-equal",
     )
-    log(f"[kernel] fit: {n_real} map rows + {b - n_real} zero rows, {int(ref[34].sum())} planes, "
+    log(f"[kernel] fit: {n_real} map rows + {b - n_real} sentinel rows, {int(rt[34].sum())} planes, "
         f"{n_flip} branch flips, head err {e_head:.2e}, plane_var rel {e_pv:.2e}, "
-        f"bit-equal {bool(torch.equal(got, ref))}")
+        f"bit-equal {bool(torch.equal(got, ref))}; two launches bit-equal")
 
     for spt in (1, 2):  # MP <= 1,024 (pose at 128, pose_384) and MP 1,025-2,048 (pose_1280)
         px = ptxas_entry(f"pose_kernelILi{spt}E")
@@ -778,7 +843,7 @@ def wrappers():
     from legkilo_torch.ops import match_geom as mg, plane_fit_rows as pfr, pose_prop as pp
 
     return {"chain_stats": cs.chain_call, "keys": mg.keys_call, "select": mg.select_call,
-            "moments": ir.moments_call, "fit": pfr.fit_rows_call, "pose": pp.pose_call,
+            "moments": ir.moments_rows_call, "fit": pfr.fit_slots_call, "pose": pp.pose_call,
             "chain_points": cp.chain_points_call}
 
 

@@ -432,24 +432,18 @@ def _process_scan_points(carry: FilterCarry, packet: ScanPacket, params: FilterP
 def insert_phase(vm, mcfg, params: FilterParams, bidx, p_i_c, body_cov_c, mask_c,
                  own_keys, own_slot, own_found, own_plane, rots, poss, rot_covs, pos_covs):
     """Insert on the moments kernel (the JAX ``insert_phase_pallas``):
-    gated rows, one gather of the packed per-bucket chain outputs and of the
-    per-point rows, the kernel's [69, R] moment rows, then the map update."""
-    nb = rots.shape[0]
-    dtype, dev = p_i_c.dtype, p_i_c.device
+    gated rows, the kernel's moment rows read by index from the chain's
+    per-bucket outputs and the match phase's per-point rows, then the map
+    update."""
     rows = gated_insert_rows(mcfg, mask_c, own_keys, own_slot, own_found, own_plane)
-    bidx_r = torch.clamp(bidx, max=nb - 1)[rows.pidx]
-    sizes = torch.tensor([mcfg.voxel_size / (2.0 ** l) for l in range(mcfg.levels)],
-                         dtype=dtype, device=dev)
-    par = torch.cat([params.ext_r.reshape(9), torch.zeros(ir.PAR_W - 9, dtype=dtype, device=dev)])
-    bucket_rows = torch.cat(
-        [rots.reshape(nb, 9), poss, rot_covs.reshape(nb, 9), pos_covs.reshape(nb, 9)], dim=1
+    # rows.pidx names points of p_i_c, rows.lvl levels of the map, and bidx
+    # (order // P) is never negative: the kernel reads them unchecked but
+    # for a trap.
+    mom_rows, moms_rows = ir.moments_rows_call(
+        params.ext_r, ir.level_sizes(mcfg.voxel_size, mcfg.levels, p_i_c.device),
+        rots, poss, rot_covs, pos_covs, p_i_c, body_cov_c, rows.pidx, bidx, rows.keys, rows.lvl,
     )
-    brow_t = bucket_rows[bidx_r].T.contiguous()
-    prow_t = torch.cat([p_i_c, body_cov_c.reshape(-1, 9)], dim=1)[rows.pidx].T.contiguous()
-    out69 = ir.moments_call(
-        par, prow_t, brow_t, rows.keys.T.to(dtype).contiguous(), sizes[rows.lvl][None, :]
-    )
-    return insert_packed_rows_hinted(vm, mcfg, rows, out69[0:9].T, out69[9:69].T)
+    return insert_packed_rows_hinted(vm, mcfg, rows, mom_rows, moms_rows)
 
 
 def _process_scan_fused(carry: FilterCarry, packet: ScanPacket, params: FilterParams,

@@ -49,7 +49,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..ops.match_geom import hash_keys
-from ..ops.plane_fit_rows import PAR_W as _FIT_PAR_W, fit_rows_call
+from ..ops.plane_fit_rows import fit_par, fit_slots_call
 from .plane_fit import PlaneMoments, fit_planes, point_moments
 
 _M_N, _M_NEW, _M_INIT, _M_PLANE = 0, 1, 2, 3
@@ -441,16 +441,15 @@ def _insert_finish(vm: VoxelMap, cfg: MapConfig, ptab_x, p_w_rows, var_rows, key
     fs.scatter_(0, pos_t, srt)
     fs = fs[:budget]
 
-    meta_r = meta_x[fs]
     if cfg.use_pallas_refit and budget % 128 == 0:
-        # The refit kernel over transposed rows (ops/plane_fit_rows.py).
-        mom_r = torch.cat([mom_x[fs], moms_x[fs].to(dtype)], dim=-1)
-        par = torch.zeros(_FIT_PAR_W, dtype=dtype, device=dev)
-        par[0] = cfg.planer_threshold
-        out = fit_rows_call(par, mom_r.T.contiguous(), meta_r.T.contiguous())
-        plane_rows = out[0:PLANE_DIM].T
-        meta_fit = out[PLANE_DIM : PLANE_DIM + META_DIM].T
+        # The refit kernel, reading each slot's rows from the tables
+        # (ops/plane_fit_rows.py).  Every fs entry names a row of the
+        # sentinel-extended tables: a voxel slot or the sentinel.
+        out = fit_slots_call(fit_par(cfg.planer_threshold, dev), meta_x, mom_x, moms_x, fs)
+        plane_rows = out[:, 0:PLANE_DIM]
+        meta_fit = out[:, PLANE_DIM : PLANE_DIM + META_DIM]
     else:
+        meta_r = meta_x[fs]
         n_r = torch.clamp(meta_r[:, _M_N], min=1.0)
         fit = fit_planes(_unpack_moments(mom_x[fs], moms_x[fs].to(dtype), n_r), cfg.planer_threshold)
         plane_rows = torch.cat(

@@ -15,3 +15,10 @@
 #define LK_SUB(a, b) __fsub_rn((a), (b))
 
 static inline int lk_blocks(int n, int threads) { return (n + threads - 1) / threads; }
+
+// Whether a row index read from a caller's index tensor lies outside the n
+// rows of the table it names.  A kernel traps on one (the launch's stream
+// then fails), as PyTorch's indexing asserts on a CUDA tensor.
+__device__ __forceinline__ bool lk_outside(long long i, long long n) {
+  return static_cast<unsigned long long>(i) >= static_cast<unsigned long long>(n);
+}

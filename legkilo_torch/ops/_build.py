@@ -141,15 +141,16 @@ def _function(name: str, n_ptrs: int, n_ints: int):
     return fn
 
 
-def check_tensors(name: str, tensors: Sequence[torch.Tensor], dtypes) -> torch.device:
-    """Every tensor on one CUDA device, contiguous, of the stated dtype."""
+def check_tensors(name: str, tensors: Sequence[torch.Tensor], dtypes, strided=()) -> torch.device:
+    """Every tensor on one CUDA device, of the stated dtype, and contiguous
+    unless its index is in ``strided`` (the kernel takes its strides)."""
     dev = tensors[0].device
     for i, (t, dt) in enumerate(zip(tensors, dtypes)):
         if t.device != dev or t.device.type != "cuda":
             raise ValueError(f"{name}: argument {i} on {t.device}, expected {dev} (cuda)")
         if t.dtype != dt:
             raise ValueError(f"{name}: argument {i} has dtype {t.dtype}, expected {dt}")
-        if not t.is_contiguous():
+        if i not in strided and not t.is_contiguous():
             raise ValueError(f"{name}: argument {i} is not contiguous")
     return dev
 

@@ -1,19 +1,42 @@
 """Insert-phase moment rows: CUDA kernel + plain version.
 
 Replaces the JAX package's Pallas kernel ``_moments_kernel``
-(ops/pallas/insert_rows.py:46, driven by ``moments_call`` :148) with its
-row contract:
+(ops/pallas/insert_rows.py:46, driven by ``moments_call`` :148).  Two
+entries, one kernel (``csrc/insert_rows.cu``):
 
-    par [16] (ext_r row-major in 0:9), prow [12,R] (p_i, LiDAR-frame sensor
-    cov), brow [30,R] (bucket rot 9, pos 3, rot-block cov 9, pos-block cov 9),
-    key [3,R] (voxel key as f32: exact for |k| < 2^24), size [1,R]
-    -> [69,R] packed moments m1(3) m2(6) | s0(6) s1(18) s2(36)
+* ``moments_rows_call`` -- the insert phase's.  It reads every input by
+  index from the tensors the match phase and the chain leave, so nothing is
+  gathered, concatenated or transposed in front of it:
 
-On a CUDA tensor ``moments_call`` launches ``csrc/insert_rows.cu`` (one
-thread per row); on a CPU tensor it runs ``moments_plain``.
+      ext_r [3,3] (the run's own tensor), sizes [L] f32 voxel size by level
+      (``level_sizes``, built once a configuration), the chain's per-bucket
+      rots [NB,3,3], poss [NB,3], rot_covs, pos_covs [NB,3,3], the match
+      phase's p_i_c [N,3] and body_cov_c [N,3,3] (any strides: the keys
+      kernel leaves them in [component, row] layout), and the gated rows'
+      pidx [R] (a row's point), bidx [N] (a point's bucket, clamped to
+      NB - 1 in the kernel), keys [R,3] int32 (exact as f32 for
+      |k| < 2^24) and lvl [R] (any stride)
+      -> (mom [R,9] m1(3) m2(6), moms [R,60] s0(6) s1(18) s2(36)), row-major
+      for the two ``index_add_`` calls that take them.
+
+* ``moments_call`` -- the JAX kernel's row contract:
+
+      par [16] (ext_r row-major in 0:9), prow [12,R] (p_i, LiDAR-frame sensor
+      cov), brow [30,R] (bucket rot 9, pos 3, rot-block cov 9, pos-block cov 9),
+      key [3,R] (voxel key as f32), size [1,R]
+      -> [69,R] packed moments m1(3) m2(6) | s0(6) s1(18) s2(36)
+
+  On the card it runs the same kernel with every row its own bucket and its
+  own size (identity indices).
+
+On a CUDA tensor each entry launches the kernel; on a CPU tensor it runs its
+plain version (``moments_rows_plain`` is the gather in torch, then
+``moments_plain``).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -21,12 +44,21 @@ from . import _build
 from .match_geom import _sandwich
 
 F32 = torch.float32
+I32 = torch.int32
+I64 = torch.int64
 PAR_W = 16
 _SYM6_PAIRS = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
 
 
+@functools.lru_cache(maxsize=None)
+def level_sizes(voxel_size: float, levels: int, device) -> torch.Tensor:
+    """[levels] f32 voxel size by level, rounded from the double
+    voxel_size / 2^l; one tensor a configuration and device (read only)."""
+    return torch.tensor([voxel_size / (2.0 ** l) for l in range(levels)], dtype=F32, device=device)
+
+
 def moments_plain(par, prow_t, brow_t, key_t, size_t):
-    """Plain PyTorch version of the moments kernel (same contract)."""
+    """Plain PyTorch version of the moments kernel (JAX row contract)."""
     e = par.reshape(-1)
     pi = [prow_t[i] for i in range(3)]
     r = [brow_t[i] for i in range(9)]
@@ -53,8 +85,60 @@ def moments_plain(par, prow_t, brow_t, key_t, size_t):
     return torch.stack(rows)
 
 
+def moments_rows_plain(ext_r, sizes, rots, poss, rot_covs, pos_covs, p_i_c, body_cov_c,
+                       pidx, bidx, keys, lvl):
+    """Plain version of ``moments_rows_call``: the rows gathered in torch,
+    then ``moments_plain``; returns (mom [R,9], moms [R,60])."""
+    nb = rots.shape[0]
+    bucket_rows = torch.cat(
+        [rots.reshape(nb, 9), poss, rot_covs.reshape(nb, 9), pos_covs.reshape(nb, 9)], dim=1
+    )
+    brow_t = bucket_rows[torch.clamp(bidx, max=nb - 1)[pidx]].T
+    prow_t = torch.cat([p_i_c, body_cov_c.reshape(-1, 9)], dim=1)[pidx].T
+    out = moments_plain(ext_r.reshape(9), prow_t, brow_t, keys.T.to(p_i_c.dtype), sizes[lvl][None, :])
+    return out[0:9].T, out[9:69].T
+
+
+def moments_rows_call(ext_r, sizes, rots, poss, rot_covs, pos_covs, p_i_c, body_cov_c,
+                      pidx, bidx, keys, lvl):
+    """The moments kernel on a CUDA tensor, ``moments_rows_plain`` on a CPU one.
+    A row's ``pidx`` must name a point, its ``lvl`` a size and its point's
+    ``bidx`` be >= 0: the kernel traps on one that does not, as indexing a
+    CUDA tensor asserts."""
+    if rots.device.type != "cuda":
+        return moments_rows_plain(ext_r, sizes, rots, poss, rot_covs, pos_covs, p_i_c, body_cov_c,
+                                  pidx, bidx, keys, lvl)
+    name = "moments_rows_call"
+    nb, n, r = rots.shape[0], p_i_c.shape[0], pidx.shape[0]
+    want = {"rots": (rots, (nb, 3, 3)), "poss": (poss, (nb, 3)), "rot_covs": (rot_covs, (nb, 3, 3)),
+            "pos_covs": (pos_covs, (nb, 3, 3)), "p_i_c": (p_i_c, (n, 3)),
+            "body_cov_c": (body_cov_c, (n, 3, 3)), "bidx": (bidx, (n,)), "keys": (keys, (r, 3)),
+            "lvl": (lvl, (r,))}
+    for key, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, expected {shape}")
+    if nb < 1:
+        raise ValueError(f"{name}: no buckets")
+    if ext_r.numel() != 9 or sizes.dim() != 1:
+        raise ValueError(f"{name}: ext_r must hold 9 floats and sizes be 1-D")
+    if body_cov_c.stride(1) != 3 * body_cov_c.stride(2):
+        raise ValueError(f"{name}: body_cov_c's rows must read as 9 floats at one stride")
+    args = (ext_r, sizes, rots, poss, rot_covs, pos_covs, p_i_c, body_cov_c, pidx, bidx, keys, lvl)
+    dev = _build.check_tensors(name, args, [F32] * 8 + [I64, I64, I32, I64], strided=(6, 7, 10, 11))
+    mom = torch.empty((r, 9), dtype=F32, device=dev)
+    moms = torch.empty((r, 60), dtype=F32, device=dev)
+    _build.launch(
+        "moments_rows_launch", args + (mom, moms),
+        [r, nb, n, sizes.shape[0], *p_i_c.stride(), body_cov_c.stride(0), body_cov_c.stride(2),
+         *keys.stride(), lvl.stride(0)],
+    )
+    moments_rows_call.launches += 1
+    return mom, moms
+
+
 def moments_call(par, prow_t, brow_t, key_t, size_t):
-    """The moments kernel on a CUDA tensor, its plain version on a CPU one."""
+    """The moments kernel on a CUDA tensor (through ``moments_rows_call``,
+    a row its own bucket), its plain version on a CPU one."""
     if par.device.type != "cuda":
         return moments_plain(par, prow_t, brow_t, key_t, size_t)
     R = prow_t.shape[1]
@@ -64,11 +148,25 @@ def moments_call(par, prow_t, brow_t, key_t, size_t):
             raise ValueError(f"moments_call: shape {tuple(a.shape)}, expected {(nr, R)}")
     if args[0].numel() != PAR_W:
         raise ValueError(f"moments_call: par must hold {PAR_W} floats")
-    dev = _build.check_tensors("moments_call", args, [F32] * 5)
-    out = torch.empty((69, R), dtype=F32, device=dev)
-    _build.launch("moments_launch", args + (out,), [R])
+    _build.check_tensors("moments_call", args, [F32] * 5)
+    mom, moms = moments_rows_call(*rows_of_jax_layout(*args))
     moments_call.launches += 1
-    return out
+    return torch.cat([mom, moms], dim=1).T
 
 
+def rows_of_jax_layout(par, prow_t, brow_t, key_t, size_t):
+    """``moments_rows_call``'s arguments for the JAX row contract: row r is
+    its own point and its own bucket (identity indices), at its own size."""
+    R = prow_t.shape[1]
+    idx = torch.arange(R, dtype=I64, device=prow_t.device)
+
+    def table(lo, hi):
+        return brow_t[lo:hi].T.contiguous()
+
+    return (par.reshape(-1)[0:9], size_t[0], table(0, 9).reshape(R, 3, 3), table(9, 12),
+            table(12, 21).reshape(R, 3, 3), table(21, 30).reshape(R, 3, 3), prow_t[0:3].T,
+            prow_t[3:12].T.reshape(R, 3, 3), idx, idx, key_t.to(I32).T, idx)
+
+
+moments_rows_call.launches = 0
 moments_call.launches = 0

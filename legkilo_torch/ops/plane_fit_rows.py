@@ -1,25 +1,37 @@
 """Voxel-map plane refit rows: CUDA kernel + plain version.
 
 Replaces the JAX package's Pallas kernel ``_fit_kernel``
-(ops/pallas/plane_fit_rows.py:122, driven by ``fit_rows_call`` :295) with
-its row contract (B = refit budget):
+(ops/pallas/plane_fit_rows.py:122, driven by ``fit_rows_call`` :295).  Two
+entries, one kernel (``csrc/plane_fit_rows.cu``):
 
-    par [8] (planer_threshold at 0), mom_t [69,B] packed moments
-    (voxel_map._pack_moments: m1 @0, m2 sym6 @3, s0 sym6 @9, s1 @15,
-    s2 @33), meta_t [4,B] (n, new_n, initialized, is_plane)
-    -> [35,B]: the plane row (centre_rel 3, normal 3, evals 3, radius 1,
-    plane_var upper triangle 21) then the meta row (n, 0, 1, is_plane) --
-    the rows voxel_map._insert_finish scatters.
+* ``fit_slots_call`` -- the insert's.  It reads each refit slot's rows from
+  the map's own sentinel-extended tables, so nothing is gathered or
+  transposed in front of it (B = refit budget, M = L*C + 1 rows):
 
-On a CUDA tensor ``fit_rows_call`` launches ``csrc/plane_fit_rows.cu`` (one
-thread per slot); on a CPU tensor it runs ``fit_rows_plain``, which is the
-kernel's arithmetic in the kernel's order of operations on [B] rows, so the
-two take the same branches.  Unlike core/plane_fit.fit_planes it multiplies
-by 1/p instead of dividing, and masks plane_var by multiplying with is_plane.
+      par [8] (planer_threshold at 0; ``fit_par``, one a threshold and
+      device), meta_x [M,4] (n, new_n, initialized, is_plane), mom_x [M,9]
+      (m1 @0, m2 sym6 @3), moms_x [M,60] in the storage dtype (f32, f16 or
+      bf16: s0 sym6 @0, s1 @6, s2 @24), fs [B] int64 rows (the zero
+      sentinel row M - 1 for an unfilled slot)
+      -> [B,35]: the plane row (centre_rel 3, normal 3, evals 3, radius 1,
+      plane_var upper triangle 21) then the meta row (n, 0, 1, is_plane) --
+      the rows voxel_map._insert_finish scatters.
+
+* ``fit_rows_call`` -- the JAX kernel's row contract: par [8], mom_t [69,B]
+  packed moments (voxel_map._pack_moments), meta_t [4,B] -> [35,B].  On the
+  card it runs the same kernel on its rows in order.
+
+On a CUDA tensor each entry launches the kernel; on a CPU tensor it runs its
+plain version.  ``fit_rows_plain`` is the kernel's arithmetic in the
+kernel's order of operations on [B] rows, so the two take the same branches
+(``fit_slots_plain`` gathers, then runs it).  Unlike core/plane_fit.fit_planes
+it multiplies by 1/p instead of dividing, and masks plane_var by multiplying
+with is_plane.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -29,6 +41,8 @@ from .eig3x3 import acos_poly
 
 F32 = torch.float32
 PAR_W = 8
+# Storage dtypes of moms (voxel_map._STORAGE) by the kernel's code for them.
+_MOMS_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _EPS = 1e-12        # ops/eig3x3._EPS
 _ALPHA_EPS = 1e-7   # core/plane_fit._ALPHA_EPS
 # Divisions by a constant are written as products with its reciprocal, in
@@ -217,8 +231,49 @@ def fit_rows_plain(par, mom_t, meta_t):
     )
 
 
+@functools.lru_cache(maxsize=None)
+def fit_par(threshold: float, device) -> torch.Tensor:
+    """The kernel's par for ``threshold``: one tensor a threshold and device
+    (read only)."""
+    par = torch.zeros(PAR_W, dtype=F32, device=device)
+    par[0] = threshold
+    return par
+
+
+def fit_slots_plain(par, meta_x, mom_x, moms_x, fs):
+    """Plain version of ``fit_slots_call``: the slots' rows gathered and
+    transposed in torch, then ``fit_rows_plain``; returns [B,35]."""
+    mom_t = torch.cat([mom_x[fs], moms_x[fs].to(F32)], dim=1).T
+    return fit_rows_plain(par, mom_t, meta_x[fs].T).T
+
+
+def fit_slots_call(par, meta_x, mom_x, moms_x, fs):
+    """The refit kernel on a CUDA tensor, ``fit_slots_plain`` on a CPU one.
+    Every entry of ``fs`` must name a row of the tables: the kernel traps on
+    one that does not, as indexing a CUDA tensor asserts."""
+    if meta_x.device.type != "cuda":
+        return fit_slots_plain(par, meta_x, mom_x, moms_x, fs)
+    name = "fit_slots_call"
+    m, b = meta_x.shape[0], fs.shape[0]
+    for key, t, shape in (("meta_x", meta_x, (m, 4)), ("mom_x", mom_x, (m, 9)),
+                          ("moms_x", moms_x, (m, 60)), ("fs", fs, (b,))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, expected {shape}")
+    if par.numel() != PAR_W:
+        raise ValueError(f"{name}: par must hold {PAR_W} floats")
+    if moms_x.dtype not in _MOMS_CODE:
+        raise ValueError(f"{name}: moms_x has dtype {moms_x.dtype}, expected one of {list(_MOMS_CODE)}")
+    args = (par.reshape(-1), meta_x, mom_x, moms_x, fs)
+    dev = _build.check_tensors(name, args, [F32, F32, F32, moms_x.dtype, torch.int64])
+    out = torch.empty((b, 35), dtype=F32, device=dev)
+    _build.launch("fit_slots_launch", args + (out,), [b, m, _MOMS_CODE[moms_x.dtype]])
+    fit_slots_call.launches += 1
+    return out
+
+
 def fit_rows_call(par, mom_t, meta_t):
-    """The refit kernel on a CUDA tensor, its plain version on a CPU one."""
+    """The refit kernel on a CUDA tensor (through ``fit_slots_call``, slot b
+    on row b), its plain version on a CPU one."""
     if mom_t.device.type != "cuda":
         return fit_rows_plain(par, mom_t, meta_t)
     B = mom_t.shape[1]
@@ -228,11 +283,18 @@ def fit_rows_call(par, mom_t, meta_t):
                          f"expected (69, B), (4, B)")
     if args[0].numel() != PAR_W:
         raise ValueError(f"fit_rows_call: par must hold {PAR_W} floats")
-    dev = _build.check_tensors("fit_rows_call", args, [F32] * 3)
-    out = torch.empty((35, B), dtype=F32, device=dev)
-    _build.launch("fit_rows_launch", args + (out,), [B])
+    _build.check_tensors("fit_rows_call", args, [F32] * 3)
+    out = fit_slots_call(args[0], *slots_of_jax_layout(mom_t, meta_t))
     fit_rows_call.launches += 1
-    return out
+    return out.T
 
 
+def slots_of_jax_layout(mom_t, meta_t):
+    """``fit_slots_call``'s tables and rows for the JAX row contract: slot b
+    on row b of [B, W] tables."""
+    fs = torch.arange(mom_t.shape[1], dtype=torch.int64, device=mom_t.device)
+    return meta_t.T.contiguous(), mom_t[0:9].T.contiguous(), mom_t[9:69].T.contiguous(), fs
+
+
+fit_slots_call.launches = 0
 fit_rows_call.launches = 0

@@ -241,7 +241,8 @@ def test_kernels_other_shapes_on_card(cuda_device, use_kin):
     cs.select_check(torch, sargs, 2, 5)
 
     margs = cs.moments_inputs(torch, cuda_device, rng, r=300)
-    assert cs.rel_err(insert_rows.moments_call(*margs), insert_rows.moments_plain(*margs)) <= 1e-4
+    got = torch.cat(insert_rows.moments_rows_call(*margs), dim=1)
+    assert cs.rel_err(got, torch.cat(insert_rows.moments_rows_plain(*margs), dim=1)) <= 1e-4
 
 
 @pytest.mark.cuda
@@ -503,3 +504,220 @@ def test_select_one_kernel_a_call_on_card(cuda_device):
     names, n = _profiled_kernels(lambda: [match_geom.select_call(*sargs, levels, nb) for _ in range(2)],
                                  "", lambda: match_geom.select_call.launches)
     assert n == 2 and len(names) == 2 and all("select_kernel" in name for name in names), names
+
+
+def _rel_err_by_column(got, ref):
+    return max(float((got[:, i].double() - ref[:, i].double()).abs().max()
+                     / max(float(ref[:, i].double().abs().max()), 1e-30)) for i in range(got.shape[1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,r", [(28, 4096), (56, 4096), (28, 4000), (56, 300)])
+def test_moments_rows_kernel_on_card(cuda_device, nb, r):
+    """The indexed moments kernel at the path's NB = 28 and the 2 ms
+    buckets' 56, R a multiple of the 32-row tile and not: rel 1e-4 a moment
+    row against ``moments_rows_plain`` (chip_smoke's tolerance), two
+    launches bit-equal."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from legkilo_torch.ops import insert_rows as ir
+
+    margs = cs.moments_inputs(torch, cuda_device, np.random.default_rng(nb + r), r=r, nb=nb)
+    n0 = ir.moments_rows_call.launches
+    got = ir.moments_rows_call(*margs)
+    again = ir.moments_rows_call(*margs)
+    torch.cuda.synchronize()
+    assert ir.moments_rows_call.launches == n0 + 2
+    assert got[0].shape == (r, 9) and got[1].shape == (r, 60)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = ir.moments_rows_plain(*margs)
+    assert _rel_err_by_column(torch.cat(got, dim=1), torch.cat(ref, dim=1)) <= 1e-4
+
+
+def _card_map_tables(dev, storage, budget, seed=0):
+    """The sentinel-extended tables of a map built on the card from a scene
+    of planes and scatter (plain refit), moms in ``storage``, and refit rows
+    naming occupied slots for three quarters of ``budget``, then the
+    sentinel row."""
+    import numpy as np
+
+    from legkilo_torch.core import voxel_map as tv
+
+    rng = np.random.default_rng(seed)
+    cfg = tv.MapConfig(levels=3, capacity=1024, probe=4, voxel_size=0.5, planer_threshold=0.01,
+                       sigma_num=3.0, max_points_num=50, init_num=(5, 5, 5), insert_rounds=2,
+                       refit_budget=256, storage_dtype=storage)
+    pts = []
+    for axis, off in ((2, 0.1), (0, 1.3), (1, -1.2)):
+        uv = rng.uniform(-2, 2, size=(600, 3))
+        uv[:, axis] = off + rng.normal(scale=0.003, size=600)
+        pts.append(uv)
+    pts.append(rng.uniform(-3, 3, size=(400, 3)))
+    p = np.concatenate(pts)
+    a = rng.normal(size=(len(p), 3, 3)) * 0.01
+    var = a @ np.swapaxes(a, 1, 2) + 1e-6 * np.eye(3)
+    f = lambda x: torch.tensor(np.asarray(x, np.float32), device=dev)  # noqa: E731
+    vm = tv.insert_points(tv.make_map(cfg, dev), cfg, f(p), f(var), torch.ones(len(p), dtype=torch.bool, device=dev))
+    miss = vm.meta.shape[0]
+    occ = torch.nonzero(vm.meta[:, 0] > 0)[:, 0][: budget * 3 // 4]
+    fs = torch.full((budget,), miss, dtype=torch.int64, device=dev)
+    fs[: len(occ)] = occ
+    tables = [tv._with_sentinel(t) for t in (vm.meta, vm.mom, vm.moms)]
+    assert tables[2].dtype == tv._STORAGE[storage] and len(occ) > budget // 2
+    return tables, fs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("budget", [1024, 250])
+@pytest.mark.parametrize("storage", ["f32", "f16", "bf16"])
+def test_fit_slots_kernel_on_card(cuda_device, storage, budget):
+    """The indexed refit kernel on a card-built map's tables in each storage
+    dtype, refit rows with sentinel padding, a budget that fills the last
+    block and one that does not: ``torch.equal`` to ``fit_slots_plain``,
+    two launches bit-equal."""
+    from legkilo_torch.ops import plane_fit_rows as pfr
+
+    tables, fs = _card_map_tables(cuda_device, storage, budget)
+    par = pfr.fit_par(0.01, cuda_device)
+    n0 = pfr.fit_slots_call.launches
+    got = pfr.fit_slots_call(par, *tables, fs)
+    again = pfr.fit_slots_call(par, *tables, fs)
+    torch.cuda.synchronize()
+    assert pfr.fit_slots_call.launches == n0 + 2
+    assert got.shape == (budget, 35) and bool(torch.isfinite(got).all())
+    assert torch.equal(got, again)
+    ref = pfr.fit_slots_plain(par, *tables, fs)
+    assert torch.equal(got, ref), int((got != ref).any(dim=1).sum())
+    assert float(got[:, 34].sum()) > 10
+
+
+@pytest.mark.cuda
+def test_moments_and_fit_slots_refuse_bad_input_on_card(cuda_device):
+    """Wrong shapes, dtypes, devices and strides, and an empty bucket table,
+    are refused before any launch.  The kernels read elements, not vectors: a table
+    starting one element past an aligned address gives the same bits."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from legkilo_torch.ops import insert_rows as ir
+    from legkilo_torch.ops import plane_fit_rows as pfr
+
+    m = list(cs.moments_inputs(torch, cuda_device, np.random.default_rng(4), r=300))
+    tables, fs = _card_map_tables(cuda_device, "f32", 256)
+    par = pfr.fit_par(0.01, cuda_device)
+
+    def with_(i, x, args):
+        return args[:i] + [x] + args[i + 1:]
+
+    n0 = ir.moments_rows_call.launches, pfr.fit_slots_call.launches
+    bad_moments = [
+        (with_(2, m[2].transpose(1, 2), m), "contiguous"),          # rots
+        (with_(3, m[3].double(), m), "dtype"),                      # poss
+        (with_(10, m[10].long(), m), "dtype"),                      # keys
+        (with_(9, m[9].cpu(), m), "cpu"),                           # bidx
+        (with_(9, m[9][:-1], m), "bidx"),
+        (with_(7, m[7].transpose(1, 2), m), "one stride"),          # body_cov_c
+        (with_(2, m[2][:0], with_(3, m[3][:0], with_(4, m[4][:0], with_(5, m[5][:0], m)))), "buckets"),
+    ]
+    for args, msg in bad_moments:
+        with pytest.raises(ValueError, match=msg):
+            ir.moments_rows_call(*args)
+    meta_x, mom_x, moms_x = tables
+    bad_fit = [
+        ((par, meta_x[:, 0:3].contiguous(), mom_x, moms_x, fs), "shape"),
+        ((par, meta_x, mom_x, moms_x.to(torch.int32), fs), "dtype"),
+        ((par, meta_x, mom_x, moms_x, fs.to(torch.int32)), "dtype"),
+        ((par, meta_x, mom_x, moms_x, fs.cpu()), "cpu"),
+        ((par, meta_x, mom_x.T.contiguous().T, moms_x, fs), "contiguous"),
+        ((par[0:4], meta_x, mom_x, moms_x, fs), "8 floats"),
+    ]
+    for args, msg in bad_fit:
+        with pytest.raises(ValueError, match=msg):
+            pfr.fit_slots_call(*args)
+    assert (ir.moments_rows_call.launches, pfr.fit_slots_call.launches) == n0
+
+    def off_by_one(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    got = pfr.fit_slots_call(par, *[off_by_one(t) for t in tables], fs)
+    assert torch.equal(got, pfr.fit_slots_call(par, *tables, fs))
+    mo = ir.moments_rows_call(*[off_by_one(t) if i in (2, 3, 4, 5) else t for i, t in enumerate(m)])
+    assert all(torch.equal(a, b) for a, b in zip(mo, ir.moments_rows_call(*m)))
+
+
+@pytest.mark.cuda
+def test_moments_and_fit_one_kernel_a_call_on_card(cuda_device):
+    """Each indexed entry is one device kernel and nothing else: no gather,
+    copy or fill in front of it."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from legkilo_torch.ops import insert_rows as ir
+    from legkilo_torch.ops import plane_fit_rows as pfr
+
+    margs = cs.moments_inputs(torch, cuda_device, np.random.default_rng(6))
+    tables, fs = _card_map_tables(cuda_device, "f16", 1024)
+    par = pfr.fit_par(0.01, cuda_device)
+    ir.moments_rows_call(*margs)
+    pfr.fit_slots_call(par, *tables, fs)
+    torch.cuda.synchronize()
+    names, n = _profiled_kernels(lambda: ir.moments_rows_call(*margs), "",
+                                 lambda: ir.moments_rows_call.launches)
+    assert n == 1 and len(names) == 1 and "moments_kernel" in names[0], names
+    names, n = _profiled_kernels(lambda: pfr.fit_slots_call(par, *tables, fs), "",
+                                 lambda: pfr.fit_slots_call.launches)
+    assert n == 1 and len(names) == 1 and "fit_slots_kernel" in names[0], names
+
+
+_TRAP_SCRIPT = """
+import sys
+import numpy as np
+import torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from legkilo_torch.ops import insert_rows as ir
+from legkilo_torch.ops import plane_fit_rows as pfr
+
+dev, case = torch.device("cuda"), sys.argv[1]
+m = list(cs.moments_inputs(torch, dev, np.random.default_rng(4), r=300))
+mm, b = 50, 256
+tables = [torch.zeros((mm, w), device=dev) for w in (4, 9, 60)]
+fs = torch.arange(b, device=dev) % mm
+if case == "fs":
+    fs[7] = mm
+elif case == "pidx":
+    m[8][5] = m[6].shape[0]
+elif case == "lvl":
+    m[11][9] = m[1].shape[0]
+elif case == "bidx":
+    m[9][m[8][3]] = -1
+try:
+    ir.moments_rows_call(*m)
+    pfr.fit_slots_call(pfr.fit_par(0.01, dev), *tables, fs)
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("trapped:", e)
+    sys.exit(3)
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["none", "fs", "pidx", "lvl", "bidx"])
+def test_index_outside_its_table_traps_on_card(cuda_device, case):
+    """An index that names no row of its table (fs past the map's tables,
+    pidx past the points, lvl past the sizes, a negative bidx) fails the
+    launch's stream, as indexing a CUDA tensor asserts, instead of reading
+    past the table.  The trap spoils the process's CUDA context, so each
+    case runs in a process of its own."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run = subprocess.run([sys.executable, "-c", _TRAP_SCRIPT, case], cwd=root, capture_output=True,
+                         text=True, timeout=600)
+    assert run.returncode == (0 if case == "none" else 3), run.stdout + run.stderr
