@@ -62,6 +62,20 @@ Phases, each printing its own lines:
    slide observed), the per-point path chunked by 32 ("points_chunk"), and
    2 ms buckets chunked by 32 ("ref2ms": bench.py:350-366, NB = 56,
    P = 128, the chain kernel at NB = 56).
+9. The configurations off the kernels, on the same workload: ``main``'s
+   configuration streamed twice over its first 8 s ("repeat": both
+   trajectories and every final map table must be equal bit for bit);
+   configs/leg_fusion.yaml as ``sim --config_file`` loads it (the fused
+   path with every kernel switch off, leg kinematics, NB = 64, P = 128,
+   caps 4,096, three levels of 2^17 slots; 3 s, "leg_fusion"); bench.py's
+   configuration with the match kernels off, the match on its torch path
+   feeding the chain, moments, pose and refit kernels (8 s, "mixed"); the
+   default Config(), the sequential pipeline (3 s, "seq"); and
+   configs/diter.yaml, sequential with leg kinematics (3 s, "seq_kin").
+   leg_fusion, seq and seq_kin launch none of the kernels; mixed exactly
+   its four.  Profiler windows of 2 scans of leg_fusion and seq (the card's
+   activity only) follow the other profiles ("profile_leg_fusion",
+   "profile_seq").
 
 Each run sets every launch counter to 0 before and reads it after: the
 kernels of the path it drives must have launched, and the others must not.
@@ -76,6 +90,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -87,6 +102,11 @@ MAIN_DURATION_S = 24.0   # bench.py's workload, uncut
 FOUR_DURATION_S = 8.0    # the four-kernel configuration, cut
 KIN_DURATION_S = 4.0     # 40 scans of the kin branch
 EXTRA_DURATION_S = 8.0   # the slide, per-point chunked and 2 ms bucket runs
+REPEAT_DURATION_S = 8.0  # main's configuration twice
+MIXED_DURATION_S = 8.0   # the match off its kernels
+# The paths off every kernel launch ~10^5 small operations a scan (seconds
+# a scan on the card), so they run the fewest scans a run takes (30).
+SLOW_DURATION_S = 3.0    # leg_fusion.yaml, Config() sequential, diter.yaml
 SLIDE_THRESH_M = 1.0     # the sim's path moves ~5 m in 8 s
 SLIDE_HALF_MAP = 20      # level-0 voxels (10 m) each side of the pose
 CHUNK = 32               # bench.py:190
@@ -119,6 +139,7 @@ SOURCES = {
 # The wrappers whose kernels each path launches (counter names of wrappers()).
 FUSED_KERNELS = {"chain_stats", "keys", "select", "moments", "fit", "pose"}
 FOUR_KERNELS = FUSED_KERNELS - {"fit", "pose"}
+MIXED_KERNELS = FUSED_KERNELS - {"keys", "select"}
 POINTS_KERNELS = {"chain_points", "fit", "pose"}
 
 
@@ -879,21 +900,24 @@ def path_config(five=True, points=False):
 
 
 def run_workload(torch, data, tag: str, use_kin=False, five=True, chunk=0, latch=True,
-                 points=False, edit=None, slides=False):
+                 points=False, edit=None, slides=False, config=None, keep=False):
     """One run_offline over ``data`` on the card.  ``five`` off leaves the
     pose and refit kernels out (plain torch); ``points`` takes the per-point
-    path; ``chunk`` > 1 replays in chunks; ``latch`` off disables the
-    escalation to iterated matching; ``edit(cfg)`` changes the configuration
-    further and returns the wrappers its path leaves out; ``slides`` replays
-    scan by scan (as run_offline streams) and counts the map slides, each
-    seen as a move of the carry's last slide position, and fails on fewer
-    than two.  Fails on an ATE that is not finite or not under the golden
+    path; ``config()`` gives a configuration and the wrappers its path
+    launches in their place; ``chunk`` > 1 replays in chunks; ``latch`` off
+    disables the escalation to iterated matching; ``edit(cfg)`` changes the
+    configuration further and returns the wrappers its path leaves out;
+    ``slides`` replays scan by scan (as run_offline streams) and counts the
+    map slides, each seen as a move of the carry's last slide position, and
+    fails on fewer than two; ``keep`` replays scan by scan too and keeps
+    the poses and the final carry in the record (``poses``, ``carry``; not
+    logged).  Fails on an ATE that is not finite or not under the golden
     bound, on a kernel of the path that never launched and on a kernel off
     the path that did."""
     from legkilo_torch.io.tum import ate_rmse
     from legkilo_torch.runner import OdometryRunner, replay, run_offline
 
-    cfg, on_path = path_config(five, points)
+    cfg, on_path = config() if config is not None else path_config(five, points)
     cfg.only_imu_use = not use_kin
     if not latch:
         cfg.tpu.escalate_after = 0
@@ -905,7 +929,7 @@ def run_workload(torch, data, tag: str, use_kin=False, five=True, chunk=0, latch
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     n_slides = 0
-    if slides:
+    if slides or keep:
         runner = OdometryRunner(cfg, device="cuda")
         last = runner.carry.last_slide_pos
         for _ in replay(runner, data.scans, events):
@@ -927,6 +951,9 @@ def run_workload(torch, data, tag: str, use_kin=False, five=True, chunk=0, latch
     if slides:
         rec["slides"] = n_slides
     log(f"[{tag}] {json.dumps(rec)}")
+    if keep:
+        rec["poses"] = [(r.rot, r.pos) for r in results]
+        rec["carry"] = runner.carry
     if len(results) < 30:
         raise RuntimeError(f"{tag}: only {len(results)} scans")
     if slides and n_slides < 2:
@@ -970,12 +997,72 @@ def ref2ms_edit(cfg):
     return set()
 
 
-def phase_profile(torch, tag: str, five=True, points=False, n_warm=10, n_prof=20):
+def sim_cli_config(path=None):
+    """A configuration as ``python -m legkilo_torch sim`` loads it: the file
+    as written (``Config()`` without one), with the sim rig's decimation
+    (filter_num 1, blind 0.3)."""
+    from legkilo_torch import config as config_mod
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = config_mod.load(os.path.join(root, path)) if path else config_mod.Config()
+    cfg.lidar.filter_num = 1
+    cfg.lidar.blind = 0.3
+    return cfg
+
+
+def leg_fusion_config():
+    """configs/leg_fusion.yaml: the fused path with every kernel switch at
+    its default, off (NB 64, P 128, K 4, caps 4,096, 3 x 2^17 slots)."""
+    return sim_cli_config("configs/leg_fusion.yaml"), set()
+
+
+def mixed_config():
+    """bench.py's configuration with the match kernels off: the match on
+    its torch path feeding the chain, moments, pose and refit kernels."""
+    from legkilo_torch.runner import bench_config
+
+    cfg = bench_config()
+    cfg.tpu.use_pallas_match = False
+    return cfg, MIXED_KERNELS
+
+
+def seq_config():
+    """The default Config(): the sequential pipeline, IMU (NB 64, P 128)."""
+    return sim_cli_config(), set()
+
+
+def seq_kin_config():
+    """configs/diter.yaml: the sequential pipeline with leg kinematics."""
+    return sim_cli_config("configs/diter.yaml"), set()
+
+
+def phase_repeat(torch, data):
+    """``main``'s configuration streamed twice over the same scans: the
+    trajectories and every final map table must be equal bit for bit (the
+    map's scatter-adds are summed in row order on the card)."""
+    a = run_workload(torch, data, "repeat", keep=True)
+    b = run_workload(torch, data, "repeat", keep=True)
+    same_traj = all(np.array_equal(ra, rb) and np.array_equal(pa, pb)
+                    for (ra, pa), (rb, pb) in zip(a["poses"], b["poses"]))
+    same_traj = same_traj and len(a["poses"]) == len(b["poses"])
+    tables = {f: torch.equal(getattr(a["carry"].vm, f), getattr(b["carry"].vm, f))
+              for f in ("ptab", "meta", "mom", "moms", "plane", "ocnt")}
+    log(f"[repeat] trajectories equal {same_traj}; map tables equal {json.dumps(tables)}")
+    if not same_traj or not all(tables.values()):
+        raise RuntimeError("repeat: two runs of one configuration differ")
+
+
+def phase_profile(torch, tag: str, five=True, points=False, n_warm=10, n_prof=20, config=None,
+                  use_kin=False, host_ops=True):
     """torch.profiler over ``n_prof`` scans after ``n_warm`` warm-up scans,
     fed by run_offline's own replay loop: the device's busy share of the
     host wall clock, kernel launches a scan, and device time a scan by
     operator (ours and PyTorch's).  ``five`` off profiles the configuration
-    without the pose and refit kernels, ``points`` the per-point path."""
+    without the pose and refit kernels, ``points`` the per-point path,
+    ``config()`` another configuration (with leg kinematics if ``use_kin``).
+    ``host_ops`` off traces the card's activity only: the paths off the
+    kernels launch ~10^5 operations a scan, and reading their host events
+    back takes longer than the scans."""
     import itertools
 
     from torch.profiler import ProfilerActivity, profile
@@ -983,16 +1070,19 @@ def phase_profile(torch, tag: str, five=True, points=False, n_warm=10, n_prof=20
     from legkilo_torch.models import sim
     from legkilo_torch.runner import OdometryRunner, replay
 
+    t_phase = time.perf_counter()
     data = sim.simulate(sim.SimConfig(duration=(n_warm + n_prof + 1) * 0.1, scan_points=8000, seed=7))
-    cfg, _ = path_config(five, points)
+    cfg, _ = config() if config is not None else path_config(five, points)
+    cfg.only_imu_use = not use_kin
     runner = OdometryRunner(cfg, device="cuda")
-    steps = replay(runner, data.scans, data.imu)
+    steps = replay(runner, data.scans, data.kin if use_kin else data.imu)
     for _ in itertools.islice(steps, n_warm):
         pass
     runner.flush()
     torch.cuda.synchronize()
     n0 = len(runner.results)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host_ops else [ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in steps:
             pass
@@ -1012,7 +1102,8 @@ def phase_profile(torch, tag: str, five=True, points=False, n_warm=10, n_prof=20
     launches = sum(r[2] for r in rows)
     log(f"[{tag}] {n} scans: host wall {wall / n * 1e3:.3f} ms/scan, device busy "
         f"{dev_ms / n:.3f} ms/scan ({100 * dev_ms / (wall * 1e3):.1f}% of wall), "
-        f"{launches / n:.0f} device launches/scan")
+        f"{launches / n:.0f} device launches/scan; the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
     if not rows:
         log(f"[{tag}] device time: not measured (the profiler saw no CUDA activity)")
     for dev_us, key, count in rows[:12]:
@@ -1025,7 +1116,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="build,kernels,main,chunk,stream1,four,profile,kin,points,points_kin,"
-                            "slide,points_chunk,ref2ms")
+                            "slide,points_chunk,ref2ms,repeat,leg_fusion,mixed,seq,seq_kin")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -1048,7 +1139,8 @@ def main(argv=None) -> int:
     phase_build()
     recs = phase_kernels(torch, dev) if "kernels" in phases else {}
     main_rec = kin_rec = points_rec = points_kin_rec = ref2ms_rec = None
-    if phases & {"main", "chunk", "stream1", "four", "points", "slide", "points_chunk", "ref2ms"}:
+    if phases & {"main", "chunk", "stream1", "four", "points", "slide", "points_chunk", "ref2ms",
+                  "repeat", "leg_fusion", "mixed", "seq", "seq_kin"}:
         data = simulate(MAIN_DURATION_S, "main")
         if "main" in phases:
             main_rec = run_workload(torch, data, "main")
@@ -1069,6 +1161,18 @@ def main(argv=None) -> int:
             run_workload(torch, extra, "points_chunk", points=True, chunk=CHUNK)
         if "ref2ms" in phases:
             ref2ms_rec = run_workload(torch, extra, "ref2ms", chunk=CHUNK, edit=ref2ms_edit)
+        if "repeat" in phases:
+            phase_repeat(torch, cut(data, REPEAT_DURATION_S))
+        if "leg_fusion" in phases:
+            run_workload(torch, cut(data, SLOW_DURATION_S), "leg_fusion", use_kin=True,
+                         config=leg_fusion_config)
+        if "mixed" in phases:
+            run_workload(torch, cut(data, MIXED_DURATION_S), "mixed", config=mixed_config)
+        if "seq" in phases:
+            run_workload(torch, cut(data, SLOW_DURATION_S), "seq", config=seq_config)
+        if "seq_kin" in phases:
+            run_workload(torch, cut(data, SLOW_DURATION_S), "seq_kin", use_kin=True,
+                         config=seq_kin_config)
     if "profile" in phases:
         p4 = phase_profile(torch, "profile4", five=False)
         p5 = phase_profile(torch, "profile5")
@@ -1080,6 +1184,14 @@ def main(argv=None) -> int:
             log(f"[profile] per-point path: {pp_['launches_per_scan']:.0f} device launches/scan, "
                 f"device busy {pp_['device_ms_per_scan']:.3f} ms/scan, host wall "
                 f"{pp_['wall_ms_per_scan']:.3f} ms/scan")
+        for tag, fn, kin in (("profile_leg_fusion", leg_fusion_config, True),
+                             ("profile_seq", seq_config, False)):
+            if tag.split("_", 1)[1] in phases:
+                pr = phase_profile(torch, tag, n_warm=1, n_prof=2, config=fn, use_kin=kin,
+                                   host_ops=False)
+                log(f"[profile] {tag}: {pr['launches_per_scan']:.0f} device launches/scan, "
+                    f"device busy {pr['device_ms_per_scan']:.3f} ms/scan, host wall "
+                    f"{pr['wall_ms_per_scan']:.3f} ms/scan")
     if phases & {"kin", "points_kin"}:
         kin_data = simulate(KIN_DURATION_S, "kin")
         if "kin" in phases:

@@ -1,19 +1,20 @@
 """Command line: ``python -m legkilo_torch sim``.
 
-``sim`` runs the synthetic world end to end through the port's main path
-(the deferred pipeline on the port's kernels) and prints one JSON line, as
-``python -m legkilo_tpu sim`` does:
+``sim`` runs the synthetic world end to end through the port and prints one
+JSON line, as ``python -m legkilo_tpu sim`` does:
 
     {"scans": N, "ate_rmse_m": x, "wall_s": t, "ms_per_scan": t}
 
-Without ``--config_file`` it runs the bench.py workload (runner.bench_config,
-all five kernel switches on); with one, that config as written, which must
-select one of the port's paths: the deferred pipeline with ``tpu_use_pallas``,
-``tpu_use_pallas_match`` and ``tpu_use_pallas_insert`` on (the fused chain),
-or the deferred pipeline with ``tpu_chain_impl: jax`` (the per-point chain,
-which reads none of those three).  The runner refuses any option the port
-has not ported.  ``--pallas`` turns all five
-kernel switches on, as it does in the JAX package's CLI.  ``--chunk K``
+It takes the JAX command's configuration: ``--config_file`` as written (or
+the default ``Config()``, the sequential pipeline, without one), with
+``filter_num`` 1 and ``blind`` 0.3 for the sim's rig; ``--pipeline`` picks
+the sequential or the deferred pipeline and ``--pallas`` turns all five
+kernel switches on.  Every configuration the JAX package runs runs here:
+either pipeline, each kernel switch on or off (a phase whose switch is off
+takes its plain torch path, as JAX takes its XLA path), either
+``tpu_chain_impl``.  The runner refuses only an unknown ``tpu_chain_impl``
+or ``tpu_match_pose`` and a ``tpu_dtype`` other than float32 (bench.py's
+workload is ``runner.bench_config()``, for Python callers).  ``--chunk K``
 replays K staged scans a call; ``--save_ckpt`` snapshots at the end and
 ``--resume`` with ``--skip_scans N`` continues such a run from scan N.
 ``--device cuda`` (the default) raises when no card is present;
@@ -36,14 +37,13 @@ def cmd_sim(args: argparse.Namespace) -> int:
     from . import config as config_mod
     from .io.tum import TrajectoryWriter, ate_rmse
     from .models import sim as sim_mod
-    from .runner import bench_config, run_offline
+    from .runner import run_offline
 
-    if args.config_file:
-        cfg = config_mod.load(args.config_file)
-        cfg.lidar.filter_num = 1
-        cfg.lidar.blind = 0.3
-    else:
-        cfg = bench_config()
+    cfg = config_mod.load(args.config_file) if args.config_file else config_mod.Config()
+    cfg.lidar.filter_num = 1
+    cfg.lidar.blind = 0.3
+    if args.pipeline:
+        cfg.tpu.pipeline = args.pipeline
     if args.pallas:
         cfg.tpu.use_pallas = cfg.tpu.use_pallas_match = cfg.tpu.use_pallas_insert = True
         cfg.tpu.use_pallas_pose = cfg.tpu.use_pallas_refit = True
@@ -94,6 +94,7 @@ def main(argv=None) -> int:
     p.add_argument("--scan_points", type=int, default=3000)
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     p.add_argument("--traj_out", default=None)
+    p.add_argument("--pipeline", default=None, choices=["sequential", "deferred"])
     p.add_argument("--pallas", action="store_true",
                    help="turn all five kernel switches on (chain, match, insert, pose, refit)")
     p.add_argument("--chunk", type=int, default=0, help="replay this many scans a call (> 1)")

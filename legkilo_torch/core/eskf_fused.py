@@ -1,7 +1,8 @@
 """ESKF chain math with every small product unrolled (port of legkilo_tpu/core/eskf_fused.py).
 
 The plain PyTorch form of the chain kernel's arithmetic
-(ops/chain_stats.py): predict with the sparse transition applied as block
+(ops/chain_stats.py), and the fused path's chain off that kernel
+(filter_deferred._chain_fused_core): predict with the sparse transition applied as block
 row/column updates (eskf.cc:64-89), the structured IMU update
 (eskf.cc:125-135), the 18-row kinematic update with the nested-Schur 18x18
 inverse (KILO.cc:260-314), and the LiDAR point update from per-bucket
@@ -10,9 +11,9 @@ inverse (KILO.cc:260-314), and the LiDAR point update from per-bucket
     S_b = sum_n w X X^T,   [A b; b^T *] = Phi(R, t)^T S_b Phi(R, t)
 
 with X = [vec(n (x) [p]x) (27), n (3), vec(n (x) p) (9), n.c (1)] and
-w = matched / (r + 1e-4) (see the JAX module for the derivation).  The
-products keep the JAX module's summation order so f32 results agree with
-it to rounding.
+w = matched / (r + 1e-4) (see the JAX module for the derivation).  On the
+CPU the products keep the JAX module's summation order so f32 results
+agree with it to rounding; on the card ``umm``/``umv`` are matmuls.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from typing import Tuple
 
 import torch
 
+from .ordered_sum import index_add_rows
 from .state import DIM_STATE, State
 
 _R_JITTER = 1e-4  # the reference adds this to the innovation (eskf.cc:100)
@@ -28,7 +30,12 @@ N_FEAT = 40
 
 
 def umm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b with the contraction unrolled over the last dim of a."""
+    """a @ b with the contraction unrolled over the last dim of a (the JAX
+    module's order) on the CPU.  On the card, where each step of the
+    unrolled sum is a launch, it is one matmul: the same product rounded in
+    another order (fp32, TF32 off)."""
+    if a.device.type != "cpu":
+        return a @ b
     k = a.shape[-1]
     out = a[..., :, 0:1] * b[..., 0:1, :]
     for i in range(1, k):
@@ -37,7 +44,9 @@ def umm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def umv(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """a @ v, contraction unrolled."""
+    """a @ v, contraction unrolled on the CPU, one matmul elsewhere (umm)."""
+    if a.device.type != "cpu":
+        return (a @ v[..., None])[..., 0]
     k = a.shape[-1]
     out = a[..., :, 0] * v[..., 0:1]
     for i in range(1, k):
@@ -282,14 +291,16 @@ def point_features(p_i: torch.Tensor, normal: torch.Tensor, center: torch.Tensor
 
 
 def point_suffstats_compact(p_i, normal, center, r, matched, bidx, nb: int) -> torch.Tensor:
-    """Per-bucket S = sum w X X^T over compacted rows; rows whose bucket
-    index is out of range (padding, bidx == nb) are dropped."""
+    """Per-bucket S = sum w X X^T over compacted rows, summed in row order
+    on every device (core/ordered_sum.py); rows whose bucket index is out
+    of range (padding, bidx == nb) are dropped."""
     w = matched.to(p_i.dtype) / (r + _R_JITTER)
     x = point_features(p_i, normal, center)
     outer = (x * w[:, None])[:, :, None] * x[:, None, :]
     keep = (bidx >= 0) & (bidx < nb)
     tgt = torch.where(keep, bidx, torch.full_like(bidx, nb)).long()
-    s40 = outer.new_zeros((nb + 1, N_FEAT, N_FEAT)).index_add_(0, tgt, outer)
+    s40 = outer.new_zeros((nb + 1, N_FEAT, N_FEAT))
+    index_add_rows((s40,), tgt, (outer,), drop=nb)
     return s40[:nb]
 
 

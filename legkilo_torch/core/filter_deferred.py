@@ -1,26 +1,39 @@
-"""The deferred scan pipeline on the port's kernels (subset of legkilo_tpu/core/filter_deferred.py).
+"""The deferred scan pipeline (port of legkilo_tpu/core/filter_deferred.py).
 
 Two paths, chosen by ``chain_impl``.  ``"fused"`` is the main path: per
-scan, as ``_process_scan_fused`` of the JAX package with the chain, match
-and insert kernels on (``use_pallas``, ``use_pallas_match``,
-``use_pallas_insert``; ``use_pallas_pose`` and ``use_pallas_refit`` switch
-the pose and refit kernels on as well):
+scan, as ``_process_scan_fused`` of the JAX package, each phase on its
+kernel when its switch is on and on the configuration's own torch path
+(the JAX package's XLA path) when it is off:
 
 1. Match poses per bucket (``_predicted_bucket_poses``): from the scan's own
-   IMU events, by the pose kernel (ops/pose_prop.py) or in plain torch
-   (``_predicted_bucket_poses_imu``), or by constant-velocity extrapolation.
-2. Match: compact the valid points, then the keys kernel, the hash probe as
-   torch glue (one wide gather of ptab rows), and the select kernel, which
-   also sums the per-bucket 40x40 statistics s40 (``_match_compact_stats``,
-   the JAX ``_match_compact_stats_pallas``).
-3. The chain kernel over the buckets (ops/chain_stats.py); with
-   ``match_iters`` > 1, re-match at the chain's post-update bucket poses and
-   re-run the chain from the scan-start state.
-4. Insert: the ancestor-gated rows, the moments kernel, then the
-   scatter-adds, thresholds and refit (the refit kernel,
-   ops/plane_fit_rows.py, or plain ``fit_planes``) of core/voxel_map.py.
+   IMU events, by the pose kernel (``use_pallas_pose``, ops/pose_prop.py)
+   or in plain torch (``_predicted_bucket_poses_imu``), or by
+   constant-velocity extrapolation.
+2. Match, on the valid points compacted to the cap: with
+   ``use_pallas_match`` and a cap that is a multiple of 128, the keys
+   kernel, the hash probe as torch glue (one wide gather of ptab rows) and
+   the select kernel, which also sums the per-bucket 40x40 statistics s40
+   (``_match_compact_stats_kernel``, the JAX
+   ``_match_compact_stats_pallas``); otherwise ``voxel_map.match_points``
+   and ``eskf_fused.point_suffstats_compact`` (``_match_compact_stats``).
+3. The chain over the buckets: the chain kernel with ``use_pallas``
+   (ops/chain_stats.py), else ``_chain_fused_core``, the same recursion as
+   a Python loop over the buckets in eager torch; with ``match_iters`` > 1,
+   re-match at the chain's post-update bucket poses and re-run the chain
+   from the scan-start state.
+4. Insert: with ``use_pallas_insert``, ``insert_reuse_probe`` and an
+   ``insert_row_cap`` that is a positive multiple of 128, the ancestor-gated
+   rows, the moments kernel, then the scatter-adds, thresholds and refit
+   (the refit kernel, ops/plane_fit_rows.py, or plain ``fit_planes``) of
+   core/voxel_map.py (``insert_phase``); otherwise the world points and
+   variances at the post-update bucket poses and
+   ``voxel_map.insert_points_hinted`` (or, with ``insert_reuse_probe``
+   off, the claiming ``insert_points``).
 5. With ``map_sliding_en``, the map slide once the pose has moved
    ``sliding_thresh`` from the last slide.
+
+Any mix of the switches is legal, as in JAX: an XLA match can feed the
+chain and moments kernels.
 
 ``"jax"`` is the per-point path (the JAX package's lax.scan chain): the
 same match poses; ``_batched_match`` with ``voxel_map.match_points`` gives
@@ -30,11 +43,11 @@ rows for the probe and scattered back); the per-point chain kernel
 points to its 6x6 normal equations inside the chain; the insert recomputes world points and
 variances at the chain's post-update bucket poses and goes through the
 claiming ``insert_points``.  The chain, match and insert switches, the
-probe reuse and the multiple-of-128 caps belong to the fused path and are
-not read here; ``use_pallas_pose`` and ``use_pallas_refit`` act on both.
+probe reuse and the caps' multiples of 128 belong to the fused path and
+are not read here; ``use_pallas_pose`` and ``use_pallas_refit`` act on both.
 
-The sequential pipeline is not ported yet: ``check_supported`` raises
-NotImplementedError for it and for any other option off these paths.
+With ``return_cloud`` both paths return the scan's points in the world
+frame at the chain's post-update bucket poses, [NB, P, 3].
 """
 
 from __future__ import annotations
@@ -47,19 +60,27 @@ from ..ops import insert_rows as ir
 from ..ops import match_geom as mg
 from ..ops import pose_prop as pp
 from ..ops.chain_points import run_chain
-from ..ops.chain_stats import run_chain_stats
-from .filter import FilterCarry, FilterParams, ScanOutput, ScanPacket, StaticConfig, maybe_symmetrize_cov
+from ..ops.chain_stats import chain_plain, pack_state_and_events, run_chain_stats, unpack_chain_outputs
+from .filter import (
+    FilterCarry,
+    FilterParams,
+    ScanOutput,
+    ScanPacket,
+    StaticConfig,
+    _slide_if_moved,
+    maybe_symmetrize_cov,
+)
 from .plane_fit import calc_body_cov
+from .eskf_fused import point_suffstats_compact
 from .so3 import exp_so3, skew
 from .voxel_map import (
-    VoxelMap,
     _gather_fill,
     compact_order,
     gated_insert_rows,
     insert_packed_rows_hinted,
     insert_points,
+    insert_points_hinted,
     match_points,
-    slide_map,
 )
 
 F32 = torch.float32
@@ -70,27 +91,24 @@ def _row_cap(scfg: StaticConfig, nb: int, p: int) -> int:
     return min(cap, nb * p)
 
 
+def _pick_block(c: int) -> int:
+    """The JAX kernels' row block for a row count (0: no block fits, so
+    JAX routes the phase to its XLA path; the port routes it the same way)."""
+    for b in (512, 256, 128):
+        if c % b == 0:
+            return b
+    return 0
+
+
 def check_supported(scfg: StaticConfig, nb: int, p: int) -> None:
-    """Raise NotImplementedError for an option this slice has not ported."""
-    mcfg = scfg.map_cfg
-    common = {
-        "pipeline != 'deferred' (sequential rollout)": scfg.pipeline != "deferred",
+    """Raise NotImplementedError for a value no path of the port (nor of the
+    JAX package) takes: a ``chain_impl`` other than "fused" or "jax", or a
+    ``match_pose`` other than "imu" or "const_vel".  (The runner refuses a
+    dtype other than float32.)"""
+    missing = [k for k, v in {
         "chain_impl not 'fused' or 'jax'": scfg.chain_impl not in ("fused", "jax"),
         "match_pose not 'imu' or 'const_vel'": scfg.match_pose not in ("imu", "const_vel"),
-    }
-    # The switches and caps below shape the fused path only; the per-point
-    # path (chain_impl="jax") does not read them.
-    fused_only = {} if scfg.chain_impl == "jax" else {
-        "use_pallas off (the chain's non-kernel path)": not scfg.use_pallas,
-        "use_pallas_match off (the match phase's non-kernel path)": not scfg.use_pallas_match,
-        "use_pallas_insert off (the insert phase's non-kernel path)": not scfg.use_pallas_insert,
-        "insert_reuse_probe off": not scfg.insert_reuse_probe,
-        "match/insert cap not a multiple of 128": _row_cap(scfg, nb, p) % 128 != 0,
-        "insert_row_cap not a positive multiple of 128": (
-            mcfg.insert_row_cap <= 0 or mcfg.insert_row_cap % 128 != 0
-        ),
-    }
-    missing = [k for k, v in {**common, **fused_only}.items() if v]
+    }.items() if v]
     if missing:
         raise NotImplementedError("legkilo_torch has not ported: " + "; ".join(missing))
 
@@ -199,11 +217,61 @@ def _predicted_bucket_poses(carry: FilterCarry, packet: ScanPacket, params: Filt
 
 def _match_compact_stats(carry: FilterCarry, packet: ScanPacket, params: FilterParams,
                          scfg: StaticConfig, cap: int, poses=None):
+    """Match phase on the configuration's own torch path (the JAX XLA
+    ``_match_compact_stats``): the valid points compacted to ``cap`` rows,
+    their world points and variances at the match poses,
+    ``voxel_map.match_points``, the measurement variance (KILO.cc:201-209)
+    and the per-bucket statistics by ``eskf_fused.point_suffstats_compact``.
+    Returns (s40 [NB,40,40], nmatch [NB] int32, aux) with aux = (order,
+    bidx, pts_c, p_i_c [cap,3], cross_c [cap,3,3], body_cov_c [cap,3,3],
+    mask_c, own_keys [L,cap,3] int32, own_slot, own_found, own_plane [L,cap])
+    for the insert phase."""
+    cov0 = carry.cov
+    nb, p, _ = packet.points.shape
+    rb, pb = poses if poses is not None else _predicted_bucket_poses(carry, packet, params, scfg)
+
+    mask_f = (packet.point_mask & packet.bucket_mask[:, None]).reshape(-1)
+    order = compact_order(mask_f, cap)
+    mask_c = _gather_fill(mask_f, order, False)
+    bidx = order // p                                       # nb for padding rows
+    bidx_c = torch.clamp(bidx, max=nb - 1)
+
+    pts_c = _gather_fill(packet.points.reshape(-1, 3), order, 0.0)
+    p_i_c = pts_c @ params.ext_r.T + params.ext_t
+    cross_c = skew(p_i_c)
+    body_cov_c = calc_body_cov(pts_c, scfg.dept_err, scfg.beam_err)
+    rb_c = rb[bidx_c]
+    p_w_c = torch.einsum("cij,cj->ci", rb_c, p_i_c) + pb[bidx_c]
+    rot_ext_c = rb_c @ params.ext_r
+    rot_cross_c = rb_c @ cross_c
+    var_bw = torch.einsum("cij,cjk,clk->cil", rot_ext_c, body_cov_c, rot_ext_c)
+    var_c = (
+        var_bw
+        + torch.einsum("cij,jk,clk->cil", rot_cross_c, cov0[0:3, 0:3], rot_cross_c)
+        + cov0[3:6, 3:6]
+    )
+    m = match_points(carry.vm, scfg.map_cfg, p_w_c, var_c, mask_c)
+
+    j_nq = torch.cat([p_w_c - m.center, -m.normal], dim=-1)
+    single_l = torch.clamp(torch.einsum("ci,cij,cj->c", j_nq, m.plane_var, j_nq), min=0.0)
+    r_c = params.noise.lidar_point_meas_ratio * (
+        single_l + torch.einsum("ci,cij,cj->c", m.normal, var_bw, m.normal)
+    )
+    matched_c = m.matched & mask_c
+    s40 = point_suffstats_compact(p_i_c, m.normal, m.center, r_c, matched_c, bidx, nb)
+    # Integer counts: their sum does not depend on the order of the adds.
+    nmatch_b = torch.zeros((nb + 1,), dtype=torch.int32, device=bidx.device).index_add_(
+        0, bidx, matched_c.to(torch.int32))[:nb]
+    aux = (order, bidx, pts_c, p_i_c, cross_c, body_cov_c, mask_c,
+           m.own_keys, m.own_slot, m.own_found, m.own_plane)
+    return s40, nmatch_b, aux
+
+
+def _match_compact_stats_kernel(carry: FilterCarry, packet: ScanPacket, params: FilterParams,
+                                scfg: StaticConfig, cap: int, poses=None):
     """Match phase on the keys and select kernels (the JAX
-    ``_match_compact_stats_pallas``).  Returns (s40 [NB,40,40], nmatch
-    [NB] int32, aux) with aux = (order, bidx, p_i_c, body_cov_c, mask_c,
-    own_keys [L,cap,3], own_slot, own_found, own_plane [L,cap]) for the
-    insert phase."""
+    ``_match_compact_stats_pallas``); the contract of
+    ``_match_compact_stats``."""
     cov0 = carry.cov
     nb, p, _ = packet.points.shape
     dtype, dev = cov0.dtype, cov0.device
@@ -264,8 +332,9 @@ def _match_compact_stats(carry: FilterCarry, packet: ScanPacket, params: FilterP
     s40 = s40_flat.reshape(nb, 40, 40)
     nmatch_b = nm[:, 0].to(torch.int32)
 
+    p_i_c = piw_t[0:3].T
     aux = (
-        order, bidx, piw_t[0:3].T, covs_t[18:27].T.reshape(cap, 3, 3), mask_c,
+        order, bidx, pts_c, p_i_c, skew(p_i_c), covs_t[18:27].T.reshape(cap, 3, 3), mask_c,
         keys_t[0 : 3 * L].reshape(L, 3, cap).permute(0, 2, 1),
         slot[0:L], found[0:L], isp[0:L],
     )
@@ -364,19 +433,6 @@ def _chain_jax(carry: FilterCarry, packet: ScanPacket, params: FilterParams, scf
                      use_kin=scfg.use_kin)
 
 
-def _slide_if_moved(carry: FilterCarry, scfg: StaticConfig) -> FilterCarry:
-    """The map slide once the pose has moved ``sliding_thresh`` from the
-    last slide.  Both maps are formed and one is selected on the card: no
-    host read."""
-    moved = torch.linalg.norm(carry.state.pos - carry.last_slide_pos)
-    trigger = moved >= scfg.sliding_thresh
-    vm_slid = slide_map(carry.vm, scfg.map_cfg, carry.state.pos, scfg.half_map_size)
-    return carry._replace(
-        vm=VoxelMap(*(torch.where(trigger, a, b) for a, b in zip(vm_slid, carry.vm))),
-        last_slide_pos=torch.where(trigger, carry.state.pos, carry.last_slide_pos),
-    )
-
-
 def _process_scan_points(carry: FilterCarry, packet: ScanPacket, params: FilterParams,
                          scfg: StaticConfig) -> Tuple[FilterCarry, ScanOutput]:
     """The per-point scan step (``chain_impl="jax"``): match rows in bucket
@@ -425,6 +481,7 @@ def _process_scan_points(carry: FilterCarry, packet: ScanPacket, params: FilterP
         n_points=n_valid,
         n_cap_dropped=cap_dropped,
         map_overflow=carry.vm.ocnt - ocnt0,
+        cloud_world=p_w if scfg.return_cloud else None,
     )
     return carry, out
 
@@ -446,27 +503,83 @@ def insert_phase(vm, mcfg, params: FilterParams, bidx, p_i_c, body_cov_c, mask_c
     return insert_packed_rows_hinted(vm, mcfg, rows, mom_rows, moms_rows)
 
 
+def _chain_fused_core(carry: FilterCarry, packet: ScanPacket, params: FilterParams,
+                      scfg: StaticConfig, s40, nmatch_b):
+    """The chain off its kernel (the JAX ``_chain_fused_core``, a lax.scan
+    in XLA): the same bucket recursion in eskf_fused ops as a Python loop
+    over the buckets in eager torch (``ops.chain_stats.chain_plain``, the
+    chain kernel's plain version).  The gates are ``torch.where`` selects,
+    so nothing is read back to the host inside the loop.  Returns what
+    ``run_chain_stats`` returns."""
+    head, events = pack_state_and_events(carry, packet, params, scfg.use_kin)
+    brow = torch.stack([packet.bucket_time, packet.bucket_mask.to(F32), nmatch_b.to(F32)], dim=1)
+    return unpack_chain_outputs(carry, chain_plain(*head, brow, *events, s40, use_kin=scfg.use_kin))
+
+
+def _insert_at_bucket_poses(vm, scfg: StaticConfig, params: FilterParams, bidx, p_i_c, cross_c,
+                            body_cov_c, mask_c, own, rots, poss, rot_covs, pos_covs):
+    """The insert off the moments kernel (the JAX ``_process_scan_fused``
+    :815-835): the compacted points' world positions and variances at the
+    chain's post-update bucket poses, then ``insert_points_hinted`` (the
+    match phase's probe reused) or, with ``insert_reuse_probe`` off, the
+    claiming ``insert_points``."""
+    nb = rots.shape[0]
+    bidx_c = torch.clamp(bidx, max=nb - 1)
+    rb2 = rots[bidx_c]
+    p_w_c = torch.einsum("cij,cj->ci", rb2, p_i_c) + poss[bidx_c]
+    rot_ext2 = rb2 @ params.ext_r
+    rot_cross2 = rb2 @ cross_c
+    var_c = (
+        torch.einsum("cij,cjk,clk->cil", rot_ext2, body_cov_c, rot_ext2)
+        + torch.einsum("cij,cjk,clk->cil", rot_cross2, rot_covs[bidx_c], rot_cross2)
+        + pos_covs[bidx_c]
+    )
+    if scfg.insert_reuse_probe:
+        return insert_points_hinted(vm, scfg.map_cfg, p_w_c, var_c, mask_c, *own)
+    return insert_points(vm, scfg.map_cfg, p_w_c, var_c, mask_c)
+
+
+def _cloud(packet: ScanPacket, params: FilterParams, rots, poss):
+    """The scan's points in the world frame at the post-update bucket poses
+    [NB, P, 3] (``return_cloud``)."""
+    p_i = packet.points @ params.ext_r.T + params.ext_t
+    return torch.einsum("bij,bpj->bpi", rots, p_i) + poss[:, None, :]
+
+
 def _process_scan_fused(carry: FilterCarry, packet: ScanPacket, params: FilterParams,
                         scfg: StaticConfig) -> Tuple[FilterCarry, ScanOutput]:
+    """The fused scan step, each phase routed as the JAX package routes it
+    (module doc)."""
     nb, p, _ = packet.points.shape
     ocnt0 = carry.vm.ocnt
     cap = _row_cap(scfg, nb, p)
     n_valid = (packet.point_mask & packet.bucket_mask[:, None]).sum().to(torch.int32)
     cap_dropped = torch.clamp(n_valid - cap, min=0)
+    mcfg = scfg.map_cfg
+
+    match_fn = (_match_compact_stats_kernel if scfg.use_pallas_match and _pick_block(cap)
+                else _match_compact_stats)
+
+    def chain_fn(c, s40, nmatch_b):
+        if scfg.use_pallas:
+            return run_chain_stats(c, packet, params, s40, nmatch_b, use_kin=scfg.use_kin)
+        return _chain_fused_core(c, packet, params, scfg, s40, nmatch_b)
 
     carry0, poses = carry, None
     for _ in range(max(1, scfg.match_iters)):
-        s40, nmatch_b, aux = _match_compact_stats(carry0, packet, params, scfg, cap, poses)
-        carry, rots, poss, rot_covs, pos_covs, nmatch = run_chain_stats(
-            carry0, packet, params, s40, nmatch_b, use_kin=scfg.use_kin
-        )
+        s40, nmatch_b, aux = match_fn(carry0, packet, params, scfg, cap, poses)
+        carry, rots, poss, rot_covs, pos_covs, nmatch = chain_fn(carry0, s40, nmatch_b)
         poses = (rots, poss)
-    (order, bidx, p_i_c, body_cov_c, mask_c, own_keys, own_slot, own_found, own_plane) = aux
+    (order, bidx, pts_c, p_i_c, cross_c, body_cov_c, mask_c, *own) = aux
 
-    vm = insert_phase(
-        carry.vm, scfg.map_cfg, params, bidx, p_i_c, body_cov_c, mask_c,
-        own_keys, own_slot, own_found, own_plane, rots, poss, rot_covs, pos_covs,
-    )
+    use_kernel_insert = (scfg.use_pallas_insert and scfg.insert_reuse_probe
+                         and mcfg.insert_row_cap > 0 and _pick_block(mcfg.insert_row_cap))
+    if use_kernel_insert:
+        vm = insert_phase(carry.vm, mcfg, params, bidx, p_i_c, body_cov_c, mask_c, *own,
+                          rots, poss, rot_covs, pos_covs)
+    else:
+        vm = _insert_at_bucket_poses(carry.vm, scfg, params, bidx, p_i_c, cross_c, body_cov_c,
+                                     mask_c, own, rots, poss, rot_covs, pos_covs)
     carry = carry._replace(vm=vm)
 
     if scfg.map_sliding_en:
@@ -479,6 +592,7 @@ def _process_scan_fused(carry: FilterCarry, packet: ScanPacket, params: FilterPa
         n_points=n_valid,
         n_cap_dropped=cap_dropped,
         map_overflow=carry.vm.ocnt - ocnt0,
+        cloud_world=_cloud(packet, params, rots, poss) if scfg.return_cloud else None,
     )
     return carry, out
 

@@ -1,11 +1,14 @@
 """Odometry runner: host orchestration of the per-scan filter (subset of legkilo_tpu/runner.py).
 
-Sensor streams -> PacketBuilder -> ``process_scan_deferred`` on the port's
-kernels (the fused main path, or the per-point path with
-``tpu_chain_impl: jax``) -> trajectory.  Covers streaming replay with pipelined
+Sensor streams -> PacketBuilder -> ``process_scan_any`` (the deferred
+pipeline: the fused path, on the port's kernels where their switches are
+on, or the per-point path with ``tpu_chain_impl: jax``; or the sequential
+pipeline) -> trajectory and, with ``return_cloud``, each scan's registered
+world cloud.  Covers streaming replay with pipelined
 materialisation (up to ``tpu_pipeline_depth`` scans in flight: the card
 runs scan k while the host builds scan k+1), the auto-escalation latch for
-iterated matching, the match-collapse alarm, the sensor-gap soft reset,
+iterated matching (deferred pipeline only, as in the JAX runner), the
+match-collapse alarm, the sensor-gap soft reset,
 checkpoint save/load at a scan boundary (io/checkpoint.py, the JAX package's
 file format) and chunked offline replay (``run_offline(chunk=K)``: K staged
 scans a call through ``process_scan_chunk``, one host read a chunk, no
@@ -31,11 +34,12 @@ from .core.filter import (
     first_frame_map,
     init_carry,
     init_state_from_imu,
+    process_scan_any,
     process_scan_chunk,
     soft_reset_carry,
     stack_scan_packets,
 )
-from .core.filter_deferred import check_supported, process_scan_deferred
+from .core.filter_deferred import check_supported
 from .core.voxel_map import map_config_from
 from .io import checkpoint as ckpt
 from .io.dataset import (
@@ -61,6 +65,8 @@ class ScanResult:
     n_matched: int
     n_points: int
     n_raw: int
+    cloud_world: Optional[np.ndarray] = None  # [M, 3] valid points only
+    intensity: Optional[np.ndarray] = None    # [M] aligned with cloud_world
 
 
 def bench_config() -> Config:
@@ -101,7 +107,7 @@ def bench_config_points() -> Config:
     return cfg
 
 
-def make_static_config(cfg: Config, use_kin=None) -> StaticConfig:
+def make_static_config(cfg: Config, use_kin=None, return_cloud: bool = False) -> StaticConfig:
     """StaticConfig from a full Config."""
     return StaticConfig(
         map_cfg=map_config_from(cfg.voxel_map, use_pallas_refit=bool(cfg.tpu.use_pallas_refit)),
@@ -111,6 +117,7 @@ def make_static_config(cfg: Config, use_kin=None) -> StaticConfig:
         map_sliding_en=bool(cfg.voxel_map.map_sliding_en),
         sliding_thresh=float(cfg.voxel_map.sliding_thresh),
         half_map_size=int(cfg.voxel_map.half_map_size),
+        return_cloud=bool(return_cloud),
         pipeline=cfg.tpu.pipeline,
         use_pallas=bool(cfg.tpu.use_pallas),
         use_pallas_match=bool(cfg.tpu.use_pallas_match),
@@ -127,12 +134,13 @@ def make_static_config(cfg: Config, use_kin=None) -> StaticConfig:
 
 
 class OdometryRunner:
-    """Stateful replay engine around the per-scan filter, on ``device``."""
+    """Stateful replay engine around the per-scan filter, on ``device``;
+    with ``return_cloud`` each result carries its scan's world cloud."""
 
-    def __init__(self, cfg: Config, device="cuda"):
+    def __init__(self, cfg: Config, return_cloud: bool = False, device="cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.scfg = make_static_config(cfg)
+        self.scfg = make_static_config(cfg, return_cloud=return_cloud)
         check_supported(self.scfg, cfg.tpu.max_buckets, cfg.tpu.max_points_per_bucket)
         if cfg.tpu.dtype != "float32":
             raise NotImplementedError("legkilo_torch runs in float32 only")
@@ -156,7 +164,8 @@ class OdometryRunner:
         self._esc_after = max(0, int(cfg.tpu.escalate_after))
         self._deesc_after = max(0, int(cfg.tpu.deescalate_after))
         self._esc_streak = 0
-        self._esc_enabled = self._esc_after > 0 and esc_iters > self.scfg.match_iters
+        self._esc_enabled = (self.scfg.pipeline == "deferred" and self._esc_after > 0
+                             and esc_iters > self.scfg.match_iters)
         self._scfg_esc = self.scfg._replace(match_iters=esc_iters)
         self._scfg_active = self.scfg
         self._esc_active = False
@@ -325,7 +334,7 @@ class OdometryRunner:
                         "inflated)", pkt.rebase, gap)
             self.carry = soft_reset_carry(self.carry, pkt.rebase)
         dev_pkt = to_device_packet(pkt, self.device)
-        self.carry, out = process_scan_deferred(self.carry, dev_pkt, self.params, self._scfg_active)
+        self.carry, out = process_scan_any(self.carry, dev_pkt, self.params, self._scfg_active)
         self._inflight.append((pkt, out))
 
     def _materialize(self, pkt: HostPacket, out) -> ScanResult:
@@ -379,7 +388,7 @@ class OdometryRunner:
 
 def _to_host(out):
     """A ScanOutput's tensors as numpy arrays (this is the host's sync)."""
-    return out._replace(**{k: v.cpu().numpy() for k, v in out._asdict().items()})
+    return out._replace(**{k: v.cpu().numpy() for k, v in out._asdict().items() if v is not None})
 
 
 def _scan_result(pkt: HostPacket, out) -> ScanResult:
@@ -396,9 +405,18 @@ def _scan_result(pkt: HostPacket, out) -> ScanResult:
         log.warning("map overflow: %d insert rows beyond insert_row_cap, %d slot claims "
                     "failed (raise tpu_map_insert_row_cap / tpu_map_capacity_log2)",
                     int(mo[0]), int(mo[2]))
+    cloud = intensity = None
+    if out.cloud_world is not None:
+        # Valid rows only; the intensity rides along in the same order (the
+        # reference's registered world cloud is PointXYZINormal).
+        m = (pkt.point_mask & pkt.bucket_mask[:, None]).reshape(-1)
+        cloud = out.cloud_world.reshape(-1, 3)[m]
+        if pkt.intensity is not None:
+            intensity = pkt.intensity.reshape(-1)[m]
     return ScanResult(
         time=pkt.end_time, rot=out.rot, pos=out.pos,
         n_matched=int(out.n_matched), n_points=int(out.n_points), n_raw=pkt.n_raw,
+        cloud_world=cloud, intensity=intensity,
     )
 
 
@@ -427,7 +445,7 @@ def replay(runner: OdometryRunner, scans: Sequence[RawScan], events: Sequence) -
 
 def run_offline(cfg: Config, scans: Sequence[RawScan], events: Sequence, device="cuda",
                 resume: Optional[str] = None, save_ckpt: Optional[str] = None,
-                chunk: int = 0) -> List[ScanResult]:
+                chunk: int = 0, return_cloud: bool = False) -> List[ScanResult]:
     """Replay pre-loaded streams (dataset/sim replay) through the filter.
 
     ``resume`` restores a checkpoint first (feed only the scans and events
@@ -436,10 +454,13 @@ def run_offline(cfg: Config, scans: Sequence[RawScan], events: Sequence, device=
     ``chunk`` > 1 stages every packet first and replays ``chunk`` scans a
     call through ``process_scan_chunk``: the same trajectory as per-scan
     stepping with ``match_iters`` fixed (chunked replay does not run the
-    escalation latch)."""
+    escalation latch).  ``return_cloud`` gives each result its world cloud;
+    chunked replay does not return clouds and raises ValueError for it."""
     if chunk > 1:
+        if return_cloud:
+            raise ValueError("chunked replay does not support return_cloud")
         return _run_offline_chunked(cfg, scans, events, chunk, resume, save_ckpt, device)
-    runner = OdometryRunner(cfg, device=device)
+    runner = OdometryRunner(cfg, return_cloud=return_cloud, device=device)
     if resume:
         log.info("Resumed from %s at step %d", resume, runner.load_checkpoint(resume))
     for _ in replay(runner, scans, events):
@@ -495,7 +516,7 @@ def _run_offline_chunked(cfg: Config, scans: Sequence[RawScan], events: Sequence
         runner.carry, outs = process_scan_chunk(
             runner.carry, stack_scan_packets(devs), runner.params, runner.scfg)
         outs = _to_host(outs)
-        per_scan = [type(outs)(*(a[j] for a in outs)) for j in range(len(grp))]
+        per_scan = [type(outs)(*(None if a is None else a[j] for a in outs)) for j in range(len(grp))]
         results.extend(_scan_result(hp, out) for (_, hp), out in zip(grp, per_scan))
     runner.results = results
     if save_ckpt:

@@ -721,3 +721,115 @@ def test_index_outside_its_table_traps_on_card(cuda_device, case):
     run = subprocess.run([sys.executable, "-c", _TRAP_SCRIPT, case], cwd=root, capture_output=True,
                          text=True, timeout=600)
     assert run.returncode == (0 if case == "none" else 3), run.stdout + run.stderr
+
+
+def _sim_runner(cfg, duration):
+    """Stream ``duration`` s of the bench sim (seed 7, 8,000 points a scan)
+    through a runner on the card; returns the runner."""
+    from legkilo_torch.models import sim
+    from legkilo_torch.runner import OdometryRunner, replay
+
+    data = sim.simulate(sim.SimConfig(duration=duration, scan_points=8000, seed=7))
+    runner = OdometryRunner(cfg, device="cuda")
+    for _ in replay(runner, data.scans, data.imu):
+        pass
+    return runner
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "f16", "bf16"])
+def test_ordered_sum_is_the_cpu_order_on_card(cuda_device, dtype):
+    """index_add_rows on the card against index_add_ of the same tensors on
+    the CPU: bit-equal in f32 (the map's mom and meta tables, s40); the
+    narrow moms tables to their storage precision.  Two calls on the card
+    are bit-equal."""
+    import numpy as np
+
+    from legkilo_torch.core import ordered_sum
+
+    dt = {"f32": torch.float32, "f16": torch.float16, "bf16": torch.bfloat16}[dtype]
+    rng = np.random.default_rng(5)
+    for width, m, r in (((4,), 3000, 12288), ((9,), 3000, 12288), ((60,), 3000, 12288), ((40, 40), 29, 3584)):
+        dest = torch.from_numpy(rng.normal(scale=3.0, size=(m,) + width).astype(np.float32)).to(dt)
+        src = torch.from_numpy(rng.normal(size=(r,) + width).astype(np.float32))
+        tgt = torch.from_numpy(rng.integers(0, m // 3, size=r)).to(torch.int64)
+        tgt[::9] = m - 1
+        ref = dest.clone().index_add_(0, tgt, src.to(dt))
+        outs = []
+        for _ in range(2):
+            got = dest.to(cuda_device)
+            ordered_sum.index_add_rows([got], tgt.to(cuda_device), [src.to(cuda_device)], drop=m - 1)
+            outs.append(got[: m - 1].cpu())
+        assert torch.equal(outs[0], outs[1]), width
+        if dt == torch.float32:
+            assert torch.equal(outs[0], ref[: m - 1]), width
+        else:
+            eps = torch.finfo(dt).eps
+            assert torch.allclose(outs[0].float(), ref[: m - 1].float(), rtol=2 * eps, atol=0), width
+
+
+@pytest.mark.cuda
+def test_two_runs_of_the_five_kernel_path_are_equal_on_card(cuda_device):
+    """The fused path with all five kernels, twice over the same 3 s of the
+    bench sim: bit-equal trajectories and final map tables."""
+    from legkilo_torch.runner import bench_config
+
+    runs = [_sim_runner(bench_config(), 3.0) for _ in range(2)]
+    a, b = runs
+    assert len(a.results) == len(b.results) >= 25
+    for ra, rb in zip(a.results, b.results):
+        assert (ra.pos == rb.pos).all() and (ra.rot == rb.rot).all()
+    for f in ("ptab", "meta", "mom", "moms", "plane", "ocnt"):
+        assert torch.equal(getattr(a.carry.vm, f), getattr(b.carry.vm, f)), f
+
+
+@pytest.mark.cuda
+def test_moments_kernel_takes_the_xla_match_rows_on_card(cuda_device):
+    """The moments kernel fed by the match on its torch path
+    (``_match_compact_stats``: contiguous [cap, 3] and [cap, 3, 3] rows,
+    int32 keys) against its plain version on the same inputs (chip_smoke's
+    tolerance, rel 1e-5), from a map a short run of the mixed configuration
+    left."""
+    from legkilo_torch.core import filter_deferred as fd
+    from legkilo_torch.core.voxel_map import gated_insert_rows
+    from legkilo_torch.io.dataset import PacketBuilder, to_device_packet
+    from legkilo_torch.models import sim
+    from legkilo_torch.ops import insert_rows as ir
+    from legkilo_torch.runner import OdometryRunner, bench_config
+    import chip_smoke
+
+    cfg = bench_config()
+    cfg.tpu.use_pallas_match = False
+    data = sim.simulate(sim.SimConfig(duration=1.5, scan_points=8000, seed=7))
+    b = PacketBuilder(cfg)
+    for ev in data.imu:
+        b.add_imu(ev)
+    raws, pkts = [], []
+    for scan in data.scans:
+        b.add_scan(scan)
+        while b.ready():
+            raws.append(b._scans[0])
+            pkts.append(b.pop())
+    runner = OdometryRunner(cfg, device="cuda")
+    runner._initialize(raws[0], pkts[0])
+    for pk in pkts[1:-1]:
+        runner._dispatch(pk)
+    runner.flush()
+    dev_pkt = to_device_packet(pkts[-1], cuda_device)
+    scfg, params, carry = runner.scfg, runner.params, runner.carry
+    nb, p = dev_pkt.points.shape[0:2]
+    cap = fd._row_cap(scfg, nb, p)
+    s40, nm, aux = fd._match_compact_stats(carry, dev_pkt, params, scfg, cap)
+    order, bidx, pts_c, p_i_c, cross_c, body_cov_c, mask_c, *own = aux
+    assert p_i_c.is_contiguous() and body_cov_c.is_contiguous() and own[0].dtype == torch.int32
+    _, rots, poss, rot_covs, pos_covs, _ = fd.run_chain_stats(carry, dev_pkt, params, s40, nm)
+    rows = gated_insert_rows(scfg.map_cfg, mask_c, *own)
+    sizes = ir.level_sizes(scfg.map_cfg.voxel_size, scfg.map_cfg.levels, p_i_c.device)
+    args = (params.ext_r, sizes, rots, poss, rot_covs, pos_covs, p_i_c, body_cov_c, rows.pidx, bidx,
+            rows.keys, rows.lvl)
+    n0 = ir.moments_rows_call.launches
+    got = ir.moments_rows_call(*args)
+    assert ir.moments_rows_call.launches == n0 + 1
+    ref = ir.moments_rows_plain(*args)
+    for a, r in zip(got, ref):
+        assert chip_smoke.rel_err(a, r) <= 1e-5

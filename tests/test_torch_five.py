@@ -187,13 +187,16 @@ def test_chunked_replay_splits_at_a_gap_packet(monkeypatch, caplog):
         np.testing.assert_array_equal(a.rot, b.rot)
 
 
-def test_cli_sim_pallas_chunk(capsys):
-    """``sim --pallas --chunk 8`` on the CPU: all five switches through the
-    chunked entry."""
+def test_cli_sim_pallas_chunk(capsys, tmp_path):
+    """``sim --pipeline deferred --pallas --chunk 8`` on the CPU: all five
+    switches through the chunked entry (with an insert row cap, which the
+    moments kernel needs)."""
     from legkilo_torch import cli
 
-    assert cli.main(["sim", "--device", "cpu", "--pallas", "--chunk", "8", "--duration", "1.3",
-                     "--scan_points", "1500"]) == 0
+    path = tmp_path / "rowcap.yaml"
+    path.write_text("tpu_map_insert_row_cap: 4096\n")
+    assert cli.main(["sim", "--device", "cpu", "--pipeline", "deferred", "--pallas", "--chunk", "8",
+                     "--config_file", str(path), "--duration", "1.3", "--scan_points", "1500"]) == 0
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line["scans"] >= 12 and line["ate_rmse_m"] < 0.08
 

@@ -3,8 +3,8 @@
 Both run the same sim scans through the same packetizer and the deferred
 pipeline with the chain, match and insert kernels on (JAX in interpret
 mode; the port on its plain versions).  Also: resuming a JAX checkpoint in
-the port, the CLI without JAX importable, the options the port refuses, and
-no silent CPU fallback.
+the port, the CLI without JAX importable, the options the port refuses and
+those it runs, and no silent CPU fallback.
 """
 
 import json
@@ -258,7 +258,8 @@ def test_soft_reset_matches_jax(rng):
 
 
 def test_cli_sim_runs_without_jax():
-    """``python -m legkilo_torch sim --device cpu`` with jax unimportable."""
+    """``python -m legkilo_torch sim --device cpu`` with jax unimportable: the
+    JAX command's default, ``Config()`` on the sequential pipeline."""
     code = (
         "import runpy, sys\n"
         "sys.modules['jax'] = None\n"
@@ -278,23 +279,19 @@ def test_cli_sim_runs_without_jax():
 
 
 def test_cli_config_file_off_the_port_path_raises(tmp_path):
-    """A config file runs as written: one that leaves the kernel switches
-    off is refused, not switched onto the port's path."""
+    """A config file runs as written: one that sets a value no path of the
+    port takes is refused, not switched onto another path."""
     from legkilo_torch import cli
 
     path = tmp_path / "off.yaml"
-    path.write_text("tpu_pipeline: deferred\n")
-    with pytest.raises(NotImplementedError, match="use_pallas off"):
+    path.write_text("tpu_pipeline: deferred\ntpu_match_pose: spline\n")
+    with pytest.raises(NotImplementedError, match="match_pose"):
         cli.main(["sim", "--device", "cpu", "--config_file", str(path),
                   "--duration", "0.3", "--scan_points", "500"])
 
 
 @pytest.mark.parametrize("change", [
-    ("tpu", "pipeline", "sequential"), ("tpu", "use_pallas", False),
-    ("tpu", "use_pallas_match", False), ("tpu", "use_pallas_insert", False),
-    ("tpu", "match_pose", "spline"), ("tpu", "chain_impl", "pallas"),
-    ("tpu", "match_cap", 1100),
-    ("voxel_map", "insert_row_cap", 1000), ("tpu", "dtype", "float64"),
+    ("tpu", "match_pose", "spline"), ("tpu", "chain_impl", "pallas"), ("tpu", "dtype", "float64"),
 ])
 def test_unported_options_raise(change):
     cfg = make_cfg(t_config)
@@ -308,6 +305,9 @@ def test_unported_options_raise(change):
     ("tpu", "use_pallas_pose", True), ("tpu", "use_pallas_refit", True),
     ("tpu", "match_pose", "const_vel"), ("voxel_map", "map_sliding_en", True),
     ("tpu", "chain_impl", "jax"),
+    ("tpu", "pipeline", "sequential"), ("tpu", "use_pallas", False),
+    ("tpu", "use_pallas_match", False), ("tpu", "use_pallas_insert", False),
+    ("tpu", "match_cap", 1100), ("voxel_map", "insert_row_cap", 1000),
 ])
 def test_ported_options_run(change):
     """The options this package used to refuse: a runner takes each and
