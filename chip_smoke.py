@@ -73,9 +73,9 @@ Phases, each printing its own lines:
    default Config(), the sequential pipeline (3 s, "seq"); and
    configs/diter.yaml, sequential with leg kinematics (3 s, "seq_kin").
    leg_fusion, seq and seq_kin launch none of the kernels; mixed exactly
-   its four.  Profiler windows of 2 scans of leg_fusion and seq (the card's
-   activity only) follow the other profiles ("profile_leg_fusion",
-   "profile_seq").
+   its four.  The leg_fusion and seq runs each trace 2 of their scans
+   after 2 (the card's activity only; "profile_leg_fusion",
+   "profile_seq"), and leave those scans out of their ms/scan.
 
 Each run sets every launch counter to 0 before and reads it after: the
 kernels of the path it drives must have launched, and the others must not.
@@ -89,6 +89,7 @@ directory holding this script without the package.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import subprocess
@@ -107,6 +108,7 @@ MIXED_DURATION_S = 8.0   # the match off its kernels
 # The paths off every kernel launch ~10^5 small operations a scan (seconds
 # a scan on the card), so they run the fewest scans a run takes (30).
 SLOW_DURATION_S = 3.0    # leg_fusion.yaml, Config() sequential, diter.yaml
+SLOW_WARM, SLOW_PROF = 2, 2  # their profiler windows: 2 scans after 2, inside the runs
 SLIDE_THRESH_M = 1.0     # the sim's path moves ~5 m in 8 s
 SLIDE_HALF_MAP = 20      # level-0 voxels (10 m) each side of the pose
 CHUNK = 32               # bench.py:190
@@ -900,7 +902,7 @@ def path_config(five=True, points=False):
 
 
 def run_workload(torch, data, tag: str, use_kin=False, five=True, chunk=0, latch=True,
-                 points=False, edit=None, slides=False, config=None, keep=False):
+                 points=False, edit=None, slides=False, config=None, keep=False, window=None):
     """One run_offline over ``data`` on the card.  ``five`` off leaves the
     pose and refit kernels out (plain torch); ``points`` takes the per-point
     path; ``config()`` gives a configuration and the wrappers its path
@@ -911,9 +913,12 @@ def run_workload(torch, data, tag: str, use_kin=False, five=True, chunk=0, latch
     map slides, each seen as a move of the carry's last slide position, and
     fails on fewer than two; ``keep`` replays scan by scan too and keeps
     the poses and the final carry in the record (``poses``, ``carry``; not
-    logged).  Fails on an ATE that is not finite or not under the golden
-    bound, on a kernel of the path that never launched and on a kernel off
-    the path that did."""
+    logged); ``window`` = (tag, n_warm, n_prof) replays scan by scan too
+    and traces the card's activity over ``n_prof`` scans after ``n_warm``
+    (``profile_window``; those scans are left out of ``ms_per_scan``).
+    Fails on an ATE that is not finite or not under the golden bound, on a
+    kernel of the path that never launched and on a kernel off the path
+    that did."""
     from legkilo_torch.io.tum import ate_rmse
     from legkilo_torch.runner import OdometryRunner, replay, run_offline
 
@@ -929,10 +934,16 @@ def run_workload(torch, data, tag: str, use_kin=False, five=True, chunk=0, latch
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     n_slides = 0
-    if slides or keep:
+    prof = None
+    if slides or keep or window:
         runner = OdometryRunner(cfg, device="cuda")
         last = runner.carry.last_slide_pos
-        for _ in replay(runner, data.scans, events):
+        steps = replay(runner, data.scans, events)
+        if window:
+            for _ in itertools.islice(steps, window[1]):
+                pass
+            prof = profile_window(torch, runner, steps, window[2])
+        for _ in steps:
             now = runner.carry.last_slide_pos
             n_slides += int(not torch.equal(now, last))
             last = now
@@ -942,15 +953,22 @@ def run_workload(torch, data, tag: str, use_kin=False, five=True, chunk=0, latch
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counters()
+    n_timed = len(results)
+    if prof is not None:
+        wall -= prof.pop("wall_s")
+        n_timed -= prof["scans"]
     _, gt = data.gt_in_filter_frame()
     gtm = {round(t, 6): i for i, t in enumerate(data.gt_times)}
     pairs = [(r.pos, gt[gtm[round(r.time, 6)]]) for r in results if round(r.time, 6) in gtm]
     ate = ate_rmse(np.stack([p for p, _ in pairs]), np.stack([g for _, g in pairs]), align=False)
-    rec = dict(scans=len(results), ate_m=ate, ms_per_scan=wall / len(results) * 1e3,
+    rec = dict(scans=len(results), ate_m=ate, ms_per_scan=wall / n_timed * 1e3,
                max_memory_allocated=torch.cuda.max_memory_allocated(), launches=counts)
     if slides:
         rec["slides"] = n_slides
     log(f"[{tag}] {json.dumps(rec)}")
+    if prof is not None:
+        log_profile(window[0], prof, prof.pop("rows"))
+        rec["profile"] = prof
     if keep:
         rec["poses"] = [(r.rot, r.pos) for r in results]
         rec["carry"] = runner.carry
@@ -1052,64 +1070,83 @@ def phase_repeat(torch, data):
         raise RuntimeError("repeat: two runs of one configuration differ")
 
 
-def phase_profile(torch, tag: str, five=True, points=False, n_warm=10, n_prof=20, config=None,
-                  use_kin=False, host_ops=True):
+def device_rows(prof):
+    """(device us, name, calls) for each operation the card ran (kernels and
+    copies, so nothing counts twice) in a finished torch.profiler trace.
+    Reads the profiler's raw events: building its Python event objects
+    (``key_averages``) takes minutes for the ~10^5 launches a scan of the
+    paths off the kernels, the raw events about a second."""
+    by = {}
+    for e in prof.profiler.kineto_results.events():
+        if "CUDA" not in str(e.device_type()):
+            continue
+        us, n = by.get(e.name(), (0.0, 0))
+        by[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
+    return sorted(((us, key, n) for key, (us, n) in by.items()), reverse=True)
+
+
+def profile_window(torch, runner, steps, n_prof: int, host_ops=False):
+    """Trace ``n_prof`` scans of the replay ``steps`` through ``runner`` with
+    torch.profiler (the card's activity, and the host's with ``host_ops``),
+    after flushing what came before.  Returns the window's scans, host wall
+    (``wall_s`` in s, ``wall_ms_per_scan``), device busy ms and launches a
+    scan, and the device ``rows``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    runner.flush()
+    torch.cuda.synchronize()
+    n0 = len(runner.results)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host_ops else [ProfilerActivity.CUDA]
+    t0 = time.perf_counter()
+    with profile(activities=acts) as prof:
+        for _ in itertools.islice(steps, n_prof):
+            pass
+        runner.flush()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = device_rows(prof)
+    n = len(runner.results) - n0
+    dev_ms = sum(r[0] for r in rows) / 1e3
+    return dict(scans=n, wall_s=wall, wall_ms_per_scan=wall / n * 1e3,
+                device_ms_per_scan=dev_ms / n, launches_per_scan=sum(r[2] for r in rows) / n,
+                rows=rows)
+
+
+def log_profile(tag: str, rec: dict, rows) -> None:
+    n = rec["scans"]
+    log(f"[{tag}] {n} scans: host wall {rec['wall_ms_per_scan']:.3f} ms/scan, device busy "
+        f"{rec['device_ms_per_scan']:.3f} ms/scan "
+        f"({100 * rec['device_ms_per_scan'] / rec['wall_ms_per_scan']:.1f}% of wall), "
+        f"{rec['launches_per_scan']:.0f} device launches/scan")
+    if not rows:
+        log(f"[{tag}] device time: not measured (the profiler saw no CUDA activity)")
+    for dev_us, key, count in rows[:12]:
+        log(f"[{tag}]   {dev_us / n / 1e3:8.4f} ms/scan {count / n:6.1f} calls/scan  {key[:90]}")
+
+
+def phase_profile(torch, tag: str, five=True, points=False, n_warm=10, n_prof=20):
     """torch.profiler over ``n_prof`` scans after ``n_warm`` warm-up scans,
     fed by run_offline's own replay loop: the device's busy share of the
     host wall clock, kernel launches a scan, and device time a scan by
     operator (ours and PyTorch's).  ``five`` off profiles the configuration
-    without the pose and refit kernels, ``points`` the per-point path,
-    ``config()`` another configuration (with leg kinematics if ``use_kin``).
-    ``host_ops`` off traces the card's activity only: the paths off the
-    kernels launch ~10^5 operations a scan, and reading their host events
-    back takes longer than the scans."""
-    import itertools
-
-    from torch.profiler import ProfilerActivity, profile
-
+    without the pose and refit kernels, ``points`` the per-point path.
+    (The paths off the kernels take their windows inside their own runs:
+    ``run_workload(window=...)``.)"""
     from legkilo_torch.models import sim
     from legkilo_torch.runner import OdometryRunner, replay
 
     t_phase = time.perf_counter()
     data = sim.simulate(sim.SimConfig(duration=(n_warm + n_prof + 1) * 0.1, scan_points=8000, seed=7))
-    cfg, _ = config() if config is not None else path_config(five, points)
-    cfg.only_imu_use = not use_kin
+    cfg, _ = path_config(five, points)
     runner = OdometryRunner(cfg, device="cuda")
-    steps = replay(runner, data.scans, data.kin if use_kin else data.imu)
+    steps = replay(runner, data.scans, data.imu)
     for _ in itertools.islice(steps, n_warm):
         pass
-    runner.flush()
-    torch.cuda.synchronize()
-    n0 = len(runner.results)
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host_ops else [ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in steps:
-            pass
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    n = len(runner.results) - n0
-    rows = []  # device-side events only (kernels and copies), so nothing counts twice
-    for e in prof.key_averages():
-        if "CUDA" not in str(e.device_type):
-            continue
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "self_cuda_time_total", 0.0)
-        rows.append((dev_us, e.key, e.count))
-    rows.sort(reverse=True)
-    dev_ms = sum(r[0] for r in rows) / 1e3
-    launches = sum(r[2] for r in rows)
-    log(f"[{tag}] {n} scans: host wall {wall / n * 1e3:.3f} ms/scan, device busy "
-        f"{dev_ms / n:.3f} ms/scan ({100 * dev_ms / (wall * 1e3):.1f}% of wall), "
-        f"{launches / n:.0f} device launches/scan; the phase took "
-        f"{time.perf_counter() - t_phase:.1f} s")
-    if not rows:
-        log(f"[{tag}] device time: not measured (the profiler saw no CUDA activity)")
-    for dev_us, key, count in rows[:12]:
-        log(f"[{tag}]   {dev_us / n / 1e3:8.4f} ms/scan {count / n:6.1f} calls/scan  {key[:90]}")
-    return dict(scans=n, wall_ms_per_scan=wall / n * 1e3, device_ms_per_scan=dev_ms / n,
-                launches_per_scan=launches / n)
+    rec = profile_window(torch, runner, steps, n_prof, host_ops=True)
+    rec.pop("wall_s")
+    log_profile(tag, rec, rec.pop("rows"))
+    log(f"[{tag}] the phase took {time.perf_counter() - t_phase:.1f} s")
+    return rec
 
 
 def main(argv=None) -> int:
@@ -1165,11 +1202,13 @@ def main(argv=None) -> int:
             phase_repeat(torch, cut(data, REPEAT_DURATION_S))
         if "leg_fusion" in phases:
             run_workload(torch, cut(data, SLOW_DURATION_S), "leg_fusion", use_kin=True,
-                         config=leg_fusion_config)
+                         config=leg_fusion_config,
+                         window=("profile_leg_fusion", SLOW_WARM, SLOW_PROF))
         if "mixed" in phases:
             run_workload(torch, cut(data, MIXED_DURATION_S), "mixed", config=mixed_config)
         if "seq" in phases:
-            run_workload(torch, cut(data, SLOW_DURATION_S), "seq", config=seq_config)
+            run_workload(torch, cut(data, SLOW_DURATION_S), "seq", config=seq_config,
+                         window=("profile_seq", SLOW_WARM, SLOW_PROF))
         if "seq_kin" in phases:
             run_workload(torch, cut(data, SLOW_DURATION_S), "seq_kin", use_kin=True,
                          config=seq_kin_config)
@@ -1184,14 +1223,6 @@ def main(argv=None) -> int:
             log(f"[profile] per-point path: {pp_['launches_per_scan']:.0f} device launches/scan, "
                 f"device busy {pp_['device_ms_per_scan']:.3f} ms/scan, host wall "
                 f"{pp_['wall_ms_per_scan']:.3f} ms/scan")
-        for tag, fn, kin in (("profile_leg_fusion", leg_fusion_config, True),
-                             ("profile_seq", seq_config, False)):
-            if tag.split("_", 1)[1] in phases:
-                pr = phase_profile(torch, tag, n_warm=1, n_prof=2, config=fn, use_kin=kin,
-                                   host_ops=False)
-                log(f"[profile] {tag}: {pr['launches_per_scan']:.0f} device launches/scan, "
-                    f"device busy {pr['device_ms_per_scan']:.3f} ms/scan, host wall "
-                    f"{pr['wall_ms_per_scan']:.3f} ms/scan")
     if phases & {"kin", "points_kin"}:
         kin_data = simulate(KIN_DURATION_S, "kin")
         if "kin" in phases:

@@ -11,9 +11,11 @@ inverse (KILO.cc:260-314), and the LiDAR point update from per-bucket
     S_b = sum_n w X X^T,   [A b; b^T *] = Phi(R, t)^T S_b Phi(R, t)
 
 with X = [vec(n (x) [p]x) (27), n (3), vec(n (x) p) (9), n.c (1)] and
-w = matched / (r + 1e-4) (see the JAX module for the derivation).  On the
-CPU the products keep the JAX module's summation order so f32 results
-agree with it to rounding; on the card ``umm``/``umv`` are matmuls.
+w = matched / (r + 1e-4) (see the JAX module for the derivation).  The
+JAX module unrolls its small products into sums of broadcasts; here
+``umm``/``umv`` are one matmul each, on every device (on the card each
+step of an unrolled sum would be a launch), so f32 results agree with
+the JAX module's to rounding, not bit for bit.
 """
 
 from __future__ import annotations
@@ -30,28 +32,14 @@ N_FEAT = 40
 
 
 def umm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b with the contraction unrolled over the last dim of a (the JAX
-    module's order) on the CPU.  On the card, where each step of the
-    unrolled sum is a launch, it is one matmul: the same product rounded in
-    another order (fp32, TF32 off)."""
-    if a.device.type != "cpu":
-        return a @ b
-    k = a.shape[-1]
-    out = a[..., :, 0:1] * b[..., 0:1, :]
-    for i in range(1, k):
-        out = out + a[..., :, i : i + 1] * b[..., i : i + 1, :]
-    return out
+    """a @ b (the JAX module's unrolled product, as one matmul: fp32,
+    TF32 off)."""
+    return a @ b
 
 
 def umv(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """a @ v, contraction unrolled on the CPU, one matmul elsewhere (umm)."""
-    if a.device.type != "cpu":
-        return (a @ v[..., None])[..., 0]
-    k = a.shape[-1]
-    out = a[..., :, 0] * v[..., 0:1]
-    for i in range(1, k):
-        out = out + a[..., :, i] * v[..., i : i + 1]
-    return out
+    """a @ v (umm)."""
+    return (a @ v[..., None])[..., 0]
 
 
 def _t(m: torch.Tensor) -> torch.Tensor:

@@ -10,9 +10,9 @@ kernel when its switch is on and on the configuration's own torch path
    or in plain torch (``_predicted_bucket_poses_imu``), or by
    constant-velocity extrapolation.
 2. Match, on the valid points compacted to the cap: with
-   ``use_pallas_match`` and a cap that is a multiple of 128, the keys
-   kernel, the hash probe as torch glue (one wide gather of ptab rows) and
-   the select kernel, which also sums the per-bucket 40x40 statistics s40
+   ``use_pallas_match``, the keys kernel, the hash probe as torch glue
+   (one wide gather of ptab rows) and the select kernel, which also sums
+   the per-bucket 40x40 statistics s40
    (``_match_compact_stats_kernel``, the JAX
    ``_match_compact_stats_pallas``); otherwise ``voxel_map.match_points``
    and ``eskf_fused.point_suffstats_compact`` (``_match_compact_stats``).
@@ -21,10 +21,10 @@ kernel when its switch is on and on the configuration's own torch path
    a Python loop over the buckets in eager torch; with ``match_iters`` > 1,
    re-match at the chain's post-update bucket poses and re-run the chain
    from the scan-start state.
-4. Insert: with ``use_pallas_insert``, ``insert_reuse_probe`` and an
-   ``insert_row_cap`` that is a positive multiple of 128, the ancestor-gated
-   rows, the moments kernel, then the scatter-adds, thresholds and refit
-   (the refit kernel, ops/plane_fit_rows.py, or plain ``fit_planes``) of
+4. Insert: with ``use_pallas_insert``, ``insert_reuse_probe`` and a
+   positive ``insert_row_cap``, the ancestor-gated rows, the moments
+   kernel, then the scatter-adds, thresholds and refit (the refit kernel,
+   ops/plane_fit_rows.py, or plain ``fit_planes``) of
    core/voxel_map.py (``insert_phase``); otherwise the world points and
    variances at the post-update bucket poses and
    ``voxel_map.insert_points_hinted`` (or, with ``insert_reuse_probe``
@@ -33,7 +33,10 @@ kernel when its switch is on and on the configuration's own torch path
    ``sliding_thresh`` from the last slide.
 
 Any mix of the switches is legal, as in JAX: an XLA match can feed the
-chain and moments kernels.
+chain and moments kernels.  The route follows the switches alone: the
+JAX package also sends a phase to XLA when its cap is no multiple of a
+Pallas row block (``_pick_block``), but the port's kernels take any row
+count, so a cap such as 1,100 runs the kernels here.
 
 ``"jax"`` is the per-point path (the JAX package's lax.scan chain): the
 same match poses; ``_batched_match`` with ``voxel_map.match_points`` gives
@@ -42,9 +45,9 @@ rows for the probe and scattered back); the per-point chain kernel
 (ops/chain_points.py; one warp, as the fused chain) reduces each bucket's
 points to its 6x6 normal equations inside the chain; the insert recomputes world points and
 variances at the chain's post-update bucket poses and goes through the
-claiming ``insert_points``.  The chain, match and insert switches, the
-probe reuse and the caps' multiples of 128 belong to the fused path and
-are not read here; ``use_pallas_pose`` and ``use_pallas_refit`` act on both.
+claiming ``insert_points``.  The chain, match and insert switches and
+the probe reuse belong to the fused path and are not read here;
+``use_pallas_pose`` and ``use_pallas_refit`` act on both.
 
 With ``return_cloud`` both paths return the scan's points in the world
 frame at the chain's post-update bucket poses, [NB, P, 3].
@@ -89,15 +92,6 @@ F32 = torch.float32
 def _row_cap(scfg: StaticConfig, nb: int, p: int) -> int:
     cap = max(scfg.match_cap, scfg.insert_cap) or nb * p
     return min(cap, nb * p)
-
-
-def _pick_block(c: int) -> int:
-    """The JAX kernels' row block for a row count (0: no block fits, so
-    JAX routes the phase to its XLA path; the port routes it the same way)."""
-    for b in (512, 256, 128):
-        if c % b == 0:
-            return b
-    return 0
 
 
 def check_supported(scfg: StaticConfig, nb: int, p: int) -> None:
@@ -223,9 +217,10 @@ def _match_compact_stats(carry: FilterCarry, packet: ScanPacket, params: FilterP
     ``voxel_map.match_points``, the measurement variance (KILO.cc:201-209)
     and the per-bucket statistics by ``eskf_fused.point_suffstats_compact``.
     Returns (s40 [NB,40,40], nmatch [NB] int32, aux) with aux = (order,
-    bidx, pts_c, p_i_c [cap,3], cross_c [cap,3,3], body_cov_c [cap,3,3],
-    mask_c, own_keys [L,cap,3] int32, own_slot, own_found, own_plane [L,cap])
-    for the insert phase."""
+    bidx, p_i_c [cap,3], body_cov_c [cap,3,3], mask_c, own_keys [L,cap,3]
+    int32, own_slot, own_found, own_plane [L,cap]) for the insert phase:
+    the JAX aux less ``pts_c`` and ``cross_c``, which no insert reads (the
+    insert off the moments kernel forms ``skew(p_i_c)`` itself)."""
     cov0 = carry.cov
     nb, p, _ = packet.points.shape
     rb, pb = poses if poses is not None else _predicted_bucket_poses(carry, packet, params, scfg)
@@ -262,8 +257,7 @@ def _match_compact_stats(carry: FilterCarry, packet: ScanPacket, params: FilterP
     # Integer counts: their sum does not depend on the order of the adds.
     nmatch_b = torch.zeros((nb + 1,), dtype=torch.int32, device=bidx.device).index_add_(
         0, bidx, matched_c.to(torch.int32))[:nb]
-    aux = (order, bidx, pts_c, p_i_c, cross_c, body_cov_c, mask_c,
-           m.own_keys, m.own_slot, m.own_found, m.own_plane)
+    aux = (order, bidx, p_i_c, body_cov_c, mask_c, m.own_keys, m.own_slot, m.own_found, m.own_plane)
     return s40, nmatch_b, aux
 
 
@@ -334,7 +328,7 @@ def _match_compact_stats_kernel(carry: FilterCarry, packet: ScanPacket, params: 
 
     p_i_c = piw_t[0:3].T
     aux = (
-        order, bidx, pts_c, p_i_c, skew(p_i_c), covs_t[18:27].T.reshape(cap, 3, 3), mask_c,
+        order, bidx, p_i_c, covs_t[18:27].T.reshape(cap, 3, 3), mask_c,
         keys_t[0 : 3 * L].reshape(L, 3, cap).permute(0, 2, 1),
         slot[0:L], found[0:L], isp[0:L],
     )
@@ -516,7 +510,7 @@ def _chain_fused_core(carry: FilterCarry, packet: ScanPacket, params: FilterPara
     return unpack_chain_outputs(carry, chain_plain(*head, brow, *events, s40, use_kin=scfg.use_kin))
 
 
-def _insert_at_bucket_poses(vm, scfg: StaticConfig, params: FilterParams, bidx, p_i_c, cross_c,
+def _insert_at_bucket_poses(vm, scfg: StaticConfig, params: FilterParams, bidx, p_i_c,
                             body_cov_c, mask_c, own, rots, poss, rot_covs, pos_covs):
     """The insert off the moments kernel (the JAX ``_process_scan_fused``
     :815-835): the compacted points' world positions and variances at the
@@ -528,7 +522,7 @@ def _insert_at_bucket_poses(vm, scfg: StaticConfig, params: FilterParams, bidx, 
     rb2 = rots[bidx_c]
     p_w_c = torch.einsum("cij,cj->ci", rb2, p_i_c) + poss[bidx_c]
     rot_ext2 = rb2 @ params.ext_r
-    rot_cross2 = rb2 @ cross_c
+    rot_cross2 = rb2 @ skew(p_i_c)
     var_c = (
         torch.einsum("cij,cjk,clk->cil", rot_ext2, body_cov_c, rot_ext2)
         + torch.einsum("cij,cjk,clk->cil", rot_cross2, rot_covs[bidx_c], rot_cross2)
@@ -546,6 +540,14 @@ def _cloud(packet: ScanPacket, params: FilterParams, rots, poss):
     return torch.einsum("bij,bpj->bpi", rots, p_i) + poss[:, None, :]
 
 
+def kernel_routes(scfg: StaticConfig) -> Tuple[bool, bool]:
+    """Whether the fused path matches on the keys and select kernels and
+    inserts on the moments kernel: by the switches alone, at any cap."""
+    mcfg = scfg.map_cfg
+    return (bool(scfg.use_pallas_match),
+            bool(scfg.use_pallas_insert and scfg.insert_reuse_probe and mcfg.insert_row_cap > 0))
+
+
 def _process_scan_fused(carry: FilterCarry, packet: ScanPacket, params: FilterParams,
                         scfg: StaticConfig) -> Tuple[FilterCarry, ScanOutput]:
     """The fused scan step, each phase routed as the JAX package routes it
@@ -557,8 +559,8 @@ def _process_scan_fused(carry: FilterCarry, packet: ScanPacket, params: FilterPa
     cap_dropped = torch.clamp(n_valid - cap, min=0)
     mcfg = scfg.map_cfg
 
-    match_fn = (_match_compact_stats_kernel if scfg.use_pallas_match and _pick_block(cap)
-                else _match_compact_stats)
+    match_kernel, insert_kernel = kernel_routes(scfg)
+    match_fn = _match_compact_stats_kernel if match_kernel else _match_compact_stats
 
     def chain_fn(c, s40, nmatch_b):
         if scfg.use_pallas:
@@ -570,16 +572,14 @@ def _process_scan_fused(carry: FilterCarry, packet: ScanPacket, params: FilterPa
         s40, nmatch_b, aux = match_fn(carry0, packet, params, scfg, cap, poses)
         carry, rots, poss, rot_covs, pos_covs, nmatch = chain_fn(carry0, s40, nmatch_b)
         poses = (rots, poss)
-    (order, bidx, pts_c, p_i_c, cross_c, body_cov_c, mask_c, *own) = aux
+    (order, bidx, p_i_c, body_cov_c, mask_c, *own) = aux
 
-    use_kernel_insert = (scfg.use_pallas_insert and scfg.insert_reuse_probe
-                         and mcfg.insert_row_cap > 0 and _pick_block(mcfg.insert_row_cap))
-    if use_kernel_insert:
+    if insert_kernel:
         vm = insert_phase(carry.vm, mcfg, params, bidx, p_i_c, body_cov_c, mask_c, *own,
                           rots, poss, rot_covs, pos_covs)
     else:
-        vm = _insert_at_bucket_poses(carry.vm, scfg, params, bidx, p_i_c, cross_c, body_cov_c,
-                                     mask_c, own, rots, poss, rot_covs, pos_covs)
+        vm = _insert_at_bucket_poses(carry.vm, scfg, params, bidx, p_i_c, body_cov_c, mask_c, own,
+                                     rots, poss, rot_covs, pos_covs)
     carry = carry._replace(vm=vm)
 
     if scfg.map_sliding_en:

@@ -1,11 +1,11 @@
-"""Scatter-adds summed in row order on every device.
+"""Scatter-adds summed in row order, the same on every device.
 
 ``index_add_`` on a CPU tensor adds source row 0, then row 1, ... into
-their targets, rounding after every add, as the JAX package's scatter-add
-does on the CPU.  On a CUDA tensor it adds with atomics, so the order in
-which the rows of one target meet changes from run to run, and with it the
-rounding: two runs of one commit give different maps.  ``index_add_rows``
-keeps the CPU's order on the card:
+their targets, as the JAX package's scatter-add does on the CPU.  On a
+CUDA tensor it adds with atomics, so the order in which the rows of one
+target meet changes from run to run, and with it the rounding: two runs
+of one commit give different maps.  ``index_add_rows`` sums in row order
+on every device, by one form that the CPU tests run and the card runs:
 
 1. One stable sort of the targets, shared by every table summed with them:
    the rows of one target become a segment, in ascending row order.
@@ -19,16 +19,17 @@ keeps the CPU's order on the card:
 
 The rows aimed at ``drop`` (the table's last row: masked and padding
 rows) are not summed at all: their segment is given no rows, since one
-thread summing thousands of them would be the launch's long pole.
+thread summing thousands of them would be the launch's long pole.  So the
+``drop`` row ends up holding no sum; both callers discard it.
 
 The sums run in f32 for an f16 or bf16 table and round to the table's
 dtype once, at the copy: that is what ``index_add_`` of a CPU tensor does
 with a narrow table (it accumulates in f32 and stores once), so the result
-is bit-equal to it for f32, f16 and bf16 tables
-(tests/test_torch_ordered_sum.py holds the two on the CPU, and on the card
-against the CPU's result).  The cost is one sort, a gather of the
-rows and of their targets, one ``segment_reduce`` and one ``index_copy_``
-a table.
+is bit-equal to it for f32, f16 and bf16 tables on every row but ``drop``
+(tests/test_torch_ordered_sum.py holds the two on the CPU, and
+tests/test_torch_cuda.py the card's result against the CPU's).  The cost
+is one sort, a gather of the rows and of their targets, one
+``segment_reduce`` and one ``index_copy_`` a table.
 """
 
 from __future__ import annotations
@@ -41,21 +42,9 @@ import torch
 def index_add_rows(dests: Sequence[torch.Tensor], tgt: torch.Tensor,
                    rows: Sequence[torch.Tensor], drop: int) -> None:
     """``dests[i][tgt[r]] += rows[i][r]`` for r = 0, 1, ... in that order,
-    in place.  ``tgt`` [R] int64 names rows of every table; ``drop`` is the
-    last row of every table, whose contents the caller discards.  A CPU tensor
-    takes ``index_add_`` (already in row order), any other
-    ``segment_add_rows``."""
-    if tgt.device.type == "cpu":
-        for d, x in zip(dests, rows):
-            d.index_add_(0, tgt, x.to(d.dtype))
-        return
-    segment_add_rows(dests, tgt, rows, drop)
-
-
-def segment_add_rows(dests: Sequence[torch.Tensor], tgt: torch.Tensor,
-                     rows: Sequence[torch.Tensor], drop: int) -> None:
-    """The sorted-segment form of ``index_add_rows`` (module doc), on any
-    device."""
+    in place, on any device (module doc).  ``tgt`` [R] int64 names rows of
+    every table; ``drop`` is the last row of every table, whose contents
+    the caller discards."""
     n = tgt.shape[0]
     dev = tgt.device
     srt, perm = torch.sort(tgt, stable=True)

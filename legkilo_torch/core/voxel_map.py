@@ -482,10 +482,12 @@ def _insert_finish(vm: VoxelMap, cfg: MapConfig, ptab_x, p_w_rows, var_rows, key
     fs.scatter_(0, pos_t, srt)
     fs = fs[:budget]
 
-    if cfg.use_pallas_refit and budget % 128 == 0:
+    if cfg.use_pallas_refit:
         # The refit kernel, reading each slot's rows from the tables
-        # (ops/plane_fit_rows.py).  Every fs entry names a row of the
-        # sentinel-extended tables: a voxel slot or the sentinel.
+        # (ops/plane_fit_rows.py), at any budget (the JAX package needs a
+        # multiple of 128 for its Pallas block; the kernel here does not).
+        # Every fs entry names a row of the sentinel-extended tables: a
+        # voxel slot or the sentinel.
         out = fit_slots_call(fit_par(cfg.planer_threshold, dev), meta_x, mom_x, moms_x, fs)
         plane_rows = out[:, 0:PLANE_DIM]
         meta_fit = out[:, PLANE_DIM : PLANE_DIM + META_DIM]

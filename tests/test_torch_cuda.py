@@ -740,9 +740,9 @@ def _sim_runner(cfg, duration):
 @pytest.mark.parametrize("dtype", ["f32", "f16", "bf16"])
 def test_ordered_sum_is_the_cpu_order_on_card(cuda_device, dtype):
     """index_add_rows on the card against index_add_ of the same tensors on
-    the CPU: bit-equal in f32 (the map's mom and meta tables, s40); the
-    narrow moms tables to their storage precision.  Two calls on the card
-    are bit-equal."""
+    the CPU: bit-equal in f32 (the map's mom and meta tables, s40) and in
+    the narrow moms tables (f16, bf16), on every row but the dropped one.
+    Two calls on the card are bit-equal."""
     import numpy as np
 
     from legkilo_torch.core import ordered_sum
@@ -761,11 +761,7 @@ def test_ordered_sum_is_the_cpu_order_on_card(cuda_device, dtype):
             ordered_sum.index_add_rows([got], tgt.to(cuda_device), [src.to(cuda_device)], drop=m - 1)
             outs.append(got[: m - 1].cpu())
         assert torch.equal(outs[0], outs[1]), width
-        if dt == torch.float32:
-            assert torch.equal(outs[0], ref[: m - 1]), width
-        else:
-            eps = torch.finfo(dt).eps
-            assert torch.allclose(outs[0].float(), ref[: m - 1].float(), rtol=2 * eps, atol=0), width
+        assert torch.equal(outs[0], ref[: m - 1]), width
 
 
 @pytest.mark.cuda
@@ -820,7 +816,7 @@ def test_moments_kernel_takes_the_xla_match_rows_on_card(cuda_device):
     nb, p = dev_pkt.points.shape[0:2]
     cap = fd._row_cap(scfg, nb, p)
     s40, nm, aux = fd._match_compact_stats(carry, dev_pkt, params, scfg, cap)
-    order, bidx, pts_c, p_i_c, cross_c, body_cov_c, mask_c, *own = aux
+    order, bidx, p_i_c, body_cov_c, mask_c, *own = aux
     assert p_i_c.is_contiguous() and body_cov_c.is_contiguous() and own[0].dtype == torch.int32
     _, rots, poss, rot_covs, pos_covs, _ = fd.run_chain_stats(carry, dev_pkt, params, s40, nm)
     rows = gated_insert_rows(scfg.map_cfg, mask_c, *own)
@@ -833,3 +829,28 @@ def test_moments_kernel_takes_the_xla_match_rows_on_card(cuda_device):
     ref = ir.moments_rows_plain(*args)
     for a, r in zip(got, ref):
         assert chip_smoke.rel_err(a, r) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_ragged_caps_launch_the_kernels_on_card(cuda_device):
+    """A match cap of 1,100, an insert row cap of 1,000 and a refit budget
+    of 1,000 (no multiple of 128, which would send the JAX package to its
+    XLA path) still run the keys, select, moments and fit kernels on the
+    card: the route follows the switches alone."""
+    import numpy as np
+
+    from legkilo_torch.ops import insert_rows as ir
+    from legkilo_torch.ops import match_geom as mg
+    from legkilo_torch.ops import plane_fit_rows as pfr
+    from legkilo_torch.runner import bench_config
+
+    cfg = bench_config()
+    cfg.tpu.match_cap = cfg.tpu.insert_cap = 1100
+    cfg.voxel_map.insert_row_cap = 1000
+    cfg.voxel_map.refit_budget = 1000
+    calls = (mg.keys_call, mg.select_call, ir.moments_rows_call, pfr.fit_slots_call)
+    before = [c.launches for c in calls]
+    runner = _sim_runner(cfg, 1.5)
+    assert len(runner.results) >= 10
+    assert all(c.launches > n for c, n in zip(calls, before)), [c.launches - n for c, n in zip(calls, before)]
+    assert all(np.isfinite(r.pos).all() for r in runner.results)

@@ -5,7 +5,8 @@ With a kernel switch off, JAX runs that phase on XLA: the match as
 (``_match_compact_stats``), the chain as ``_chain_fused_core`` (a lax.scan
 of eskf_fused ops), the insert at the post-update bucket poses through
 ``insert_points_hinted`` (gated or not) or ``insert_points``.  The port
-routes every mix of switches the same way.  Each piece is held against its
+routes every mix of switches the same way; a cap that is no multiple of
+128, which JAX also sends to XLA, keeps the port's kernels.  Each piece is held against its
 JAX counterpart from one shared state (the JAX carry after eight scans,
 converted), then a whole step with each switch off, and a short run with
 every switch off scan by scan.
@@ -79,15 +80,17 @@ def packets(shared, i, kin=False):
 def test_xla_match_matches_jax(shared):
     """``_match_compact_stats``: the same compaction, probe and keys exactly;
     the points' rows to rounding; matches and statistics to rounding (a
-    match on a gate's edge may flip)."""
+    match on a gate's edge may flip).  The port's aux is JAX's less
+    ``pts_c`` and ``cross_c`` (JAX fields 2 and 4), which no insert reads."""
     jpk, tpk = packets(shared, SHARED + 1)
     js40, jnm, jaux = _JAX_MATCH(shared["jc"], jpk, shared["jparams"], shared["jscfg"], CAP)
     ts40, tnm, taux = t_fd._match_compact_stats(shared["tc"], tpk, shared["tparams"], shared["tscfg"], CAP)
-    assert len(taux) == len(jaux) == 11
-    for i in (0, 1, 2, 6, 7, 8, 9, 10):   # order, bidx, pts_c, mask_c, own keys/slot/found/plane
+    assert len(taux) == 9 and len(jaux) == 11
+    jaux = [x for i, x in enumerate(jaux) if i not in (2, 4)]
+    for i in (0, 1, 4, 5, 6, 7, 8):       # order, bidx, mask_c, own keys/slot/found/plane
         np.testing.assert_array_equal(N(taux[i]), np.asarray(jaux[i]), err_msg=str(i))
-    assert taux[7].dtype == torch.int32 and taux[1].dtype == torch.int64
-    for i in (3, 4, 5):                   # p_i_c, cross_c, body_cov_c
+    assert taux[5].dtype == torch.int32 and taux[1].dtype == torch.int64
+    for i in (2, 3):                      # p_i_c, body_cov_c
         np.testing.assert_allclose(N(taux[i]), np.asarray(jaux[i]), rtol=1e-6, atol=1e-7, err_msg=str(i))
     jn, tn = np.asarray(jnm), N(tnm)
     assert tnm.dtype == torch.int32 and jn.sum() > 100
@@ -147,9 +150,19 @@ def test_insert_points_hinted_matches_jax(rng, branch):
     assert N(got.meta)[:, 3].sum() > 5
 
 
-def test_kernel_route_needs_caps_of_128_multiples():
-    assert [t_fd._pick_block(c) for c in (4096, 3584, 1100, 1000, 384)] == [512, 512, 0, 0, 128]
-    assert [t_fd._pick_block(c) for c in (4096, 1100)] == [j_fd._pick_block(c) for c in (4096, 1100)]
+@pytest.mark.parametrize("match_cap,row_cap", [(4096, 512), (1100, 1000), (384, 0)])
+def test_kernel_route_takes_any_cap(shared, match_cap, row_cap):
+    """The fused path's kernel routes follow the switches alone: the port's
+    kernels take any row count, so a cap that is no multiple of 128 (which
+    sends the JAX package to XLA) keeps its kernels; a zero insert row cap
+    or probe reuse off takes the insert off the moments kernel."""
+    base = shared["tscfg"]
+    on = base._replace(use_pallas=True, use_pallas_match=True, use_pallas_insert=True,
+                       match_cap=match_cap, insert_cap=match_cap,
+                       map_cfg=base.map_cfg._replace(insert_row_cap=row_cap))
+    assert t_fd.kernel_routes(on) == (True, row_cap > 0)
+    assert t_fd.kernel_routes(on._replace(insert_reuse_probe=False)) == (True, False)
+    assert t_fd.kernel_routes(on._replace(use_pallas_match=False, use_pallas_insert=False)) == (False, False)
 
 
 @pytest.mark.parametrize("chain_impl", ["fused", "jax"])
@@ -181,9 +194,11 @@ STEPS = {
 @pytest.mark.parametrize("name", list(STEPS))
 def test_step_with_switches_off_matches_jax(shared, name):
     """One step from the shared state with the kernels on but for the named
-    change (a cap that is not a multiple of 128 takes the XLA route): the
-    pose to 2e-4 m (rounding only), matches within 2, the same overflow
-    counts and the same map by key."""
+    change: the pose to 2e-4 m (rounding only), matches within 2, the same
+    overflow counts and the same map by key.  A cap that is no multiple of
+    128 sends the JAX package to its XLA path, while the port keeps its
+    kernels (their plain versions here), so those cases hold the kernel
+    route against JAX's XLA route."""
     kw = dict(STEPS[name])
     row_cap = kw.pop("row_cap", None)
     on = dict(use_pallas=True, use_pallas_match=True, use_pallas_insert=True)

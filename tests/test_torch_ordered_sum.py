@@ -1,9 +1,9 @@
 """The row-order scatter-add (core/ordered_sum.py) against ``index_add_`` on the CPU.
 
-``segment_add_rows`` is the form the card runs (a stable sort of the
+``index_add_rows`` runs one form on every device (a stable sort of the
 targets, a running sum a segment): here it runs on CPU tensors and must
-give what ``index_add_`` gives, bit for bit, for the tables' widths and
-dtypes (meta 4, mom 9, moms 60 in f32/f16/bf16, s40 40x40), with
+give what ``index_add_`` gives, bit for bit on every row but the dropped
+one, for the tables' widths and dtypes (meta 4, mom 9, moms 60 in f32/f16/bf16, s40 40x40), with
 targets repeated hundreds of times, targets never hit, the dropped row in
 use, and destinations that already hold sums.  On the card the same
 helper is held against this CPU result (tests/test_torch_cuda.py).
@@ -36,7 +36,7 @@ def test_segment_add_is_index_add(rng, dtype, width, m, r):
     dest, src, tgt = tables(rng, m, r, width, DTYPES[dtype])
     ref = dest.clone().index_add_(0, tgt, src.to(dest.dtype))
     got = dest.clone()
-    ordered_sum.segment_add_rows([got], tgt, [src], drop=m - 1)
+    ordered_sum.index_add_rows([got], tgt, [src], drop=m - 1)
     assert torch.equal(got[: m - 1], ref[: m - 1])
 
 
@@ -48,13 +48,16 @@ def test_shared_sort_for_several_tables(rng):
     moms, s60, _ = tables(rng, 64, 2000, (60,), torch.float16)
     refs = [t.clone().index_add_(0, tgt, s.to(t.dtype)) for t, s in ((meta, s4), (mom, s9), (moms, s60))]
     got = [meta.clone(), mom.clone(), moms.clone()]
-    ordered_sum.segment_add_rows(got, tgt, [s4, s9, s60], drop=63)
+    ordered_sum.index_add_rows(got, tgt, [s4, s9, s60], drop=63)
     for a, b in zip(got, refs):
         assert torch.equal(a[:63], b[:63])
 
 
 def test_index_add_rows_on_cpu_is_index_add(rng):
-    dest, src, tgt = tables(rng, 30, 500, (9,), torch.float32)
-    got = dest.clone()
-    ordered_sum.index_add_rows([got], tgt, [src], drop=29)
-    assert torch.equal(got, dest.clone().index_add_(0, tgt, src))
+    """The edges: one row a target, every row aimed at the dropped row (the
+    table stays as it was), and a single row."""
+    dest, src, _ = tables(rng, 30, 29, (9,), torch.float32)
+    for tgt in (torch.from_numpy(rng.permutation(29)), torch.full((29,), 29), torch.arange(1)):
+        got = dest.clone()
+        ordered_sum.index_add_rows([got], tgt, [src[: tgt.shape[0]]], drop=29)
+        assert torch.equal(got[:29], dest.clone().index_add_(0, tgt, src[: tgt.shape[0]])[:29])
