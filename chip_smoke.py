@@ -76,6 +76,18 @@ Phases, each printing its own lines:
    its four.  The leg_fusion and seq runs each trace 2 of their scans
    after 2 (the card's activity only; "profile_leg_fusion",
    "profile_seq"), and leave those scans out of their ms/scan.
+10. ``python -m legkilo_torch run`` itself, in this process: the first
+    8 s of the workload written as a ROS1 bag (Imu and Velodyne-style
+    PointCloud2 messages with intensity, stamps + 1000 s; this script's
+    own writer), replayed with bench.py's configuration from a YAML file,
+    the trajectory, the PCD export (each scan's world cloud read back) and
+    the plane export (the map read back) on, then ``eval`` against the
+    sim's ground truth ("bag", ATE < 0.08 m); the 4 s kin workload as unitree
+    HighState messages (joint angles by IK of the feet), through the leg
+    kinematics into the chain kernel's kin branch ("bag_kin", ATE < 0.12
+    m).  Each prints its host ms/scan, the Timer averages of decode and
+    step and the packetizer that ran; ``ref2ms`` prints its packetizer
+    too (native/libscanprep.so at 2 ms buckets where it loads).
 
 Each run sets every launch counter to 0 before and reads it after: the
 kernels of the path it drives must have launched, and the others must not.
@@ -92,6 +104,7 @@ import argparse
 import itertools
 import json
 import os
+import struct
 import subprocess
 import sys
 import time
@@ -99,11 +112,13 @@ import time
 import numpy as np
 
 ATE_BOUND_M = 0.08
+KIN_BAG_ATE_BOUND_M = 0.12  # the kin bag's bound in the JAX package (tests/test_bag_e2e.py:181)
 MAIN_DURATION_S = 24.0   # bench.py's workload, uncut
 FOUR_DURATION_S = 8.0    # the four-kernel configuration, cut
 KIN_DURATION_S = 4.0     # 40 scans of the kin branch
 EXTRA_DURATION_S = 8.0   # the slide, per-point chunked and 2 ms bucket runs
 REPEAT_DURATION_S = 8.0  # main's configuration twice
+BAG_DURATION_S = 8.0     # the Imu bag, cut to keep the phases within ~6.5 min
 MIXED_DURATION_S = 8.0   # the match off its kernels
 # The paths off every kernel launch ~10^5 small operations a scan (seconds
 # a scan on the card), so they run the fewest scans a run takes (30).
@@ -143,6 +158,189 @@ FUSED_KERNELS = {"chain_stats", "keys", "select", "moments", "fit", "pose"}
 FOUR_KERNELS = FUSED_KERNELS - {"fit", "pose"}
 MIXED_KERNELS = FUSED_KERNELS - {"keys", "select"}
 POINTS_KERNELS = {"chain_points", "fit", "pose"}
+
+
+# -- ROS1 bag writing: the bag phases' input, from the sim (no ROS install) --
+BAG_MAGIC = b"#ROSBAG V2.0\n"
+BAG_TIME_OFFSET_S = 1000.0  # stamps as tests/test_bag_e2e.py:21-37 writes them
+_BMS_SIZE = 4 + 4 + 2 + 2 + 2 + 20  # BmsState.msg
+
+
+def _bag_header(fields: dict) -> bytes:
+    out = []
+    for name, value in fields.items():
+        field = name + b"=" + value
+        out.append(struct.pack("<I", len(field)) + field)
+    return b"".join(out)
+
+
+def _bag_record(fields: dict, data: bytes) -> bytes:
+    h = _bag_header(fields)
+    return struct.pack("<I", len(h)) + h + struct.pack("<I", len(data)) + data
+
+
+def _ros_string(s: str) -> bytes:
+    b = s.encode()
+    return struct.pack("<I", len(b)) + b
+
+
+def _secs_nsecs(stamp: float):
+    secs = int(stamp)
+    return secs, int(round((stamp - secs) * 1e9))
+
+
+def _ros_header(stamp: float) -> bytes:
+    return struct.pack("<III", 0, *_secs_nsecs(stamp)) + _ros_string("frame")
+
+
+def serialize_imu(stamp, acc, gyr) -> bytes:
+    """sensor_msgs/Imu: identity orientation, zero covariances."""
+    zeros9 = struct.pack("<9d", *np.zeros(9))
+    return (_ros_header(stamp) + struct.pack("<4d", 0, 0, 0, 1) + zeros9
+            + struct.pack("<3d", *gyr) + zeros9 + struct.pack("<3d", *acc) + zeros9)
+
+
+def serialize_pointcloud2(stamp, pts, times, intensity) -> bytes:
+    """Velodyne-style sensor_msgs/PointCloud2: x y z intensity time, f32."""
+    names = ("x", "y", "z", "intensity", "time")
+    rows = np.zeros(len(pts), dtype=[(n, "<f4") for n in names])
+    rows["x"], rows["y"], rows["z"] = pts[:, 0], pts[:, 1], pts[:, 2]
+    rows["intensity"], rows["time"] = intensity, times
+    payload = rows.tobytes()
+    out = [_ros_header(stamp), struct.pack("<II", 1, len(pts)), struct.pack("<I", len(names))]
+    out += [_ros_string(n) + struct.pack("<IBI", 4 * i, 7, 1) for i, n in enumerate(names)]
+    out.append(struct.pack("<B", 0))  # is_bigendian
+    out.append(struct.pack("<II", rows.itemsize, len(payload)))
+    out.append(struct.pack("<I", len(payload)) + payload + struct.pack("<B", 1))  # is_dense
+    return b"".join(out)
+
+
+def serialize_high_state(stamp, acc, gyr, q, dq, foot_force) -> bytes:
+    """unitree_legged_msgs/HighState with the fields the decoder reads."""
+    out = [struct.pack("<II", *_secs_nsecs(stamp)), bytes(4),  # head, levelFlag, frameReserve
+           struct.pack("<2I2IH", 0, 0, 0, 0, 0),               # SN, version, bandWidth
+           struct.pack("<13f", 0, 0, 0, 1, *gyr, *acc, 0, 0, 0), struct.pack("<b", 0)]
+    out += [struct.pack("<B7fb2I", 0, q[i], dq[i], 0, 0, 0, 0, 0, 0, 0, 0) for i in range(20)]
+    out += [bytes(_BMS_SIZE), struct.pack("<4h", *foot_force), bytes(64)]
+    return b"".join(out)
+
+
+def write_bag(path, messages) -> None:
+    """A ROS1 v2.0 bag of one uncompressed chunk; ``messages`` is a list of
+    (topic, msg_type, stamp, raw) in time order."""
+    conns = {}
+    chunk = []
+    for topic, msg_type, stamp, raw in messages:
+        if topic not in conns:
+            cid = len(conns)
+            conns[topic] = cid
+            conn_data = _bag_header({b"topic": topic.encode(), b"type": msg_type.encode(),
+                                     b"md5sum": b"0" * 32, b"message_definition": b""})
+            chunk.append(_bag_record({b"op": b"\x07", b"conn": struct.pack("<I", cid),
+                                      b"topic": topic.encode()}, conn_data))
+        chunk.append(_bag_record({b"op": b"\x02", b"conn": struct.pack("<I", conns[topic]),
+                                  b"time": struct.pack("<II", *_secs_nsecs(stamp))}, raw))
+    chunk = b"".join(chunk)
+    with open(path, "wb") as f:
+        f.write(BAG_MAGIC)
+        f.write(_bag_record({b"op": b"\x03", b"index_pos": struct.pack("<Q", 0),
+                             b"conn_count": struct.pack("<I", len(conns)),
+                             b"chunk_count": struct.pack("<I", 1)}, b" " * 128))
+        f.write(_bag_record({b"op": b"\x05", b"compression": b"none",
+                             b"size": struct.pack("<I", len(chunk))}, chunk))
+
+
+def scan_intensity(pts):
+    """A per-point intensity for the sim's scans (which carry none): a
+    function of range, so the PCD's intensity column is checkable."""
+    return (np.linalg.norm(pts, axis=1) * 10.0 % 256.0).astype(np.float32)
+
+
+def scan_messages(data, offset=BAG_TIME_OFFSET_S):
+    return [("/points_raw", "sensor_msgs/PointCloud2", sc.begin_time + offset,
+             serialize_pointcloud2(sc.begin_time + offset, sc.points, sc.time_offset,
+                                   scan_intensity(sc.points)))
+            for sc in data.scans]
+
+
+def imu_bag_messages(data, offset=BAG_TIME_OFFSET_S):
+    """The sim's Imu and PointCloud2 messages, stamps + ``offset``, in time order."""
+    msgs = [("/imu_raw", "sensor_msgs/Imu", ev.time + offset,
+             serialize_imu(ev.time + offset, ev.acc, ev.gyr)) for ev in data.imu]
+    return sorted(msgs + scan_messages(data, offset), key=lambda m: m[2])
+
+
+def _leg_jacobian(kcfg, q, leg):
+    from legkilo_torch.models import unitree as ut
+
+    lc, lt, d = kcfg.leg_calf_length, kcfg.leg_thigh_length, kcfg.leg_thigh_offset
+    lf = ut._LFOOT[leg]
+    s1, s2 = np.sin(q[0]), np.sin(q[1])
+    s23, c1 = np.sin(q[1] + q[2]), np.cos(q[0])
+    c2, c23 = np.cos(q[1]), np.cos(q[1] + q[2])
+    return np.array([
+        [0.0, -lc * c23 - lt * c2, -lc * c23],
+        [lt * c1 * c2 - lf * d * s1 + lc * c1 * c23, -s1 * (lc * s23 + lt * s2), -lc * s23 * s1],
+        [lt * c2 * s1 + lf * d * c1 + lc * s1 * c23, c1 * (lc * s23 + lt * s2), lc * s23 * c1],
+    ])
+
+
+def _fk_all(kcfg, q_all):
+    from legkilo_torch.models import unitree as ut
+
+    fp, _ = ut.foot_pos_vel(q_all[None], np.zeros((1, 4, 3)), kcfg)
+    return fp[0]
+
+
+def _ik_all(kcfg, targets, q0_all):
+    """Newton IK of the four legs against the FK and its analytic Jacobian
+    (tests/test_bag_e2e.py:76-140)."""
+    q = np.array(q0_all, dtype=float)
+    for _ in range(12):
+        r = targets - _fk_all(kcfg, q)
+        if np.abs(r).max() < 1e-10:
+            break
+        for leg in range(4):
+            q[leg] = q[leg] + np.linalg.solve(_leg_jacobian(kcfg, q[leg], leg), r[leg])
+    return q
+
+
+def kin_bag_messages(data, kcfg, offset=BAG_TIME_OFFSET_S):
+    """The sim's kin events as HighState messages (joint angles and rates by
+    IK of the feet, foot forces across the contact threshold) and its
+    PointCloud2 messages, stamps + ``offset``, in time order."""
+    from legkilo_torch.models import unitree as ut
+
+    msgs = []
+    last_q = np.tile(np.array([0.0, 0.8, -1.6]), (4, 1))
+    t_on = kcfg.contact_force_threshold_up
+    for ev in data.kin:
+        motor_q, motor_dq = np.zeros(20), np.zeros(20)
+        force_u = np.zeros(4, dtype=int)
+        q_all = _ik_all(kcfg, ev.foot_pos, last_q)
+        if np.abs(_fk_all(kcfg, q_all) - ev.foot_pos).max() >= 1e-8:
+            raise RuntimeError("leg IK diverged")
+        last_q = q_all
+        for leg in range(4):
+            dq = np.linalg.solve(_leg_jacobian(kcfg, q_all[leg], leg), ev.foot_vel[leg])
+            base = ut._MOTOR_BASE[leg]
+            motor_q[base:base + 3] = q_all[leg]
+            motor_dq[base:base + 3] = dq
+            force_u[ut._FORCE_INDEX[leg]] = int(2 * t_on) if ev.contact[leg] else 0
+        msgs.append(("/high_state", "unitree_legged_msgs/HighState", ev.time + offset,
+                     serialize_high_state(ev.time + offset, ev.acc, ev.gyr, motor_q, motor_dq,
+                                          force_u)))
+    return sorted(msgs + scan_messages(data, offset), key=lambda m: m[2])
+
+
+def write_gt_tum(path, data, offset=BAG_TIME_OFFSET_S) -> None:
+    """The sim's ground truth in the filter's frame as a TUM file."""
+    from legkilo_torch.io.tum import TrajectoryWriter
+
+    rot, pos = data.gt_in_filter_frame()
+    with TrajectoryWriter(path) as w:
+        for t, r, p in zip(data.gt_times, rot, pos):
+            w.write(t + offset, r, p)
 
 
 def log(msg: str) -> None:
@@ -987,12 +1185,17 @@ def run_workload(torch, data, tag: str, use_kin=False, five=True, chunk=0, latch
 
 
 def cut(data, duration: float):
-    """``data`` with its scans cut to the first ``duration`` seconds (the
-    event streams stay whole; the replay stops at the last scan)."""
+    """``data`` with its scans cut to the first ``duration`` seconds and its
+    event streams to 0.5 s past the last of them: as far as a replay feeds
+    events (runner._scans_after_their_events), so a bag written from it
+    holds no more."""
     import copy
 
     out = copy.copy(data)
     out.scans = data.scans[: int(duration * 10)]
+    horizon = out.scans[-1].end_time + 0.5
+    out.imu = [e for e in data.imu if e.time <= horizon]
+    out.kin = [e for e in data.kin if e.time <= horizon]
     return out
 
 
@@ -1068,6 +1271,136 @@ def phase_repeat(torch, data):
     log(f"[repeat] trajectories equal {same_traj}; map tables equal {json.dumps(tables)}")
     if not same_traj or not all(tables.values()):
         raise RuntimeError("repeat: two runs of one configuration differ")
+
+
+# runner.bench_config() as the flat YAML keys of legkilo_torch/config.py, for
+# ``run --config_file``; the bag phases check that the file loads back equal.
+BENCH_YAML_KEYS = {
+    "filter_num": 1, "blind": 0.3, "voxel_grid_resolution": 0.3,
+    "tpu_map_capacity_log2": 14, "tpu_map_insert_rounds": 1, "tpu_map_insert_row_cap": 4096,
+    "tpu_map_refit_budget": 1024, "tpu_map_probe_length": 4,
+    "tpu_bucket_quantum_ms": 4.0, "tpu_max_buckets": 28, "tpu_max_points_per_bucket": 256,
+    "tpu_max_imu_per_bucket": 1, "tpu_insert_cap": 3584, "tpu_match_cap": 3584,
+    "tpu_pipeline": "deferred", "tpu_use_pallas": True, "tpu_use_pallas_match": True,
+    "tpu_use_pallas_insert": True, "tpu_use_pallas_pose": True, "tpu_use_pallas_refit": True,
+}
+
+
+def bag_config_file(path: str, use_kin: bool) -> None:
+    """Write bench.py's configuration with ``redundancy`` off (the sim
+    repeats no sample) as a YAML file, and check it loads back equal."""
+    from legkilo_torch import config as config_mod
+    from legkilo_torch.runner import bench_config
+
+    keys = dict(BENCH_YAML_KEYS, only_imu_use=not use_kin, redundancy=False)
+    with open(path, "w") as f:
+        f.writelines(f"{k}: {json.dumps(v)}\n" for k, v in keys.items())
+    want = bench_config()
+    want.only_imu_use, want.redundancy = not use_kin, False
+    if config_mod.load(path) != want:
+        raise RuntimeError(f"{path} does not load back as bench_config()")
+
+
+def cli_json(cli, argv):
+    """``cli.main(argv)`` in this process: its return code must be 0; the
+    JSON object of the last line it prints."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    if rc != 0:
+        raise RuntimeError(f"legkilo_torch {argv[0]}: exit code {rc}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def phase_bag(torch, data, tag: str, use_kin: bool, bound: float, kernels):
+    """``python -m legkilo_torch run`` in this process on the card, on
+    ``data`` written as a ROS1 bag (Imu, or with ``use_kin`` HighState
+    from the feet by IK, and PointCloud2 with intensity; stamps + 1000 s),
+    with bench.py's configuration from a YAML file, the trajectory, the
+    PCD export and the plane export on; then ``eval`` against the sim's
+    ground truth as TUM.  Fails on an ATE (nearest time within 10 ms, no
+    alignment, tests/test_bag_e2e.py:58-66) not under ``bound``, on a
+    kernel of ``kernels`` launched fewer times than there are scans
+    (PointCloud2 messages; with K = 1 each brings an event-only packet
+    too, which runs the whole step), on fewer poses associated with the
+    ground truth than scans, on a kernel off the path launched, on a PLY
+    of 100 vertices or fewer and on a PCD file that does not read back."""
+    import glob
+    import shutil
+
+    from legkilo_torch import cli
+    from legkilo_torch.config import KinematicsConfig
+    from legkilo_torch.io.pcd import read_pcd
+    from legkilo_torch.io.tum import associate, ate_rmse, read_tum
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "bag_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    bag, cfg, gt = (os.path.join(root, f"{tag}{e}") for e in (".bag", ".yaml", "_gt.txt"))
+    traj, ply, pcd_dir = (os.path.join(root, f"{tag}{e}") for e in (".txt", ".ply", "_pcd"))
+    t0 = time.perf_counter()
+    write_bag(bag, kin_bag_messages(data, KinematicsConfig()) if use_kin else imu_bag_messages(data))
+    bag_config_file(cfg, use_kin)
+    write_gt_tum(gt, data)
+    t_write = time.perf_counter() - t0
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec = cli_json(cli, ["run", "--config_file", cfg, "--bag", bag, "--traj_out", traj,
+                         "--save_pcd", pcd_dir, "--export_planes", ply])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counters()
+    ev = cli_json(cli, ["eval", "--est", traj, "--gt", gt, "--max_dt", "0.01"])
+    t, p, _ = read_tum(traj)
+    _, gt_pos = data.gt_in_filter_frame()
+    ia, ib = associate(t, data.gt_times + BAG_TIME_OFFSET_S, max_dt=0.01)
+    ate = ate_rmse(p[ia], gt_pos[ib], align=False)
+    with open(ply) as f:
+        n_vert = int(next(l for l in f if l.startswith("element vertex")).split()[-1])
+    pcds = sorted(glob.glob(os.path.join(pcd_dir, "*", "*.pcd")))
+    clouds = [read_pcd(f) for f in pcds]
+    n_scans = len(data.scans)
+    out = dict(scans=len(data.scans), results=rec["scans"], messages=rec["messages"],
+               bag_mb=os.path.getsize(bag) / 2 ** 20, write_s=t_write, wall_s=wall,
+               ms_per_scan=wall / len(data.scans) * 1e3, run_ms_per_result=rec["ms_per_scan"],
+               decode_ms=rec["decode_ms"], step_ms=rec["step_ms"], packetizer=rec["packetizer"],
+               match_ratio=rec["match_ratio"], ate_m=ate, pairs=int(len(ia)), eval=ev,
+               ply_vertices=n_vert, pcd_files=len(pcds),
+               pcd_points=int(sum(len(c) for c in clouds)),
+               pcd_columns=sorted({c.shape[1] for c in clouds}), launches=counts)
+    log(f"[{tag}] {json.dumps(out)}")
+    log(f"[{tag}] host {out['ms_per_scan']:.3f} ms/scan over {len(data.scans)} scans "
+        f"({rec['scans']} results); Timer: decode {rec['decode_ms']} ms, step {rec['step_ms']} ms; "
+        f"packetizer {rec['packetizer']}")
+    shutil.rmtree(root, ignore_errors=True)
+    if not np.isfinite(ate) or ate >= bound or ev["ate_rmse_unaligned_m"] >= bound:
+        raise RuntimeError(f"{tag}: ATE {ate:.4f} m (eval {ev}) >= {bound} m")
+    if len(ia) < n_scans:
+        raise RuntimeError(f"{tag}: {len(ia)} poses associated with the ground truth")
+    missing = sorted(k for k in kernels if counts[k] < n_scans)
+    stray = sorted(k for k, v in counts.items() if v > 0 and k not in kernels)
+    if missing or stray:
+        raise RuntimeError(f"{tag}: kernels launched fewer than {n_scans} times: {missing}; "
+                           f"kernels off the path launched: {stray}")
+    if n_vert <= 100:
+        raise RuntimeError(f"{tag}: the plane PLY has {n_vert} vertices")
+    if not clouds or not all(len(c) and np.isfinite(c).all() for c in clouds):
+        raise RuntimeError(f"{tag}: the PCD export did not read back")
+    return out
+
+
+def packetizer_of(cfg, scan) -> str:
+    """The packetizer ``cfg`` takes (native/libscanprep.so or numpy), as a
+    PacketBuilder records it on one scan."""
+    from legkilo_torch.io.dataset import PacketBuilder
+
+    b = PacketBuilder(cfg)
+    b.build_packet(scan, [])
+    return b.packetizer
 
 
 def device_rows(prof):
@@ -1153,7 +1486,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="build,kernels,main,chunk,stream1,four,profile,kin,points,points_kin,"
-                            "slide,points_chunk,ref2ms,repeat,leg_fusion,mixed,seq,seq_kin")
+                            "slide,points_chunk,ref2ms,repeat,leg_fusion,mixed,seq,seq_kin,"
+                            "bag,bag_kin")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -1177,7 +1511,7 @@ def main(argv=None) -> int:
     recs = phase_kernels(torch, dev) if "kernels" in phases else {}
     main_rec = kin_rec = points_rec = points_kin_rec = ref2ms_rec = None
     if phases & {"main", "chunk", "stream1", "four", "points", "slide", "points_chunk", "ref2ms",
-                  "repeat", "leg_fusion", "mixed", "seq", "seq_kin"}:
+                  "repeat", "leg_fusion", "mixed", "seq", "seq_kin", "bag"}:
         data = simulate(MAIN_DURATION_S, "main")
         if "main" in phases:
             main_rec = run_workload(torch, data, "main")
@@ -1198,6 +1532,9 @@ def main(argv=None) -> int:
             run_workload(torch, extra, "points_chunk", points=True, chunk=CHUNK)
         if "ref2ms" in phases:
             ref2ms_rec = run_workload(torch, extra, "ref2ms", chunk=CHUNK, edit=ref2ms_edit)
+            cfg, _ = path_config()
+            ref2ms_edit(cfg)
+            log(f"[ref2ms] packetizer: {packetizer_of(cfg, extra.scans[0])}")
         if "repeat" in phases:
             phase_repeat(torch, cut(data, REPEAT_DURATION_S))
         if "leg_fusion" in phases:
@@ -1212,6 +1549,9 @@ def main(argv=None) -> int:
         if "seq_kin" in phases:
             run_workload(torch, cut(data, SLOW_DURATION_S), "seq_kin", use_kin=True,
                          config=seq_kin_config)
+        if "bag" in phases:
+            phase_bag(torch, cut(data, BAG_DURATION_S), "bag", use_kin=False, bound=ATE_BOUND_M,
+                      kernels=FUSED_KERNELS)
     if "profile" in phases:
         p4 = phase_profile(torch, "profile4", five=False)
         p5 = phase_profile(torch, "profile5")
@@ -1223,12 +1563,15 @@ def main(argv=None) -> int:
             log(f"[profile] per-point path: {pp_['launches_per_scan']:.0f} device launches/scan, "
                 f"device busy {pp_['device_ms_per_scan']:.3f} ms/scan, host wall "
                 f"{pp_['wall_ms_per_scan']:.3f} ms/scan")
-    if phases & {"kin", "points_kin"}:
+    if phases & {"kin", "points_kin", "bag_kin"}:
         kin_data = simulate(KIN_DURATION_S, "kin")
         if "kin" in phases:
             kin_rec = run_workload(torch, kin_data, "kin", use_kin=True)
         if "points_kin" in phases:
             points_kin_rec = run_workload(torch, kin_data, "points_kin", use_kin=True, points=True)
+        if "bag_kin" in phases:
+            phase_bag(torch, kin_data, "bag_kin", use_kin=True, bound=KIN_BAG_ATE_BOUND_M,
+                      kernels=FUSED_KERNELS)
     log(f"[done] phases {sorted(phases)} in {time.perf_counter() - t_start:.1f} s")
 
     kernels = []

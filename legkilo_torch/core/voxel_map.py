@@ -127,6 +127,30 @@ class VoxelMap(NamedTuple):
     plane: torch.Tensor
     ocnt: torch.Tensor
 
+    # Unpacked views (read-only, for export and tests), as the JAX module's.
+    @property
+    def key(self):
+        return self.ptab[..., 0:3]
+
+    @property
+    def occ(self):
+        return self.ptab[..., _T_OCC] > 0
+
+    def is_plane(self):
+        return self.meta[..., _M_PLANE] > 0.5
+
+    def center_rel(self):
+        return self.plane[..., 0:3]
+
+    def normal(self):
+        return self.plane[..., 3:6]
+
+    def evals(self):
+        return self.plane[..., 6:9]
+
+    def plane_var(self):
+        return _expand_pv(self.plane[..., 10:31])
+
 
 class MatchResult(NamedTuple):
     """Per-point plane match (PointToPlane analog, voxel_map.h:80-94); the

@@ -5,9 +5,11 @@ replaces the reference's LidarProcessing decimation/blind filter/time
 quantization (lidar_processing.cc:25-108), RosInterface::syncPackage
 time-sync packing (ros_interface.cc:271-332) and pcl::VoxelGrid downsampling
 (KILO.cc:356-360) with a NumPy pipeline that emits statically-shaped,
-padded packets.  The JAX package can build packets with the C++ library
-native/libscanprep.so; the port always takes this numpy path, which gives
-the same packets as the JAX package with ``tpu_use_native: false``.
+padded packets.  Where the JAX package does (``tpu_use_native`` on and 2 ms
+buckets), the packetizer builds the points of a packet with the committed
+C++ library native/libscanprep.so (io/native.py); otherwise, or when the
+library cannot be loaded, with numpy.  ``PacketBuilder.packetizer`` records
+which one built the last scan packet.
 """
 
 from __future__ import annotations
@@ -173,6 +175,7 @@ class PacketBuilder:
         self._last_event_time = -np.inf
         self._last_begin: Optional[float] = None
         self._last_scan_time = -np.inf
+        self.packetizer: Optional[str] = None  # "native" or "numpy", last scan packet
 
     def add_scan(self, scan: RawScan) -> None:
         # A scan entirely in the already-emitted past is unusable (its
@@ -310,9 +313,12 @@ class PacketBuilder:
             n_raw=0,
         )
 
-    def build_packet(self, scan: RawScan, events: Sequence) -> HostPacket:
+    def _bucketize(self, scan: RawScan, quantum: float):
+        """The numpy path: decimate, quantize, downsample and pack the
+        scan's points into time buckets.  Returns (bucket_time,
+        bucket_mask, points, point_mask, dropped_points, intensity,
+        n_buckets), as native.process_scan's outputs."""
         cfg = self.cfg
-        quantum = cfg.tpu.bucket_quantum_ms * 1e-3
         pts, toff, inten = decimate_blind(
             scan.points, scan.time_offset, cfg.lidar.filter_num,
             cfg.lidar.blind, intensity=scan.intensity,
@@ -365,6 +371,32 @@ class PacketBuilder:
             point_mask[i, :cnt] = True
             bucket_time[i] = b_times[i]
             bucket_mask[i] = True
+        return bucket_time, bucket_mask, points, point_mask, dropped_points, intens, n_buckets
+
+    def build_packet(self, scan: RawScan, events: Sequence) -> HostPacket:
+        cfg = self.cfg
+        quantum = cfg.tpu.bucket_quantum_ms * 1e-3
+        native_out = None
+        # The native library hardcodes the reference's 2 ms quantum; any
+        # other bucket size takes the numpy path.
+        if cfg.tpu.use_native and abs(quantum - TIME_QUANTUM) < 1e-9:
+            from . import native
+
+            native_out = native.process_scan(
+                scan.points, scan.time_offset,
+                cfg.lidar.filter_num, cfg.lidar.blind,
+                cfg.lidar.voxel_grid_resolution, cfg.tpu.requantize_buckets,
+                self.nb, self.pmax, intensity=scan.intensity,
+            )
+        if native_out is not None:
+            self.packetizer = "native"
+            (bucket_time, bucket_mask, points, point_mask, _, dropped_points,
+             intens) = native_out
+            n_buckets = int(bucket_mask.sum())
+        else:
+            self.packetizer = "numpy"
+            (bucket_time, bucket_mask, points, point_mask, dropped_points,
+             intens, n_buckets) = self._bucketize(scan, quantum)
 
         # Assign events: an event goes before the first bucket whose absolute
         # time exceeds it (KILO.cc:380-390); events at/after the last bucket

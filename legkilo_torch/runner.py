@@ -51,6 +51,7 @@ from .io.dataset import (
     decimate_blind,
     to_device_packet,
 )
+from .utils.timing import Timer
 
 log = logging.getLogger(__name__)
 
@@ -334,7 +335,10 @@ class OdometryRunner:
                         "inflated)", pkt.rebase, gap)
             self.carry = soft_reset_carry(self.carry, pkt.rebase)
         dev_pkt = to_device_packet(pkt, self.device)
-        self.carry, out = process_scan_any(self.carry, dev_pkt, self.params, self._scfg_active)
+        # The reference's label (KILO.cc:367), as the JAX runner's; on the
+        # card it times the host's enqueue of the step, not the card's work.
+        with Timer.measure("State predict/update & Map update"):
+            self.carry, out = process_scan_any(self.carry, dev_pkt, self.params, self._scfg_active)
         self._inflight.append((pkt, out))
 
     def _materialize(self, pkt: HostPacket, out) -> ScanResult:

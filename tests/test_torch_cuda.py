@@ -854,3 +854,30 @@ def test_ragged_caps_launch_the_kernels_on_card(cuda_device):
     assert len(runner.results) >= 10
     assert all(c.launches > n for c, n in zip(calls, before)), [c.launches - n for c, n in zip(calls, before)]
     assert all(np.isfinite(r.pos).all() for r in runner.results)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_kin,bound", [(False, 0.08), (True, 0.12)], ids=["imu", "kin"])
+def test_run_replays_a_bag_on_card(cuda_device, tmp_path, capsys, use_kin, bound):
+    """``python -m legkilo_torch run`` on the card (its default device) on
+    tests/test_torch_bag.py's ~2 s bags: the ATE bounds of
+    tests/test_bag_e2e.py, and every kernel of the five-kernel path
+    launched (the chain's kin branch from the HighState bag)."""
+    import json
+
+    import chip_smoke as cs
+    from legkilo_torch import cli
+    from torch_util import bag_ate, write_bag_run
+
+    bag, cfg, _, data = write_bag_run(tmp_path, use_kin)
+    traj = str(tmp_path / "traj.txt")
+    cs.reset_counters()
+    assert cli.main(["run", "--config_file", cfg, "--bag", bag, "--traj_out", traj,
+                     "--export_planes", str(tmp_path / "planes.ply")]) == 0
+    counts = cs.read_counters()
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    ate, pairs = bag_ate(traj, data)
+    assert pairs >= 18 and ate < bound, (ate, pairs)
+    assert rec["scans"] >= len(data.scans)
+    assert all(counts[k] >= len(data.scans) for k in cs.FUSED_KERNELS), counts
+    assert counts["chain_points"] == 0

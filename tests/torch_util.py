@@ -59,3 +59,68 @@ def assert_maps_match(jvm, tvm, capacity, exact_slots=True, mom_rtol=1e-5):
     np.testing.assert_allclose(dots, 1.0, atol=1e-4)
     scale = np.abs(lj[good, 10:31]).max(axis=1, keepdims=True) + 1e-30
     np.testing.assert_allclose(lt[good, 10:31] / scale, lj[good, 10:31] / scale, atol=2e-3)
+
+
+# A small cut of the bench workload on the five-kernel deferred path, for
+# ``run`` on a bag: 4 ms buckets, K = 1, P = 64, three levels of 2^12 slots,
+# one claim round, caps of 1024 rows, one match pass a scan (the latch off).
+BAG_RUN_YAML = """\
+only_imu_use: {only_imu_use}
+redundancy: false
+filter_num: 1
+blind: 0.3
+voxel_grid_resolution: 0.4
+tpu_map_capacity_log2: 12
+tpu_map_insert_rounds: 1
+tpu_map_probe_length: 4
+tpu_map_insert_row_cap: 1024
+tpu_map_refit_budget: 512
+tpu_bucket_quantum_ms: 4.0
+tpu_max_buckets: 28
+tpu_max_points_per_bucket: 64
+tpu_max_imu_per_bucket: 1
+tpu_insert_cap: 1024
+tpu_match_cap: 1024
+tpu_escalate_after: 0
+tpu_pipeline: deferred
+tpu_use_pallas: {kernels}
+tpu_use_pallas_match: {kernels}
+tpu_use_pallas_insert: {kernels}
+tpu_use_pallas_pose: {kernels}
+tpu_use_pallas_refit: {kernels}
+"""
+
+
+def write_bag_run(directory, use_kin, duration=2.0, kernels=True):
+    """A ``duration`` s sim (2,500 points a scan; seed 6 with leg
+    kinematics, else 5, as tests/test_bag_e2e.py) written as a ROS1 bag by
+    chip_smoke's writer (Imu or HighState messages, and PointCloud2 with
+    intensity, stamps + 1000 s), its ground truth as TUM, and the
+    configuration above (``kernels`` off: every kernel switch off).
+    Returns (bag path, config path, ground-truth path, sim data)."""
+    import chip_smoke as cs
+    from legkilo_torch.config import KinematicsConfig
+    from legkilo_torch.models import sim
+
+    data = sim.simulate(sim.SimConfig(duration=duration, scan_points=2500, seed=6 if use_kin else 5))
+    msgs = cs.kin_bag_messages(data, KinematicsConfig()) if use_kin else cs.imu_bag_messages(data)
+    tag = "kin" if use_kin else "imu"
+    bag, cfg, gt = (str(directory / f"{tag}{ext}") for ext in (".bag", ".yaml", "_gt.txt"))
+    cs.write_bag(bag, msgs)
+    cs.write_gt_tum(gt, data)
+    with open(cfg, "w") as f:
+        f.write(BAG_RUN_YAML.format(only_imu_use=str(not use_kin).lower(),
+                                    kernels=str(kernels).lower()))
+    return bag, cfg, gt, data
+
+
+def bag_ate(traj_path, data, max_dt=0.01):
+    """(ATE without alignment, pairs) of a TUM trajectory of a bag run
+    against the sim's ground truth, associated by nearest time (the bag
+    path takes a scan's end time from its last point's stamp)."""
+    from legkilo_torch.io.tum import associate, ate_rmse, read_tum
+
+    t, p, _ = read_tum(traj_path)
+    _, gt = data.gt_in_filter_frame()
+    ia, ib = associate(t, data.gt_times + 1000.0, max_dt=max_dt)
+    return ate_rmse(p[ia], gt[ib], align=False), len(ia)
