@@ -88,11 +88,28 @@ Phases, each printing its own lines:
     m).  Each prints its host ms/scan, the Timer averages of decode and
     step and the packetizer that ran; ``ref2ms`` prints its packetizer
     too (native/libscanprep.so at 2 ms buckets where it loads).
+11. The fleet (legkilo_torch/parallel/sweep.py; the kernels phase first
+    holds the six kernels of its path at B = 64 distinct replicas, one
+    launch ``torch.equal`` to 64 launches at B = 1 and within the single
+    launch's tolerances of the plain version, timed at B = 1, 8 and 64 beside
+    the bound, ``[fleet_kernels]``): four ``--distinct`` worlds of 4 s
+    through the fleet per scan and chunked by 8, each replica
+    ``torch.equal`` to its own run_offline ("fleet_equal"); the main
+    workload cut to 8 s as ``sweep --pallas`` runs it, 64 replicas with
+    q_diag jittered by 0.1, chunks of 8 ("fleet": every replica's ATE
+    under the bound, exactly one launch of each kernel a fleet step,
+    replica-scans/s, device ms and launches a fleet step under the
+    profiler, peak MB a replica); B = 1, 8, 64 and 256 for 16 scans
+    ("fleet_scale": launches a step at B = 64 within 10 % of B = 1's); and
+    ``sweep --bags`` in this process over two 4 s bags ("fleet_bags": a TUM
+    file a bag, each under the bound).
 
 Each run sets every launch counter to 0 before and reads it after: the
 kernels of the path it drives must have launched, and the others must not.
 
-The last two lines are a JSON object with one entry per kernel and
+The last two lines are a JSON object with one entry per kernel (the six
+fleet kernels at B = 64 as ``<name>_fleet64``, their launches from
+"fleet") and
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script exits
 non-zero and prints no result; so does a machine without CUDA, or a
 directory holding this script without the package.
@@ -714,6 +731,30 @@ def fit_inputs(torch, dev, budget=1024, n_scans=30):
     return (par, *tables, fs), int(len(idx))
 
 
+def fit_check(torch, what, got, ref, max_flips):
+    """The refit kernel's outputs [B, 35] against its plain version's.
+    They do the same un-fused arithmetic in the same order and can part
+    only where sqrt, division or cos round apart.  A slot counts as a
+    branch flip when is_plane differs or the normal moved by more than
+    1e-3 (another eigenvector candidate or fallback); at most ``max_flips``
+    may.  On the rest: centre, normal, evals, radius abs 1e-5, plane_var
+    1e-4 of the row's largest entry, the meta columns 31:34 equal.  Raises
+    otherwise; returns (flips, head err, plane_var rel err, max abs err)."""
+    gt, rt = got.T, ref.T
+    flip = (gt[34] != rt[34]) | ((gt[3:6] - rt[3:6]).abs().max(dim=0).values > 1e-3)
+    n_flip = int(flip.sum())
+    keep = ~flip
+    e_head = max_abs(gt[0:10, keep], rt[0:10, keep])
+    pv_scale = rt[10:31, keep].abs().max(dim=0).values.clamp(min=1e-30)
+    e_pv = float(((gt[10:31, keep] - rt[10:31, keep]).abs().max(dim=0).values / pv_scale).max())
+    if n_flip > max_flips or not (e_head <= 1e-5 and e_pv <= 1e-4
+                                  and torch.equal(gt[31:34], rt[31:34])):
+        raise RuntimeError(f"{what}: {n_flip} branch flips, head err {e_head:.3g}, "
+                           f"plane_var rel {e_pv:.3g}, meta columns equal "
+                           f"{bool(torch.equal(gt[31:34], rt[31:34]))}")
+    return n_flip, e_head, e_pv, max_abs(gt[:, keep], rt[:, keep])
+
+
 def fit_bytes(fargs) -> int:
     """What fit_slots_call must move: par, fs, the n, m1/m2 and moms row (in
     the storage dtype) of each distinct row that fs names once, and the
@@ -996,24 +1037,11 @@ def phase_kernels(torch, dev):
         raise RuntimeError("fit: non-finite output")
     if not torch.equal(got, again):
         raise RuntimeError("fit: two launches on the same inputs differ")
-    # Kernel and plain version do the same un-fused arithmetic in the same
-    # order; they can part only where sqrt, division or cos round apart.  A
-    # slot counts as a branch flip when is_plane differs or the normal moved
-    # by more than 1e-3 (another eigenvector candidate or fallback); at most
-    # 2 of the 1024 may.  On the rest: centre, normal, evals, radius abs 1e-5,
-    # plane_var 1e-4 of the row's largest entry.
-    gt, rt = got.T, ref.T
-    flip = (gt[34] != rt[34]) | ((gt[3:6] - rt[3:6]).abs().max(dim=0).values > 1e-3)
-    n_flip = int(flip.sum())
-    keep = ~flip
-    e_head = max_abs(gt[0:10, keep], rt[0:10, keep])
-    pv_scale = rt[10:31, keep].abs().max(dim=0).values.clamp(min=1e-30)
-    e_pv = float(((gt[10:31, keep] - rt[10:31, keep]).abs().max(dim=0).values / pv_scale).max())
-    if n_flip > 2 or not (e_head <= 1e-5 and e_pv <= 1e-4 and torch.equal(gt[31:34], rt[31:34])):
-        raise RuntimeError(f"fit: {n_flip} branch flips, head err {e_head:.3g}, plane_var rel {e_pv:.3g}")
+    n_flip, e_head, e_pv, err = fit_check(torch, "fit", got, ref, max_flips=2)
+    rt = ref.T
     b = fargs[4].shape[0]
     recs["fit"] = dict(
-        max_abs_err=max_abs(gt[:, keep], rt[:, keep]),
+        max_abs_err=err,
         ms=time_call(torch, lambda: pfr.fit_slots_call(*fargs), 200),
         plain_ms=time_call(torch, lambda: pfr.fit_slots_plain(*fargs), 5),
         bytes=fit_bytes(fargs), flops=FIT_FLOPS_PER_SLOT * b,
@@ -1482,12 +1510,588 @@ def phase_profile(torch, tag: str, five=True, points=False, n_warm=10, n_prof=20
     return rec
 
 
+# ------------------------------------------------------------------ fleet --
+#
+# The fleet (legkilo_torch/parallel/sweep.py): on the five-kernel
+# configuration one fleet step launches each of the six kernels once a match
+# pass for all B replicas.
+
+FLEET_B = 64                 # the fleet phase's replicas
+FLEET_KERNEL_BS = (1, 8, 64)  # the kernels' fleet timings
+FLEET_CHUNK = 8
+FLEET_NOISE = 0.1            # sweep's default --noise_scale
+FLEET_DURATION_S = 8.0       # main's workload, cut
+FLEET_EQUAL_DURATION_S = 4.0
+FLEET_EQUAL_B = 4
+FLEET_SCALE_BS = (1, 8, 64, 256)
+FLEET_SCALE_SCANS = 16
+FLEET_BAG_DURATION_S = 4.0
+FLEET_SUFFIX = "_fleet64"    # the kernels' entries at B = FLEET_B in the kernels line
+
+
+def _stack_args(torch, singles, how):
+    """One fleet argument list from B single ones: ``how[i]`` is "stack"
+    (a new leading axis), "cat0" or "cat1" (side by side), or a function of
+    (the B tensors) for the rest."""
+    out = []
+    for i, mode in enumerate(how):
+        xs = [s[i] for s in singles]
+        if mode == "stack":
+            out.append(torch.stack(xs).contiguous())
+        elif mode in ("cat0", "cat1"):
+            out.append(torch.cat(xs, dim=int(mode[-1])).contiguous())
+        else:
+            out.append(mode(xs))
+    return out
+
+
+def _fit_tables_random(torch, dev, rng, m=600, budget=128):
+    """fit_slots_call's inputs from the moments of m random planar patches
+    (eight points each, a random orientation and offset each) and the
+    sentinel row, 5/8 of the budget naming distinct slots at random: a
+    replica's own tables, drawn from ``rng``."""
+    from legkilo_torch.core import voxel_map as vmap
+    from legkilo_torch.core.plane_fit import point_moments
+    from legkilo_torch.ops import plane_fit_rows as pfr
+
+    n = 8
+    rot, _ = np.linalg.qr(rng.normal(size=(m, 3, 3)))
+    local = rng.normal(scale=[0.3, 0.2, 0.01], size=(m, n, 3))
+    pts_np = np.einsum("mij,mnj->mni", rot, local) + rng.uniform(-0.2, 0.2, size=(m, 1, 3))
+    pts = torch.tensor(pts_np, dtype=torch.float32)
+    var = torch.eye(3).expand(m, n, 3, 3) * 1e-4
+    mom, moms = vmap._pack_moments(point_moments(pts.reshape(-1, 3), var.reshape(-1, 3, 3)))
+    meta = torch.zeros((m + 1, 4))
+    meta[:m, 0] = float(n)
+    mom_x = torch.cat([mom.reshape(m, n, 9).sum(1), torch.zeros(1, 9)])
+    moms_x = torch.cat([moms.reshape(m, n, 60).sum(1), torch.zeros(1, 60)])
+    fs = torch.full((budget,), m, dtype=torch.int64)
+    fs[: budget * 5 // 8] = torch.as_tensor(rng.choice(m, budget * 5 // 8, replace=False))
+    return [pfr.fit_par(0.01, dev), meta.to(dev), mom_x.to(dev), moms_x.to(dev), fs.to(dev)]
+
+
+def _fleet_kernel_cases(torch, dev, rng, b, small=False):
+    """For each of the six kernels of the fleet path: (fleet args, the B
+    single-replica args, call(args), the B single outputs as the fleet's,
+    bytes and flops of one replica).  Every replica draws its own inputs
+    (fit: its own tables of 2,048 random planar patches, 1,024 refit
+    slots).  ``small``: the CPU tests' sizes (NB = 8, 256 match rows, 512
+    insert rows, maps of 3 x 2^11 slots, tables of 600 patches, 128 refit
+    slots)."""
+    from legkilo_torch.ops import chain_stats as cs
+    from legkilo_torch.ops import insert_rows as ir
+    from legkilo_torch.ops import match_geom as mg
+    from legkilo_torch.ops import plane_fit_rows as pfr
+    from legkilo_torch.ops import pose_prop as pp
+
+    L, C = 3, 1 << (11 if small else 14)
+    nbs = 8 if small else 28
+    cases = {}
+
+    singles = [pose_inputs(torch, dev, rng, nbs, 1) for _ in range(b)]
+    cases["pose"] = (_stack_args(torch, singles, ["stack", "stack"]), singles,
+                     lambda a: pp.pose_call(*a), lambda outs: torch.stack(outs),
+                     nbytes(list(singles[0])) + 12 * singles[0][1].shape[1] * 4,
+                     pose_flops(singles[0][1].shape[1]))
+
+    singles = [chain_holes(chain_inputs(torch, dev, rng, False, nb=nbs)) for _ in range(b)]
+    nb, k = singles[0][6].shape
+    cases["chain_stats"] = (
+        _stack_args(torch, singles, ["stack"] * 14), singles,
+        lambda a: cs.chain_call(*a, use_kin=False),
+        lambda outs: tuple(torch.stack(xs) for xs in zip(*outs)),
+        nbytes(list(singles[0])) + 4 * (nb * (9 + 3 + 9 + 9 + 1) + 9 + 27 + 900 + 2),
+        chain_flops(nb, k, False))
+
+    singles = [list(keys_inputs(torch, dev, rng, c=256 if small else 3584)) for _ in range(b)]
+    c = singles[0][1].shape[1]
+
+    def keys_fleet_of(outs):
+        cat = [torch.cat(xs, dim=1) for xs in zip(*outs)]
+        cat[4] = torch.cat([o[4] + r * L * C for r, o in enumerate(outs)], dim=1)
+        return tuple(cat)
+
+    cases["keys"] = (_stack_args(torch, singles, ["stack", "cat1", "cat1", "cat1"]), singles,
+                     lambda a: mg.keys_call(*a, L, C), keys_fleet_of,
+                     nbytes(singles[0]) + c * 4 * (6 + 27 + 6 * L + 6 * L + 2 * L), 650.0 * c)
+
+    keys_outs = [mg.keys_call(*s, L, C) for s in singles]
+    singles = [select_inputs(torch, dev, rng, ko, nb=nbs) for ko in keys_outs]
+
+    def fleet_bidx(xs):
+        out = []
+        for r, x in enumerate(xs):
+            out.append(torch.where(x < nbs, x + r * nbs, torch.full_like(x, b * nbs)))
+        return torch.cat(out, dim=1).contiguous()
+
+    def select_fleet_of(outs):
+        o, s40, nm = zip(*outs)
+        return torch.cat(o, dim=1), torch.cat(s40), torch.cat(nm)
+
+    cases["select"] = (
+        _stack_args(torch, singles, ["stack"] + ["cat1"] * 6 + [fleet_bidx]), singles,
+        lambda a: mg.select_call(*a, L, (a[0].shape[0] if a[0].dim() == 2 else 1) * nbs),
+        select_fleet_of,
+        nbytes(singles[0]) + 4 * (46 * c + nbs * 1600 + nbs * 128),
+        c * (6 * 200 + 80 + 820 * 3))
+
+    singles = [list(moments_inputs(torch, dev, rng, r=512, nb=nbs, n=256) if small
+                    else moments_inputs(torch, dev, rng)) for _ in range(b)]
+    n, rr, nbm = singles[0][6].shape[0], singles[0][8].shape[0], singles[0][2].shape[0]
+
+    def shifted(step, clamp=None):
+        def f(xs):
+            return torch.cat([(x if clamp is None else torch.clamp(x, max=clamp)) + r * step
+                              for r, x in enumerate(xs)]).contiguous()
+        return f
+
+    how = ["stack", lambda xs: xs[0], "cat0", "cat0", "cat0", "cat0", "cat0", "cat0",
+           shifted(n), shifted(nbm, nbm - 1), "cat0", "cat0"]
+    cases["moments"] = (_stack_args(torch, singles, how), singles,
+                        lambda a: ir.moments_rows_call(*a),
+                        lambda outs: tuple(torch.cat(xs) for xs in zip(*outs)),
+                        moments_bytes(singles[0]), 380.0 * rr)
+
+    singles = [_fit_tables_random(torch, dev, rng, *((600, 128) if small else (2048, 1024)))
+               for _ in range(b)]
+    m, budget = singles[0][1].shape[0] - 1, singles[0][4].shape[0]
+
+    def flat_table(xs):  # the replicas' own tables side by side, then one sentinel row
+        return torch.cat([x[:m] for x in xs] + [xs[0][m:]]).contiguous()
+
+    def fleet_fs(xs):
+        return torch.cat([torch.where(x < m, x + r * m, b * m) for r, x in enumerate(xs)])
+
+    cases["fit"] = (
+        _stack_args(torch, singles, [lambda xs: xs[0], flat_table, flat_table, flat_table,
+                                     fleet_fs]), singles,
+        lambda a: pfr.fit_slots_call(*a), lambda outs: torch.cat(outs),
+        fit_bytes(singles[0]), FIT_FLOPS_PER_SLOT * budget)
+    return cases
+
+
+def _fleet_vs_plain(torch, name, got, ref, b):
+    """The fleet launch against the plain version of the same fleet, at
+    the tolerances the single launches are held to (phase_kernels); returns
+    the max abs error."""
+    if name == "pose":
+        if not torch.equal(got, ref):
+            raise RuntimeError(f"pose (B = {b}): not bit-equal to the plain version")
+        return max_abs(got, ref)
+    if name == "chain_stats":
+        tol = [1e-4, 1e-4, 1e-3, 1e-3, 0.0, 1e-4, 1e-4, 1e-3, 0.0]
+        for i, (x, y, t) in enumerate(zip(got, ref, tol)):
+            e = max(rel_err(x[r], y[r]) for r in range(b))
+            if not e <= t:
+                raise RuntimeError(f"chain_stats (B = {b}): output {i} rel err {e:.3g} > {t}")
+        return max(max_abs(x, y) for x, y in zip(got, ref))
+    if name == "keys":
+        if not all(torch.equal(got[i], ref[i]) for i in (2, 3, 4)):
+            raise RuntimeError(f"keys (B = {b}): keys, centres or probe starts differ")
+        if not (rel_err(got[0], ref[0]) <= 1e-6 and rel_err(got[1], ref[1]) <= 1e-5):
+            raise RuntimeError(f"keys (B = {b}): rel errs over the tolerances")
+        return max(max_abs(x, y) for x, y in zip(got, ref))
+    if name == "moments":
+        g69, r69 = torch.cat(got, dim=1), torch.cat(ref, dim=1)
+        e = max(rel_err(g69[:, i], r69[:, i]) for i in range(69))
+        if not e <= 1e-4:
+            raise RuntimeError(f"moments (B = {b}): rel err {e:.3g}")
+        return max_abs(g69, r69)
+    if name == "fit":  # at most 2 flips in 1,024 slots a replica, as a single launch
+        return fit_check(torch, f"fit (B = {b})", got, ref, max_flips=2 * b)[3]
+    raise KeyError(name)
+
+
+def phase_fleet_kernels(torch, dev):
+    """The six kernels of the fleet path at B = 64 distinct replicas: one
+    launch must be ``torch.equal`` to 64 launches at B = 1 and hold to its
+    plain version at the single launch's tolerances (select by
+    ``select_check``); each is timed at B = 1, 8 and 64 beside its bound
+    (B times one replica's bytes or flops).  Returns {name: record} for the
+    kernels line (the B = 64 launch)."""
+    from legkilo_torch.ops import match_geom as mg
+    from legkilo_torch.ops import plane_fit_rows as pfr
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(13)
+    cases = _fleet_kernel_cases(torch, dev, rng, max(FLEET_KERNEL_BS))
+    recs = {}
+    for name, (fargs, singles, call, fleet_of, b1, f1) in cases.items():
+        bmax = len(singles)
+        got = call(fargs)
+        want = fleet_of([call(s) for s in singles])
+        torch.cuda.synchronize()
+        outs = got if isinstance(got, tuple) else (got,)
+        wants = want if isinstance(want, tuple) else (want,)
+        if not all(torch.equal(x, y) for x, y in zip(outs, wants)):
+            raise RuntimeError(f"{name}: the B = {bmax} launch differs from {bmax} launches at B = 1")
+        # The plain version of a fleet runs the replicas one after another
+        # (64 chain walks of ~0.2 s in eager torch): one call, timed.
+        if name == "select":
+            (out, s40, nm), (r_out, r_s40, r_nm), _ = select_check(torch, fargs, 3, bmax * 28)
+            same = out[0] == r_out[0]  # rows whose gate did not flip, as phase_kernels
+            err = max(max_abs(out[:, same], r_out[:, same]), max_abs(s40, r_s40), max_abs(nm, r_nm))
+            _, plain_ms = timed_once(torch, lambda: mg.select_plain(*fargs, 3, bmax * 28))
+        else:
+            ref, plain_ms = timed_once(torch, lambda: call_plain(
+                name, fargs, {"fit": pfr.fit_slots_plain}.get(name)))
+            err = _fleet_vs_plain(torch, name, got, ref, bmax)
+        times = {}
+        for bb in FLEET_KERNEL_BS:
+            sub = cases_subset(torch, name, fargs, singles, bb)
+            times[bb] = time_call(torch, lambda: call(sub), 50 if bb < 64 else 20)
+        bounds = {bb: bound(bb * b1, bb * f1) for bb in FLEET_KERNEL_BS}
+        log(f"[fleet_kernels] {name}: B = {bmax} launch torch.equal to {bmax} launches at B = 1; "
+            f"vs plain within the single launch's tolerances; " + ", ".join(
+                f"B = {bb}: {times[bb]:.4f} ms (bound {bounds[bb][0]:.6f} ms, {bounds[bb][1]})"
+                for bb in FLEET_KERNEL_BS))
+        recs[name + FLEET_SUFFIX] = dict(
+            max_abs_err=err, ms=times[bmax], plain_ms=plain_ms,
+            bound_ms=bounds[bmax][0], bound_by=bounds[bmax][1],
+            ms_by_b={str(k): v for k, v in times.items()},
+            bound_ms_by_b={str(k): v[0] for k, v in bounds.items()})
+    log(f"[fleet_kernels] the phase took {time.perf_counter() - t_phase:.1f} s")
+    return recs
+
+
+def timed_once(torch, fn):
+    """(fn(), its ms by CUDA events around one call after a synchronise)."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def call_plain(name, fargs, plain_fn=None):
+    from legkilo_torch.ops import chain_stats as cs
+    from legkilo_torch.ops import insert_rows as ir
+    from legkilo_torch.ops import match_geom as mg
+    from legkilo_torch.ops import pose_prop as pp
+
+    if name == "pose":
+        return pp.pose_plain(*fargs)
+    if name == "chain_stats":
+        return cs.chain_plain(*fargs, use_kin=False)
+    if name == "keys":
+        return mg.keys_plain(*fargs, 3, 1 << 14)
+    if name == "moments":
+        return ir.moments_rows_plain(*fargs)
+    return plain_fn(*fargs)
+
+
+def cases_subset(torch, name, fargs, singles, bb):
+    """The fleet arguments of the first ``bb`` replicas of a case."""
+    bmax = len(singles)
+    if bb == bmax:
+        return fargs
+    if name in ("pose", "chain_stats"):
+        return [a[:bb] for a in fargs]
+    if name == "keys":
+        c = fargs[1].shape[1] // bmax
+        return [fargs[0][:bb]] + [a[:, : bb * c].contiguous() for a in fargs[1:]]
+    if name == "select":
+        c = fargs[1].shape[1] // bmax
+        bidx = fargs[7][:, : bb * c]
+        bidx = torch.where(bidx >= bmax * 28, torch.full_like(bidx, bb * 28), bidx)
+        return [fargs[0][:bb]] + [a[:, : bb * c].contiguous() for a in fargs[1:7]] + [bidx]
+    if name == "moments":
+        nbm = fargs[2].shape[0] // bmax
+        n = fargs[6].shape[0] // bmax
+        rr = fargs[8].shape[0] // bmax
+        return [fargs[0][:bb], fargs[1]] + [a[: bb * nbm] for a in fargs[2:6]] + \
+            [fargs[6][: bb * n], fargs[7][: bb * n], fargs[8][: bb * rr], fargs[9][: bb * n],
+             fargs[10][: bb * rr], fargs[11][: bb * rr]]
+    if name == "fit":
+        budget = fargs[4].shape[0] // bmax
+        return fargs[:4] + [fargs[4][: bb * budget]]
+    raise KeyError(name)
+
+
+def fleet_config(latch=True):
+    """bench.py's configuration (all five kernel switches: the batched
+    fleet route), as sweep --pallas --pipeline deferred runs it."""
+    from legkilo_torch.runner import bench_config
+
+    cfg = bench_config()
+    if not latch:
+        cfg.tpu.escalate_after = 0
+    return cfg
+
+
+def fleet_start(torch, cfg, datas):
+    """Each replica's first-frame initialisation (fleet_init) from its
+    data's first packet, as ``sweep --distinct`` does; returns (scfg, carry,
+    params, each replica's host packets after the first)."""
+    from legkilo_torch.cli import _packets_from_streams
+    from legkilo_torch.io.dataset import decimate_blind
+    from legkilo_torch.parallel.sweep import fleet_init
+    from legkilo_torch.runner import make_params, make_static_config
+
+    scfg = make_static_config(cfg, use_kin=False)
+    seqs, clouds, accs, gyrs, offs = [], [], [], [], []
+    for d in datas:
+        pk = _packets_from_streams(cfg, d.scans, d.imu, use_kin=False)
+        m = pk[0].imu_mask
+        accs.append(pk[0].imu_acc[m].mean(axis=0))
+        gyrs.append(pk[0].imu_gyr[m].mean(axis=0))
+        offs.append(pk[0].end_offset)
+        pts, _, _ = decimate_blind(d.scans[0].points, d.scans[0].time_offset,
+                                   cfg.lidar.filter_num, cfg.lidar.blind)
+        clouds.append(pts)
+        seqs.append(pk[1:])
+    carry, params = fleet_init(scfg, make_params(cfg, torch.device("cuda")), clouds,
+                               np.stack(accs), np.stack(gyrs), np.asarray(offs),
+                               float(cfg.gravity), device="cuda")
+    return scfg, carry, params, seqs
+
+
+def fleet_replay(torch, scfg, carry, params, steps, chunk):
+    """Step the fleet through ``steps`` ([B, ...] packets), ``chunk`` scans
+    a call (1: per scan); returns (carry, pos [T, B, 3], rot [T, B, 3, 3],
+    last stats, fleet steps)."""
+    from legkilo_torch.parallel.sweep import (
+        make_fleet_chunk_step, make_fleet_step, stack_fleet_chunks,
+    )
+
+    pos, rot = [], []
+    stats = None
+    if chunk > 1:
+        step = make_fleet_chunk_step(scfg)
+        for dev in stack_fleet_chunks(steps, chunk):
+            carry, outs, stats = step(carry, dev, params)
+            pos.append(outs.pos.transpose(0, 1))
+            rot.append(outs.rot.transpose(0, 1))
+    else:
+        step = make_fleet_step(scfg)
+        for dev in steps:
+            carry, out, stats = step(carry, dev, params)
+            pos.append(out.pos[None])
+            rot.append(out.rot[None])
+    pos, rot = torch.cat(pos), torch.cat(rot)
+    return carry, pos.cpu().numpy(), rot.cpu().numpy(), stats, int(pos.shape[0])
+
+
+def distinct_sims(n, duration):
+    """``sweep --distinct n``'s worlds: varied trajectories, seeds 100 + r."""
+    from legkilo_torch.models import sim
+
+    return [sim.simulate(sim.SimConfig(duration=duration, seed=100 + r),
+                         traj=sim.Trajectory(speed=0.6 + 0.12 * (r % 4), radius=2.0 + 0.4 * (r % 3),
+                                             bob_freq=1.5 + 0.25 * (r % 4)))
+            for r in range(n)]
+
+
+def phase_fleet_equal(torch, duration=FLEET_EQUAL_DURATION_S):
+    """Four distinct sims (``--distinct``-style worlds, 4 s) through the
+    fleet, per scan and chunked by 8: each replica's trajectory must be
+    equal bit for bit to its own single ``run_offline`` (the fleet has no
+    escalation latch, so the single runs run without one)."""
+    from legkilo_torch.io.dataset import to_device_packet
+    from legkilo_torch.parallel.sweep import stack_packets
+    from legkilo_torch.runner import run_offline
+
+    t_phase = time.perf_counter()
+    cfg = fleet_config(latch=False)
+    datas = distinct_sims(FLEET_EQUAL_B, duration)
+    singles = [run_offline(cfg, d.scans, d.imu, device="cuda")[1:] for d in datas]
+    scfg, carry0, params, seqs = fleet_start(torch, cfg, datas)
+    steps = stack_packets([[to_device_packet(p, "cuda") for p in s] for s in seqs])
+    reset_counters()
+    rec = {}
+    for chunk in (1, FLEET_CHUNK):
+        _, pos, rot, _, t = fleet_replay(torch, scfg, carry0, params, steps, chunk)
+        same = [bool(np.array_equal(pos[:, r], np.stack([x.pos for x in singles[r][:t]]))
+                     and np.array_equal(rot[:, r], np.stack([x.rot for x in singles[r][:t]])))
+                for r in range(FLEET_EQUAL_B)]
+        dev = max(float(np.abs(pos[:, r] - np.stack([x.pos for x in singles[r][:t]])).max())
+                  for r in range(FLEET_EQUAL_B))
+        rec[f"chunk{chunk}"] = dict(scans=t, equal=same, max_abs_pos_m=dev)
+        if not all(same):
+            raise RuntimeError(f"fleet_equal (chunk {chunk}): replicas {same} not equal to their "
+                               f"single runs (max |dpos| {dev:.3g} m)")
+    counts = read_counters()
+    log(f"[fleet_equal] {json.dumps(rec)}; launches {json.dumps(counts)}; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if any(counts[k] <= 0 for k in FUSED_KERNELS) or counts["chain_points"]:
+        raise RuntimeError(f"fleet_equal: kernel counters {counts}")
+
+
+def fleet_profile(torch, scfg, carry, params, chunks_dev):
+    """torch.profiler (the card's activity) over the chunked calls
+    ``chunks_dev``: device ms and device launches a fleet step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from legkilo_torch.parallel.sweep import make_fleet_chunk_step
+
+    step = make_fleet_chunk_step(scfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for dev in chunks_dev:
+            carry, _, _ = step(carry, dev, params)
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    n = sum(int(d.points.shape[1]) for d in chunks_dev)
+    return dict(device_ms_per_step=sum(r[0] for r in rows) / 1e3 / n,
+                launches_per_step=sum(r[2] for r in rows) / n), rows
+
+
+def fleet_broadcast_run(torch, data, b, n_scans, tag, check_ate=True, profile_chunks=2):
+    """``sweep --pallas``'s broadcast fleet on ``data``: the filter
+    initialised once from the first packet and copied to ``b`` replicas,
+    q_diag jittered by FLEET_NOISE, the packets broadcast, chunked by
+    FLEET_CHUNK over ``n_scans`` fleet steps.  Checks each kernel launched
+    exactly once a fleet step (one match pass: bench.py's), every replica's
+    ATE under the bound (``check_ate``), and prints replica-scans/s, device
+    ms and launches a fleet step (a profiler window of ``profile_chunks``
+    calls), and peak memory a replica."""
+    from legkilo_torch.core.filter_fleet import replica, tree_map
+    from legkilo_torch.io.dataset import to_device_packet
+    from legkilo_torch.io.tum import ate_rmse
+    from legkilo_torch.parallel.sweep import broadcast_packets, perturb_params, stack_fleet_chunks
+
+    cfg = fleet_config()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    scfg, one, params1, seqs = fleet_start(torch, cfg, [data])
+    carry0 = tree_map(lambda x: x.expand((b,) + tuple(x.shape[1:])).clone(), one)
+    params = perturb_params(replica(params1, 0), b, scale=FLEET_NOISE, seed=0)
+    host = seqs[0][:n_scans]
+    steps = [broadcast_packets(to_device_packet(p, "cuda"), b) for p in host]
+    chunks = stack_fleet_chunks(steps, FLEET_CHUNK)
+    del steps
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    from legkilo_torch.parallel.sweep import make_fleet_chunk_step
+
+    step = make_fleet_chunk_step(scfg)
+    carry, pos = carry0, []
+    for dev in chunks:
+        carry, outs, stats = step(carry, dev, params)
+        pos.append(outs.pos)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counters()
+    pos = torch.cat(pos, dim=1).cpu().numpy()        # [B, T, 3]
+    t = pos.shape[1]
+    peak = torch.cuda.max_memory_allocated() - mem0
+    prof, rows = fleet_profile(torch, scfg, carry0, params, chunks[:profile_chunks])
+    rec = dict(replicas=b, scans=t, chunk=FLEET_CHUNK, wall_s=wall,
+               replica_scans_per_s=b * t / wall, ms_per_fleet_step=wall / t * 1e3,
+               peak_mb_per_replica=peak / b / 2 ** 20, launches=counts, **prof,
+               final_spread_m=float(stats.pos_spread))
+    if check_ate:
+        _, gt = data.gt_in_filter_frame()
+        gtm = {round(x, 6): i for i, x in enumerate(data.gt_times)}
+        sel = [i for i, p in enumerate(host[:t]) if round(p.end_time, 6) in gtm]
+        idx = [gtm[round(host[i].end_time, 6)] for i in sel]
+        ates = [ate_rmse(pos[r, sel], gt[idx], align=False) for r in range(b)]
+        rec.update(ate_max_m=max(ates), ate_mean_m=float(np.mean(ates)))
+    log(f"[{tag}] {json.dumps(rec)}")
+    log(f"[{tag}] B = {b}: {rec['replica_scans_per_s']:.1f} replica-scans/s, "
+        f"{rec['ms_per_fleet_step']:.3f} ms a fleet step (host wall), device "
+        f"{rec['device_ms_per_step']:.3f} ms and {rec['launches_per_step']:.1f} launches a fleet "
+        f"step (profiler), peak {rec['peak_mb_per_replica']:.2f} MB a replica")
+    for dev_us, key, count in rows[:6]:
+        log(f"[{tag}]   {dev_us / (profile_chunks * FLEET_CHUNK) / 1e3:8.4f} ms/step "
+            f"{count / (profile_chunks * FLEET_CHUNK):6.1f} calls/step  {key[:80]}")
+    want = {k: t for k in FUSED_KERNELS}
+    got = {k: counts[k] for k in FUSED_KERNELS}
+    if got != want or counts["chain_points"]:
+        raise RuntimeError(f"{tag}: launches {counts}, expected one a kernel a fleet step ({want})")
+    if not np.isfinite(pos).all():
+        raise RuntimeError(f"{tag}: non-finite poses")
+    if check_ate and not rec["ate_max_m"] < ATE_BOUND_M:
+        raise RuntimeError(f"{tag}: a replica's ATE {rec['ate_max_m']:.4f} m >= {ATE_BOUND_M} m")
+    return rec
+
+
+def phase_fleet(torch, data):
+    t_phase = time.perf_counter()
+    rec = fleet_broadcast_run(torch, cut(data, FLEET_DURATION_S + 0.1), FLEET_B,
+                              int(FLEET_DURATION_S * 10), "fleet")
+    log(f"[fleet] the phase took {time.perf_counter() - t_phase:.1f} s")
+    return rec
+
+
+def phase_fleet_scale(torch, data):
+    """B = 1, 8, 64, 256 for FLEET_SCALE_SCANS scans each, as ``fleet``;
+    fails when the device launches a fleet step at B = 64 are not within
+    10 % of those at B = 1."""
+    t_phase = time.perf_counter()
+    recs = {b: fleet_broadcast_run(torch, data, b, FLEET_SCALE_SCANS, f"fleet_scale{b}",
+                                   check_ate=False, profile_chunks=1)
+            for b in FLEET_SCALE_BS}
+    l1, l64 = recs[1]["launches_per_step"], recs[64]["launches_per_step"]
+    log(f"[fleet_scale] device launches a fleet step: " + ", ".join(
+        f"B = {b}: {r['launches_per_step']:.1f}" for b, r in recs.items())
+        + f"; replica-scans/s: " + ", ".join(
+        f"B = {b}: {r['replica_scans_per_s']:.1f}" for b, r in recs.items())
+        + f"; {time.perf_counter() - t_phase:.1f} s")
+    if not abs(l64 - l1) <= 0.1 * l1:
+        raise RuntimeError(f"fleet_scale: {l64:.1f} launches a step at B = 64 against {l1:.1f} at B = 1")
+    return recs
+
+
+def phase_fleet_bags(torch, data):
+    """``python -m legkilo_torch sweep --bags DIR --pallas --pipeline
+    deferred --traj_out OUT`` in this process over two 4 s bags (main's
+    workload and a second sim, seed 8) written by the bag phase's writer:
+    one TUM file a bag, every replica's ATE under the bound, each kernel
+    launched once a fleet step."""
+    import shutil
+
+    from legkilo_torch import cli
+    from legkilo_torch.io.tum import associate, ate_rmse, read_tum
+    from legkilo_torch.models import sim
+
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "fleet_bags")
+    shutil.rmtree(root, ignore_errors=True)
+    bags, out_dir = os.path.join(root, "bags"), os.path.join(root, "traj")
+    os.makedirs(bags)
+    datas = [cut(data, FLEET_BAG_DURATION_S),
+             sim.simulate(sim.SimConfig(duration=FLEET_BAG_DURATION_S, scan_points=8000, seed=8))]
+    for i, d in enumerate(datas):
+        write_bag(os.path.join(bags, f"bag{i}.bag"), imu_bag_messages(d))
+    cfg = os.path.join(root, "fleet.yaml")
+    bag_config_file(cfg, use_kin=False)
+    reset_counters()
+    rec = cli_json(cli, ["sweep", "--bags", bags, "--pallas", "--pipeline", "deferred",
+                         "--traj_out", out_dir, "--config_file", cfg])
+    counts = read_counters()
+    ates = {}
+    for i, d in enumerate(datas):
+        t, p, _ = read_tum(os.path.join(out_dir, f"bag{i}.bag.tum"))
+        _, gt = d.gt_in_filter_frame()
+        ia, ib = associate(t, d.gt_times + BAG_TIME_OFFSET_S, max_dt=0.01)
+        ates[f"bag{i}"] = dict(poses=len(t), pairs=int(len(ia)),
+                               ate_m=ate_rmse(p[ia], gt[ib], align=False))
+    log(f"[fleet_bags] {json.dumps(rec)}; {json.dumps(ates)}; launches {json.dumps(counts)}; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    shutil.rmtree(root, ignore_errors=True)
+    if rec["replicas"] != 2 or any(a["poses"] != rec["scans"] for a in ates.values()):
+        raise RuntimeError(f"fleet_bags: {rec}, {ates}")
+    if not all(a["ate_m"] < ATE_BOUND_M and a["pairs"] >= 10 for a in ates.values()):
+        raise RuntimeError(f"fleet_bags: ATE {ates}")
+    # One launch a kernel a fleet step; fit also once a replica for its
+    # first-frame map (fleet_init).
+    want = {k: rec["scans"] + (rec["replicas"] if k == "fit" else 0) for k in FUSED_KERNELS}
+    if any(counts[k] != want[k] for k in FUSED_KERNELS) or counts["chain_points"]:
+        raise RuntimeError(f"fleet_bags: launches {counts}, expected {want}")
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="build,kernels,main,chunk,stream1,four,profile,kin,points,points_kin,"
                             "slide,points_chunk,ref2ms,repeat,leg_fusion,mixed,seq,seq_kin,"
-                            "bag,bag_kin")
+                            "bag,bag_kin,fleet_equal,fleet,fleet_scale,fleet_bags")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -1509,9 +2113,11 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     phase_build()
     recs = phase_kernels(torch, dev) if "kernels" in phases else {}
-    main_rec = kin_rec = points_rec = points_kin_rec = ref2ms_rec = None
+    fleet_recs = phase_fleet_kernels(torch, dev) if "kernels" in phases else {}
+    main_rec = kin_rec = points_rec = points_kin_rec = ref2ms_rec = fleet_rec = None
     if phases & {"main", "chunk", "stream1", "four", "points", "slide", "points_chunk", "ref2ms",
-                  "repeat", "leg_fusion", "mixed", "seq", "seq_kin", "bag"}:
+                  "repeat", "leg_fusion", "mixed", "seq", "seq_kin", "bag", "fleet", "fleet_scale",
+                  "fleet_bags"}:
         data = simulate(MAIN_DURATION_S, "main")
         if "main" in phases:
             main_rec = run_workload(torch, data, "main")
@@ -1552,6 +2158,14 @@ def main(argv=None) -> int:
         if "bag" in phases:
             phase_bag(torch, cut(data, BAG_DURATION_S), "bag", use_kin=False, bound=ATE_BOUND_M,
                       kernels=FUSED_KERNELS)
+        if "fleet" in phases:
+            fleet_rec = phase_fleet(torch, data)
+        if "fleet_scale" in phases:
+            phase_fleet_scale(torch, data)
+        if "fleet_bags" in phases:
+            phase_fleet_bags(torch, data)
+    if "fleet_equal" in phases:
+        phase_fleet_equal(torch)
     if "profile" in phases:
         p4 = phase_profile(torch, "profile4", five=False)
         p5 = phase_profile(torch, "profile5")
@@ -1593,6 +2207,14 @@ def main(argv=None) -> int:
             "launches": launches, "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": None,
+        })
+    for name, rec in fleet_recs.items():
+        base = name[: -len(FLEET_SUFFIX)]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[base], "replaces": REPLACES[base],
+            "launches": fleet_rec["launches"][base] if fleet_rec else 0,
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"], "library_ms": None,
         })
     log(f"[card] {card}")
     print(json.dumps({"kernels": kernels}))

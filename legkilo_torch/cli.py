@@ -1,4 +1,4 @@
-"""Command line: ``python -m legkilo_torch run|eval|sim``.
+"""Command line: ``python -m legkilo_torch run|eval|sim|sweep``.
 
 ``run`` replays a ROS1 bag through the port, as ``python -m legkilo_tpu
 run`` does: PointCloud2 scans decoded by ``lidar_type``, Imu messages (or,
@@ -34,8 +34,30 @@ workload is ``runner.bench_config()``, for Python callers).  ``--chunk K``
 replays K staged scans a call; ``--save_ckpt`` snapshots at the end and
 ``--resume`` with ``--skip_scans N`` continues such a run from scan N.
 
-``run`` and ``sim`` take ``--device``: ``cuda`` (the default) raises when no
-card is present; ``cpu`` runs the plain PyTorch versions of the kernels.
+``sweep`` is the fleet, as ``python -m legkilo_tpu sweep``: B filter
+replicas on one card (parallel/sweep.py).  Without ``--distinct`` or
+``--bags`` it replays one sim (``--duration``) through ``--replicas`` B
+replicas from the empty filter, ``q_diag`` jittered by ``--noise_scale``,
+and prints {"replicas", "devices", "processes", "scans", "wall_s",
+"replica_scans_per_s", "final_spread_m"} (after 3 warm-up steps);
+``--distinct N`` replays N different synthetic worlds and ``--bags DIR`` one
+replica a ``.bag``, each replica initialised from its own first packet and
+stepped through its own packets, and prints {"replicas", "devices",
+"scans", "wall_s", "replica_scans_per_s", "mean_matched", "chunk"} with
+``ate_per_replica_m`` (sims), ``resumed_at`` and ``checkpoint`` where they
+apply; ``--traj_out DIR`` writes a TUM file a replica, ``--save_ckpt`` /
+``--resume`` / ``--max_steps`` split a long sweep (the fleet checkpoint is
+the JAX CLI's npz).  ``--chunk K`` advances the fleet K scans a call (in
+every mode here; the JAX command reads it with ``--distinct``/``--bags``
+only).  ``--pallas`` turns on all five kernel switches, in every mode (the
+JAX command reads it without ``--distinct``/``--bags`` only), which makes
+the fleet step one launch of each kernel for all replicas; other
+configurations step the replicas one after another.  The JAX command's
+multi-host flags wait for the port's multi-device layer.
+
+``run``, ``sim`` and ``sweep`` take ``--device``: ``cuda`` (the default)
+raises when no card is present; ``cpu`` runs the plain PyTorch versions of
+the kernels.
 Every command logs to stderr and to a file under ``logs/`` at
 ``--log_level`` (WARNING by default).
 """
@@ -226,6 +248,289 @@ def cmd_sim(args: argparse.Namespace) -> int:
     return 0
 
 
+def _packets_from_streams(cfg, scans, events, use_kin: bool):
+    """scans + events -> ordered HostPackets (run_offline's feed loop).
+
+    The fleet consumes these packets through a batched step with no
+    per-replica host intervention, so the streaming path's tpu_gap_reset_s
+    soft reset cannot be applied there: fleet replay is gap-unsafe (a sensor
+    hole longer than the gap is mean-propagated), and such a gap is reported
+    here instead of diverging silently."""
+    from .io.dataset import PacketBuilder
+    from .runner import _scans_after_their_events
+
+    builder = PacketBuilder(cfg)
+    packets = []
+    add_event = builder.add_kin_imu if use_kin else builder.add_imu
+    for scan in _scans_after_their_events(add_event, scans, events):
+        builder.add_scan(scan)
+        while builder.ready():
+            packets.append(builder.pop())
+    gap = float(cfg.tpu.gap_reset_s)
+    if gap > 0.0:
+        for p in packets:
+            if p.rebase > gap:
+                log.warning(
+                    "staged packet has a %.1f s sensor gap (> tpu_gap_reset_s=%.1f); fleet "
+                    "replay cannot soft-reset per replica — this stream's trajectory will "
+                    "differ from streaming replay (use `run` for gap recovery)", p.rebase, gap,
+                )
+    return packets
+
+
+def _load_bag_streams(cfg, path: str):
+    """One .bag -> (scans, Imu events), exact repeats dropped when
+    ``redundancy`` is on (ros_interface.cc:198-204)."""
+    from .io import rosbag as bag_mod
+    from .io.dataset import ImuEvent
+    from .models import lidar as lidar_mod
+
+    scans, events = [], []
+    last_acc_z = last_gyr_z = None
+    with bag_mod.BagReader(path) as reader:
+        for msg in reader.messages([cfg.lidar_topic, cfg.imu_topic]):
+            if msg.topic == cfg.lidar_topic:
+                scans.append(lidar_mod.decode(bag_mod.parse_pointcloud2(msg.raw), cfg.lidar))
+            elif msg.topic == cfg.imu_topic:
+                imu = bag_mod.parse_imu(msg.raw)
+                if cfg.redundancy and (
+                    imu.linear_acceleration[2] == last_acc_z
+                    and imu.angular_velocity[2] == last_gyr_z
+                ):
+                    continue
+                last_acc_z = imu.linear_acceleration[2]
+                last_gyr_z = imu.angular_velocity[2]
+                events.append(ImuEvent(time=imu.stamp, acc=imu.linear_acceleration,
+                                       gyr=imu.angular_velocity))
+    return scans, events
+
+
+def _save_fleet_ckpt(path, carry, bparams, n_done: int) -> str:
+    """Fleet checkpoint: the batched carry (every replica's state,
+    covariance, clocks and map), the per-replica FilterParams as extras
+    ``bp_000`` ... and the fleet step cursor, in the single filter's npz
+    container (the JAX CLI's format)."""
+    from .convert import params_to_numpy
+    from .io import checkpoint as ckpt
+
+    extras = {f"bp_{i:03d}": leaf for i, leaf in enumerate(params_to_numpy(bparams))}
+    return ckpt.save(path, carry, step=int(n_done), extras=extras)
+
+
+def _load_fleet_ckpt(path, carry_like, bparams_like):
+    """(carry, bparams, n_done) saved by ``_save_fleet_ckpt``, checked
+    against freshly built templates: another replica count or config
+    raises ValueError."""
+    from .convert import params_from_numpy, params_leaves
+    from .io import checkpoint as ckpt
+
+    carry, step, extras = ckpt.load(path, carry_like)
+    leaves = []
+    for i, like in enumerate(params_leaves(bparams_like)):
+        arr = extras[f"bp_{i:03d}"]
+        if tuple(arr.shape) != tuple(like.shape):
+            raise ValueError(f"fleet checkpoint param {i} shape {arr.shape} != "
+                             f"{tuple(like.shape)} (replica count / config mismatch?)")
+        leaves.append(arr)
+    return carry, params_from_numpy(leaves, carry_like.cov.device), int(step or 0)
+
+
+def _sweep_distinct(args, cfg, device) -> int:
+    """Distinct-replay fleet: every replica advances through its own stream
+    each step.  ``--distinct N`` generates N different synthetic worlds
+    (varied trajectory and noise seed); ``--bags`` replays real .bag files."""
+    import glob
+    import os
+
+    from .io.dataset import decimate_blind, to_device_packet
+    from .io.tum import TrajectoryWriter, ate_rmse
+    from .models import sim as sim_mod
+    from .parallel.sweep import (
+        fleet_init, make_fleet_chunk_step, make_fleet_step, stack_fleet_chunks, stack_packets,
+    )
+    from .runner import make_params, make_static_config
+    from .utils.timing import sync
+
+    datas = None
+    if args.bags:
+        paths = sorted(glob.glob(os.path.join(args.bags, "*.bag")))
+        if not paths:
+            print(json.dumps({"error": f"no .bag files in {args.bags}"}))
+            return 1
+        streams = [_load_bag_streams(cfg, p) for p in paths]
+        names = [os.path.basename(p) for p in paths]
+    else:
+        datas = []
+        for r in range(args.distinct):
+            traj = sim_mod.Trajectory(speed=0.6 + 0.12 * (r % 4), radius=2.0 + 0.4 * (r % 3),
+                                      bob_freq=1.5 + 0.25 * (r % 4))
+            datas.append(sim_mod.simulate(sim_mod.SimConfig(duration=args.duration, seed=100 + r),
+                                          traj=traj))
+        streams = [(d.scans, d.imu) for d in datas]
+        names = [f"sim{r}" for r in range(len(datas))]
+
+    scfg = make_static_config(cfg, use_kin=False)
+    params = make_params(cfg, device)  # g_over_acc_norm set a replica by fleet_init
+    pkt_seqs, first_clouds, mean_accs, mean_gyrs, end_offsets = [], [], [], [], []
+    for scans, events in streams:
+        pkts = _packets_from_streams(cfg, scans, events, use_kin=False)
+        first = pkts[0]
+        m = first.imu_mask
+        mean_accs.append(first.imu_acc[m].mean(axis=0))
+        mean_gyrs.append(first.imu_gyr[m].mean(axis=0))
+        end_offsets.append(first.end_offset)
+        pts, _, _ = decimate_blind(scans[0].points, scans[0].time_offset,
+                                   cfg.lidar.filter_num, cfg.lidar.blind)
+        first_clouds.append(pts)
+        pkt_seqs.append(pkts)
+
+    carry, bparams = fleet_init(scfg, params, first_clouds, np.stack(mean_accs),
+                                np.stack(mean_gyrs), np.asarray(end_offsets), float(cfg.gravity),
+                                device=device)
+    n_done = 0
+    if args.resume:
+        carry, bparams, n_done = _load_fleet_ckpt(args.resume, carry, bparams)
+        log.info("Resumed fleet from %s at step %d", args.resume, n_done)
+
+    steps = stack_packets([[to_device_packet(p, device) for p in seq[1:]] for seq in pkt_seqs])
+    max_steps = max(0, int(args.max_steps or 0))
+    hi = min(len(steps), n_done + max_steps) if max_steps else len(steps)
+    steps = steps[n_done:hi]
+    if not steps:
+        print(json.dumps({"error": f"no steps left to replay (resumed at {n_done})"}))
+        return 1
+    chunk = min(max(1, int(args.chunk or 1)), len(steps))
+
+    est, est_rot = [], []  # a step's [B, 3], [B, 3, 3]
+    stats = None
+    if chunk > 1:
+        step = make_fleet_chunk_step(scfg)
+        chunks = stack_fleet_chunks(steps, chunk)
+        t0 = time.perf_counter()
+        for dev in chunks:
+            carry, outs, stats = step(carry, dev, bparams)
+            pos, rot = outs.pos.cpu().numpy(), outs.rot.cpu().numpy()  # [B, K, ...]
+            for k in range(pos.shape[1]):
+                est.append(pos[:, k])
+                est_rot.append(rot[:, k])
+        n_steps = len(chunks) * chunk
+    else:
+        step = make_fleet_step(scfg)
+        t0 = time.perf_counter()
+        for dev in steps:
+            carry, out, stats = step(carry, dev, bparams)
+            est.append(out.pos.cpu().numpy())
+            est_rot.append(out.rot.cpu().numpy())
+        n_steps = len(steps)
+    sync(carry)
+    wall = time.perf_counter() - t0
+    times = [[p.end_time for p in seq[1 + n_done : 1 + n_done + n_steps]] for seq in pkt_seqs]
+    est = np.stack(est)          # [T, B, 3]
+    est_rot = np.stack(est_rot)  # [T, B, 3, 3]
+    b = est.shape[1]
+
+    report = {
+        "replicas": b, "devices": 1, "scans": n_steps, "wall_s": round(wall, 2),
+        "replica_scans_per_s": round(b * n_steps / max(wall, 1e-9), 1),
+        "mean_matched": round(float(stats.mean_matched), 1), "chunk": chunk,
+    }
+    if n_done:
+        report["resumed_at"] = n_done
+    if args.save_ckpt:
+        report["checkpoint"] = _save_fleet_ckpt(args.save_ckpt, carry, bparams, n_done + n_steps)
+    if datas is not None:
+        ates = []
+        for r, d in enumerate(datas):
+            _, gt_pos_f = d.gt_in_filter_frame()
+            gtm = {round(t, 6): i for i, t in enumerate(d.gt_times)}
+            sel = [i for i, t in enumerate(times[r]) if round(t, 6) in gtm]
+            idx = [gtm[round(times[r][i], 6)] for i in sel]
+            ates.append(round(ate_rmse(est[sel, r], gt_pos_f[idx], align=False), 4))
+        report["ate_per_replica_m"] = dict(zip(names, ates))
+    if args.traj_out:
+        os.makedirs(args.traj_out, exist_ok=True)
+        for r, name in enumerate(names):
+            with TrajectoryWriter(os.path.join(args.traj_out, f"{name}.tum")) as w:
+                for t in range(n_steps):
+                    w.write(times[r][t], est_rot[t, r], est[t, r])
+    print(json.dumps(report))
+    return 0
+
+
+def cmd_sweep(args: argparse.Namespace) -> int:
+    from . import config as config_mod
+    from . import resolve_device
+    from .io.dataset import PacketBuilder, to_device_packet
+    from .models import sim as sim_mod
+    from .parallel.sweep import (
+        batched_carry, broadcast_packets, make_fleet_chunk_step, make_fleet_step, perturb_params,
+        stack_fleet_chunks,
+    )
+    from .runner import make_params, make_static_config
+    from .utils.timing import sync
+
+    device = resolve_device(args.device)
+    cfg = config_mod.load(args.config_file) if args.config_file else config_mod.Config()
+    cfg.only_imu_use = True
+    cfg.lidar.filter_num = 1
+    cfg.lidar.blind = 0.3
+    if args.pipeline:
+        cfg.tpu.pipeline = args.pipeline
+    if args.pallas:
+        cfg.tpu.use_pallas = cfg.tpu.use_pallas_match = cfg.tpu.use_pallas_insert = True
+        cfg.tpu.use_pallas_pose = cfg.tpu.use_pallas_refit = True
+    if args.distinct or args.bags:
+        return _sweep_distinct(args, cfg, device)
+
+    data = sim_mod.simulate(sim_mod.SimConfig(duration=args.duration))
+    builder = PacketBuilder(cfg)
+    for ev in data.imu:
+        builder.add_imu(ev)
+    packets = []
+    for scan in data.scans:
+        builder.add_scan(scan)
+        while builder.ready():
+            packets.append(builder.pop())
+
+    scfg = make_static_config(cfg, use_kin=False)
+    params = make_params(cfg, device, float(cfg.gravity / np.linalg.norm(data.mean_acc)))
+    b = args.replicas or 1
+    carry = batched_carry(scfg, b, device)
+    bparams = perturb_params(params, b, scale=args.noise_scale)
+    # Every packet staged on the card first: the step rate is the card's.
+    devs = [broadcast_packets(to_device_packet(p, device), b) for p in packets]
+    chunk = max(1, int(args.chunk or 1))
+    step = make_fleet_step(scfg)
+    # Warm-up on the first packets (kernel build, map bootstrap); the rate
+    # is the steady state's.
+    stats = None
+    n_warm = min(3, len(devs) - 1)
+    for dev in devs[:n_warm]:
+        carry, _, stats = step(carry, dev, bparams)
+    sync(carry)
+    timed = devs[n_warm:]
+    t0 = time.perf_counter()
+    if chunk > 1:
+        step = make_fleet_chunk_step(scfg)
+        timed = stack_fleet_chunks(timed, chunk)
+        n_timed = len(timed) * chunk
+    else:
+        n_timed = len(timed)
+    for dev in timed:
+        carry, _, stats = step(carry, dev, bparams)
+    sync(carry)
+    wall = time.perf_counter() - t0
+    report = {
+        "replicas": b, "devices": 1, "processes": 1, "scans": n_timed,
+        "wall_s": round(wall, 2), "replica_scans_per_s": round(b * n_timed / max(wall, 1e-9), 1),
+        "final_spread_m": float(stats.pos_spread),
+    }
+    if chunk > 1:
+        report["chunk"] = chunk
+    print(json.dumps(report))
+    return 0
+
+
 def cmd_eval(args: argparse.Namespace) -> int:
     """Offline trajectory evaluation (the evo/ATE workflow the reference
     delegates to external tools; SURVEY.md §4.2)."""
@@ -295,6 +600,32 @@ def main(argv=None) -> int:
     p.add_argument("--rpe_delta", type=int, default=1,
                    help="frame delta for the relative pose error")
     p.set_defaults(fn=cmd_eval)
+
+    p = sub.add_parser("sweep", help="Monte-Carlo fleet replay (B replicas on one card)")
+    p.add_argument("--config_file", default=None)
+    p.add_argument("--duration", type=float, default=3.0)
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    p.add_argument("--replicas", type=int, default=None, help="B (default 1: one card)")
+    p.add_argument("--noise_scale", type=float, default=0.1,
+                   help="log-normal jitter of each replica's q_diag (broadcast mode)")
+    p.add_argument("--pipeline", default=None, choices=["sequential", "deferred"])
+    p.add_argument("--pallas", action="store_true",
+                   help="turn all five kernel switches on (chain, match, insert, pose, refit)")
+    p.add_argument("--distinct", type=int, default=0,
+                   help="fleet over N distinct synthetic worlds; reports per-replica ATE")
+    p.add_argument("--bags", default=None,
+                   help="directory of .bag files: one replica a bag")
+    p.add_argument("--traj_out", default=None,
+                   help="with --distinct/--bags: directory for per-replica TUM trajectories")
+    p.add_argument("--chunk", type=int, default=0,
+                   help="advance the fleet N scans a call (offline throughput mode)")
+    p.add_argument("--save_ckpt", default=None,
+                   help="with --distinct/--bags: write a fleet checkpoint (.npz) at the end")
+    p.add_argument("--resume", default=None,
+                   help="with --distinct/--bags: restore a fleet checkpoint and continue")
+    p.add_argument("--max_steps", type=int, default=0,
+                   help="with --distinct/--bags: stop after N fleet steps")
+    p.set_defaults(fn=cmd_sweep)
 
     args = parser.parse_args(argv)
     setup_logging(log_dir="logs", level=getattr(logging, args.log_level.upper(), logging.WARNING))

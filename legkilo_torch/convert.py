@@ -14,6 +14,11 @@ Both deferred paths (``chain_impl`` "fused" and "jax") carry this same
 ``FilterParams`` flattens to 7 leaves: noise.q_diag, noise.imu_meas_r,
 noise.kin_meas_noise, noise.lidar_point_meas_ratio, ext_r, ext_t,
 g_over_acc_norm.
+
+A fleet (parallel/sweep.py) is the same trees with a leading replica axis on
+every leaf, so the same functions carry it across; its checkpoint adds the
+params' leaves as ``x_bp_000`` ... ``x_bp_006`` (the JAX CLI's
+``_save_fleet_ckpt``).
 """
 
 from __future__ import annotations
@@ -65,6 +70,18 @@ def carry_from_numpy(leaves: Sequence, device) -> FilterCarry:
 def carry_to_numpy(carry: FilterCarry):
     """The 12 leaves of a port carry as numpy arrays, in the JAX order."""
     return [t.detach().cpu().numpy() for t in carry_leaves(carry)]
+
+
+def params_leaves(params: FilterParams):
+    """The 7 tensors of port params, in the JAX order."""
+    nz = params.noise
+    return [nz.q_diag, nz.imu_meas_r, nz.kin_meas_noise, nz.lidar_point_meas_ratio,
+            params.ext_r, params.ext_t, params.g_over_acc_norm]
+
+
+def params_to_numpy(params: FilterParams):
+    """The 7 leaves of port params as numpy arrays, in the JAX order."""
+    return [t.detach().cpu().numpy() for t in params_leaves(params)]
 
 
 def params_from_numpy(leaves: Sequence, device) -> FilterParams:

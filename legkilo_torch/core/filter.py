@@ -185,22 +185,26 @@ def soft_reset_carry(carry: FilterCarry, rebase: float, cov_diag: float = 1e-4) 
 
 def maybe_symmetrize_cov(carry: FilterCarry, scfg: StaticConfig) -> FilterCarry:
     """P <- (P + P^T)/2 once per scan: the ~50 Joseph-free downdates a scan
-    drift f32 asymmetry over long runs."""
+    drift f32 asymmetry over long runs.  (A fleet's [B, 30, 30] too.)"""
     if not scfg.symmetrize_cov:
         return carry
-    return carry._replace(cov=0.5 * (carry.cov + carry.cov.T))
+    return carry._replace(cov=0.5 * (carry.cov + carry.cov.transpose(-1, -2)))
 
 
 def _slide_if_moved(carry: FilterCarry, scfg: StaticConfig) -> FilterCarry:
     """The map slide once the pose has moved ``sliding_thresh`` from the
     last slide.  Both maps are formed and one is selected on the card: no
-    host read."""
-    moved = torch.linalg.norm(carry.state.pos - carry.last_slide_pos)
+    host read.  A fleet's carry slides each replica on its own trigger."""
+    moved = torch.linalg.norm(carry.state.pos - carry.last_slide_pos, dim=-1)
     trigger = moved >= scfg.sliding_thresh
+
+    def pick(a, b):
+        return torch.where(trigger.reshape(trigger.shape + (1,) * (a.dim() - trigger.dim())), a, b)
+
     vm_slid = slide_map(carry.vm, scfg.map_cfg, carry.state.pos, scfg.half_map_size)
     return carry._replace(
-        vm=VoxelMap(*(torch.where(trigger, a, b) for a, b in zip(vm_slid, carry.vm))),
-        last_slide_pos=torch.where(trigger, carry.state.pos, carry.last_slide_pos),
+        vm=VoxelMap(*(pick(a, b) for a, b in zip(vm_slid, carry.vm))),
+        last_slide_pos=pick(carry.state.pos, carry.last_slide_pos),
     )
 
 

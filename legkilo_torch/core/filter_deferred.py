@@ -55,6 +55,7 @@ frame at the chain's post-update bucket poses, [NB, P, 3].
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -77,8 +78,10 @@ from .plane_fit import calc_body_cov
 from .eskf_fused import point_suffstats_compact
 from .so3 import exp_so3, skew
 from .voxel_map import (
+    VoxelMap,
     _gather_fill,
     compact_order,
+    fleet_flat,
     gated_insert_rows,
     insert_packed_rows_hinted,
     insert_points,
@@ -165,29 +168,34 @@ def _predicted_bucket_poses_imu(carry: FilterCarry, packet: ScanPacket, params: 
 
 def _predicted_bucket_poses_imu_kernel(carry: FilterCarry, packet: ScanPacket, params: FilterParams):
     """``_predicted_bucket_poses_imu`` on the pose kernel (ops/pose_prop.py):
-    the same timeline as [9, MP] rows, MP = NB (K+1) padded to 128."""
+    the same timeline as [9, MP] rows, MP = NB (K+1) padded to 128.  A
+    fleet's carry, packet and params (a leading B each, core/filter_fleet.py)
+    give [B, 9, MP] rows, one launch, and (rot [B,NB,3,3], pos [B,NB,3])."""
     st0 = carry.state
     dtype, dev = carry.cov.dtype, carry.cov.device
-    nb, kmax = packet.imu_time.shape
+    lead = tuple(packet.imu_time.shape[:-2])
+    nb, kmax = packet.imu_time.shape[-2:]
     m = nb * (kmax + 1)
     mp = ((m + 127) // 128) * 128
-    zpad3 = torch.zeros((nb, 1, 3), dtype=dtype, device=dev)
+    zpad3 = torch.zeros(lead + (nb, 1, 3), dtype=dtype, device=dev)
     ev = packet.imu_mask.to(dtype)
     rows = torch.cat([
-        torch.cat([packet.imu_time, packet.bucket_time[:, None]], dim=1).reshape(1, m),
-        torch.cat([ev, packet.bucket_mask.to(dtype)[:, None]], dim=1).reshape(1, m),
-        torch.cat([ev, torch.zeros_like(ev[:, :1])], dim=1).reshape(1, m),
-        torch.cat([packet.imu_gyr, zpad3], dim=1).reshape(m, 3).T,
-        torch.cat([packet.imu_acc, zpad3], dim=1).reshape(m, 3).T,
-    ])
+        torch.cat([packet.imu_time, packet.bucket_time[..., None]], dim=-1).reshape(lead + (1, m)),
+        torch.cat([ev, packet.bucket_mask.to(dtype)[..., None]], dim=-1).reshape(lead + (1, m)),
+        torch.cat([ev, torch.zeros_like(ev[..., :1])], dim=-1).reshape(lead + (1, m)),
+        torch.cat([packet.imu_gyr, zpad3], dim=-2).reshape(lead + (m, 3)).transpose(-1, -2),
+        torch.cat([packet.imu_acc, zpad3], dim=-2).reshape(lead + (m, 3)).transpose(-1, -2),
+    ], dim=-2)
     rows = torch.nn.functional.pad(rows, (0, mp - m)).contiguous()
     par = torch.cat([
-        st0.rot.reshape(9), st0.pos, st0.vel, st0.ba, st0.bw, st0.grav, st0.imu_w, st0.imu_a,
-        carry.last_predict_t.to(dtype)[None], params.g_over_acc_norm.to(dtype).reshape(1),
-    ])
+        st0.rot.reshape(lead + (9,)), st0.pos, st0.vel, st0.ba, st0.bw, st0.grav, st0.imu_w,
+        st0.imu_a, carry.last_predict_t.to(dtype)[..., None],
+        params.g_over_acc_norm.to(dtype).reshape(lead + (1,)),
+    ], dim=-1)
     out = pp.pose_call(par, rows)
     sel = (torch.arange(nb, device=dev) + 1) * (kmax + 1) - 1
-    return out[0:9, sel].T.reshape(nb, 3, 3), out[9:12, sel].T
+    return (out[..., 0:9, sel].transpose(-1, -2).reshape(lead + (nb, 3, 3)),
+            out[..., 9:12, sel].transpose(-1, -2))
 
 
 def _predicted_bucket_poses_const_vel(carry: FilterCarry, packet: ScanPacket):
@@ -265,44 +273,55 @@ def _match_compact_stats_kernel(carry: FilterCarry, packet: ScanPacket, params: 
                                 scfg: StaticConfig, cap: int, poses=None):
     """Match phase on the keys and select kernels (the JAX
     ``_match_compact_stats_pallas``); the contract of
-    ``_match_compact_stats``."""
+    ``_match_compact_stats``.
+
+    A fleet's carry, packet and params (a leading B each, core/filter_fleet.py)
+    match in one launch of each kernel: each replica's valid points are
+    compacted to ``cap`` rows, the replicas' rows lie side by side (fleet
+    row r*cap + i) and probe the maps viewed flat (core/voxel_map.py's
+    module doc).  s40 and nmatch come back [B, NB, ...] and mask_c [B, cap];
+    the other rows of the aux name fleet points (r*NB*P + i), buckets
+    (r*NB + j, B*NB for none) and slots."""
     cov0 = carry.cov
-    nb, p, _ = packet.points.shape
+    lead = tuple(packet.points.shape[:-3])
+    nb, p = packet.points.shape[-3:-1]
+    b = math.prod(lead)
     dtype, dev = cov0.dtype, cov0.device
     mcfg = scfg.map_cfg
     L, C = mcfg.levels, mcfg.capacity
-    miss = L * C
+    miss = b * L * C
     rb, pb = poses if poses is not None else _predicted_bucket_poses(carry, packet, params, scfg)
 
-    mask_f = (packet.point_mask & packet.bucket_mask[:, None]).reshape(-1)
-    order = compact_order(mask_f, cap)
-    mask_c = _gather_fill(mask_f, order, False)
-    bidx = order // p                                       # nb for padding rows
-    bidx_c = torch.clamp(bidx, max=nb - 1)
+    mask_f = (packet.point_mask & packet.bucket_mask[..., None]).reshape(lead + (nb * p,))
+    order = compact_order(mask_f, cap).reshape(-1)          # b*nb*p for unfilled slots
+    mask_c = _gather_fill(mask_f.reshape(-1), order, False)
+    bidx = order // p                                       # b*nb for padding rows
+    bidx_c = torch.clamp(bidx, max=b * nb - 1)
     pts_c = _gather_fill(packet.points.reshape(-1, 3), order, 0.0)
     pts_t = pts_c.T.contiguous()
-    rb_t = rb.reshape(nb, 9).T[:, bidx_c].contiguous()
-    pb_t = pb.T[:, bidx_c].contiguous()
+    rb_t = rb.reshape(-1, 9).T[:, bidx_c].contiguous()
+    pb_t = pb.reshape(-1, 3).T[:, bidx_c].contiguous()
 
     sizes = [mcfg.voxel_size / (2.0 ** lvl) for lvl in range(L)] + [0.0] * (4 - L)
     par1 = torch.cat([
-        params.ext_r.reshape(9), params.ext_t,
-        torch.tensor(sizes, dtype=dtype, device=dev),
-        cov0[0:3, 0:3].reshape(9), cov0[3:6, 3:6].reshape(9),
-        torch.tensor([scfg.dept_err, scfg.beam_err], dtype=dtype, device=dev),
-        torch.zeros(64 - 36, dtype=dtype, device=dev),
-    ])
+        params.ext_r.reshape(lead + (9,)), params.ext_t,
+        torch.tensor(sizes, dtype=dtype, device=dev).expand(lead + (4,)),
+        cov0[..., 0:3, 0:3].reshape(lead + (9,)), cov0[..., 3:6, 3:6].reshape(lead + (9,)),
+        torch.tensor([scfg.dept_err, scfg.beam_err], dtype=dtype, device=dev).expand(lead + (2,)),
+        torch.zeros(lead + (64 - 36,), dtype=dtype, device=dev),
+    ], dim=-1)
     piw_t, covs_t, keys_t, vc_t, idx0_t = mg.keys_call(par1, pts_t, rb_t, pb_t, L, C)
 
     # Probe (torch glue): one wide gather of the ptab rows of every probe
     # offset; the first match wins, encoded as (offset << 1 | is_plane).
+    # The keys kernel's probe starts lie in the row's replica's tables.
     offs = torch.arange(mcfg.probe, dtype=torch.int64, device=dev)
     idx0 = idx0_t.to(torch.int64)
     h0 = idx0 & (C - 1)
     base = idx0 - h0
-    idx = base[:, :, None] + ((h0[:, :, None] + offs) & (C - 1))  # [2L, cap, probe]
-    k_at = carry.vm.ptab[idx]                                     # [2L, cap, probe, 5]
-    keys_cmp = keys_t.reshape(2 * L, 3, cap).permute(0, 2, 1)
+    idx = base[:, :, None] + ((h0[:, :, None] + offs) & (C - 1))  # [2L, b*cap, probe]
+    k_at = carry.vm.ptab.reshape(miss, -1)[idx]                   # [2L, b*cap, probe, 5]
+    keys_cmp = keys_t.reshape(2 * L, 3, b * cap).permute(0, 2, 1)
     match = (k_at[..., 3] > 0) & torch.all(k_at[..., 0:3] == keys_cmp[:, :, None, :], dim=-1)
     big = 2 * mcfg.probe
     score = torch.where(match, 2 * offs + (k_at[..., 4] > 0).to(torch.int64), big)
@@ -311,25 +330,25 @@ def _match_compact_stats_kernel(carry: FilterCarry, packet: ScanPacket, params: 
     slot = torch.where(found, base + ((h0 + (msel >> 1)) & (C - 1)), miss)
     isp = ((msel & 1) == 1) & found
 
-    plane_at = _gather_fill(carry.vm.plane, slot, 0.0).to(dtype)  # [2L, cap, 31]
-    plane_t = plane_at.permute(0, 2, 1).reshape(2 * L * 31, cap).contiguous()
+    plane_at = _gather_fill(carry.vm.plane.reshape(miss, -1), slot, 0.0).to(dtype)  # [2L, b*cap, 31]
+    plane_t = plane_at.permute(0, 2, 1).reshape(2 * L * 31, b * cap).contiguous()
     flags_t = torch.cat([found.to(dtype), isp.to(dtype)], dim=0)
     par2 = torch.cat([
-        torch.tensor([mcfg.sigma_num, mcfg.radius_k], dtype=dtype, device=dev),
-        params.noise.lidar_point_meas_ratio.reshape(1).to(dtype),
-        torch.zeros(5, dtype=dtype, device=dev),
-    ])
+        torch.tensor([mcfg.sigma_num, mcfg.radius_k], dtype=dtype, device=dev).expand(lead + (2,)),
+        params.noise.lidar_point_meas_ratio.reshape(lead + (1,)).to(dtype),
+        torch.zeros(lead + (5,), dtype=dtype, device=dev),
+    ], dim=-1)
     _, s40_flat, nm = mg.select_call(
         par2, piw_t, covs_t[0:18].contiguous(), vc_t, plane_t, flags_t,
-        mask_c.to(dtype)[None, :], bidx.to(dtype)[None, :], L, nb,
+        mask_c.to(dtype)[None, :], bidx.to(dtype)[None, :], L, b * nb,
     )
-    s40 = s40_flat.reshape(nb, 40, 40)
-    nmatch_b = nm[:, 0].to(torch.int32)
+    s40 = s40_flat.reshape(lead + (nb, 40, 40))
+    nmatch_b = nm[:, 0].reshape(lead + (nb,)).to(torch.int32)
 
     p_i_c = piw_t[0:3].T
     aux = (
-        order, bidx, p_i_c, covs_t[18:27].T.reshape(cap, 3, 3), mask_c,
-        keys_t[0 : 3 * L].reshape(L, 3, cap).permute(0, 2, 1),
+        order, bidx, p_i_c, covs_t[18:27].T.reshape(b * cap, 3, 3), mask_c.reshape(lead + (cap,)),
+        keys_t[0 : 3 * L].reshape(L, 3, b * cap).permute(0, 2, 1),
         slot[0:L], found[0:L], isp[0:L],
     )
     return s40, nmatch_b, aux
@@ -485,16 +504,20 @@ def insert_phase(vm, mcfg, params: FilterParams, bidx, p_i_c, body_cov_c, mask_c
     """Insert on the moments kernel (the JAX ``insert_phase_pallas``):
     gated rows, the kernel's moment rows read by index from the chain's
     per-bucket outputs and the match phase's per-point rows, then the map
-    update."""
+    update.  A fleet's (the kernel match's aux of a fleet, the chain's
+    outputs and the maps with a leading B) is one moments and one fit
+    launch over the maps viewed flat."""
     rows = gated_insert_rows(mcfg, mask_c, own_keys, own_slot, own_found, own_plane)
     # rows.pidx names points of p_i_c, rows.lvl levels of the map, and bidx
     # (order // P) is never negative: the kernel reads them unchecked but
     # for a trap.
     mom_rows, moms_rows = ir.moments_rows_call(
         params.ext_r, ir.level_sizes(mcfg.voxel_size, mcfg.levels, p_i_c.device),
-        rots, poss, rot_covs, pos_covs, p_i_c, body_cov_c, rows.pidx, bidx, rows.keys, rows.lvl,
+        rots.reshape(-1, 3, 3), poss.reshape(-1, 3), rot_covs.reshape(-1, 3, 3),
+        pos_covs.reshape(-1, 3, 3), p_i_c, body_cov_c, rows.pidx, bidx, rows.keys, rows.lvl,
     )
-    return insert_packed_rows_hinted(vm, mcfg, rows, mom_rows, moms_rows)
+    flat = insert_packed_rows_hinted(fleet_flat(vm), mcfg, rows, mom_rows, moms_rows)
+    return VoxelMap(*(t.reshape(u.shape) for t, u in zip(flat[:5], vm[:5])), ocnt=flat.ocnt)
 
 
 def _chain_fused_core(carry: FilterCarry, packet: ScanPacket, params: FilterParams,
@@ -551,11 +574,12 @@ def kernel_routes(scfg: StaticConfig) -> Tuple[bool, bool]:
 def _process_scan_fused(carry: FilterCarry, packet: ScanPacket, params: FilterParams,
                         scfg: StaticConfig) -> Tuple[FilterCarry, ScanOutput]:
     """The fused scan step, each phase routed as the JAX package routes it
-    (module doc)."""
-    nb, p, _ = packet.points.shape
+    (module doc).  With all five kernel switches on it also steps a fleet
+    (core/filter_fleet.py), each phase once for all its replicas."""
+    nb, p = packet.points.shape[-3:-1]
     ocnt0 = carry.vm.ocnt
     cap = _row_cap(scfg, nb, p)
-    n_valid = (packet.point_mask & packet.bucket_mask[:, None]).sum().to(torch.int32)
+    n_valid = (packet.point_mask & packet.bucket_mask[..., None]).sum((-2, -1)).to(torch.int32)
     cap_dropped = torch.clamp(n_valid - cap, min=0)
     mcfg = scfg.map_cfg
 
@@ -588,7 +612,7 @@ def _process_scan_fused(carry: FilterCarry, packet: ScanPacket, params: FilterPa
     out = ScanOutput(
         rot=carry.state.rot,
         pos=carry.state.pos,
-        n_matched=nmatch.sum(),
+        n_matched=nmatch.sum(-1),
         n_points=n_valid,
         n_cap_dropped=cap_dropped,
         map_overflow=carry.vm.ocnt - ocnt0,
@@ -600,9 +624,10 @@ def _process_scan_fused(carry: FilterCarry, packet: ScanPacket, params: FilterPa
 def process_scan_deferred(carry: FilterCarry, packet: ScanPacket, params: FilterParams,
                           scfg: StaticConfig) -> Tuple[FilterCarry, ScanOutput]:
     """One scan through the deferred pipeline: rebase the clocks, run the
-    fused or the per-point path, re-symmetrise the covariance."""
-    nb, p, _ = packet.points.shape
-    check_supported(scfg, nb, p)
+    fused or the per-point path, re-symmetrise the covariance.  The fused
+    path on all five kernels also steps a fleet (a leading B on the carry,
+    packet and params; core/filter_fleet.py)."""
+    check_supported(scfg, *packet.points.shape[-3:-1])
     carry = carry._replace(
         last_predict_t=carry.last_predict_t - packet.rebase,
         last_update_t=carry.last_update_t - packet.rebase,

@@ -43,6 +43,16 @@ Differences from the JAX module, none of which changes a result:
 * Summation order.  The moment scatter-adds run in row order on both
   devices (core/ordered_sum.py), so two runs on the card give equal maps.
 
+A fleet of B maps (core/filter_fleet.py) keeps every table with a leading
+replica axis, [B, L*C, W], and its batched step views them flat, [B*L*C, W]:
+replica r's level l is segment r*L + l of capacity C, the miss slot is
+B*L*C, and the probe, the claims, the scatter-adds and the refit work on
+global slots unchanged (``fleet_flat``; ``gated_insert_rows`` and
+``insert_packed_rows_hinted`` take a fleet's rows).  What stays per replica is done on a [B, ...]
+view: the compaction of the valid rows, the ancestor gate, the refit
+budget's choice of slots, ``ocnt``, and the slide.  Targets never cross
+replicas, so every slot sums its rows in the order a single map does.
+
 The point-batch match (``match_points``) serves the sequential pipeline,
 the ``chain_impl="jax"`` path and the fused path's match off its kernels;
 the fused path's kernel match goes through the keys and select kernels
@@ -51,6 +61,7 @@ the fused path's kernel match goes through the keys and select kernels
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Tuple
 
 import torch
@@ -239,11 +250,12 @@ def _unpack_moments(rows12, rows_s, n) -> PlaneMoments:
     return PlaneMoments(n=n, m1=rows12[..., 0:3], m2=m2, s0=s0, s1=s1, s2=s2)
 
 
-def _probe_find_flat(ptab, keys, lvl, cfg: MapConfig):
-    """Linear-probe lookup of each key in its level's subtable; returns
-    (slot, found, empty, has_empty, is_plane), misses = L*C (int64)."""
+def _probe_find_flat(ptab, keys, lvl, cfg: MapConfig, miss=None):
+    """Linear-probe lookup of each key in its level's subtable (``lvl``:
+    a fleet's segment r*L + level); returns (slot, found, empty,
+    has_empty, is_plane), misses = ``miss`` (L*C by default; int64)."""
     C = cfg.capacity
-    miss = cfg.levels * C
+    miss = cfg.levels * C if miss is None else miss
     base = lvl.to(torch.int64) * C
     h0 = _hash(keys, C).to(torch.int64)
     offs = torch.arange(cfg.probe, dtype=torch.int64, device=keys.device)
@@ -268,9 +280,10 @@ def _probe_find_flat(ptab, keys, lvl, cfg: MapConfig):
 
 def _find_or_insert_flat(ptab_x, keys, lvl, active, cfg: MapConfig):
     """Find each key's slot, claiming empty slots for new keys in
-    ``insert_rounds`` claim rounds; ``ptab_x`` carries the sentinel row and
-    is updated in place.  Returns (ptab_x, slot, resolved & active)."""
-    miss = cfg.levels * cfg.capacity
+    ``insert_rounds`` claim rounds; ``ptab_x`` carries the sentinel row
+    (the miss slot, its last) and is updated in place.  Returns (ptab_x,
+    slot, resolved & active)."""
+    miss = ptab_x.shape[0] - 1
     M = keys.shape[0]
     dev = keys.device
     slot = torch.full((M,), miss, dtype=torch.int64, device=dev)
@@ -281,7 +294,7 @@ def _find_or_insert_flat(ptab_x, keys, lvl, active, cfg: MapConfig):
     )
     rowid = torch.arange(M, dtype=torch.int64, device=dev)
     for _ in range(cfg.insert_rounds):
-        s, found, empty, has_empty, _ = _probe_find_flat(ptab_x, keys, lvl, cfg)
+        s, found, empty, has_empty, _ = _probe_find_flat(ptab_x, keys, lvl, cfg, miss)
         newly = active & ~resolved & found
         slot = torch.where(newly, s, slot)
         resolved = resolved | newly
@@ -292,7 +305,7 @@ def _find_or_insert_flat(ptab_x, keys, lvl, active, cfg: MapConfig):
         winner.scatter_reduce_(0, claim_idx, rowid, reduce="amax")
         won = want & (winner[claim_idx] == rowid)
         ptab_x.index_copy_(0, torch.where(won, claim_idx, miss), claim)
-    s, found, _, _, _ = _probe_find_flat(ptab_x, keys, lvl, cfg)
+    s, found, _, _, _ = _probe_find_flat(ptab_x, keys, lvl, cfg, miss)
     newly = active & ~resolved & found
     slot = torch.where(newly, s, slot)
     resolved = resolved | newly
@@ -300,20 +313,27 @@ def _find_or_insert_flat(ptab_x, keys, lvl, active, cfg: MapConfig):
 
 
 def compact_order(mask_f: torch.Tensor, cap: int) -> torch.Tensor:
-    """Stable mask compaction: order[i] = source row of the i-th valid row,
-    or N (out of range) for unfilled slots."""
-    n = mask_f.shape[0]
-    pos = torch.cumsum(mask_f.to(torch.int64), 0) - 1
+    """Stable mask compaction along the last axis: order[i] = source row of
+    the i-th valid row, or N (out of range) for unfilled slots.  A fleet's
+    [B, N] mask compacts each replica's rows and names them as rows of the
+    replicas' rows side by side: order[r, i] = r*N + (source row), B*N for
+    unfilled slots."""
+    n = mask_f.shape[-1]
+    pos = torch.cumsum(mask_f.to(torch.int64), -1) - 1
     tgt = torch.where(mask_f & (pos < cap), pos, cap)
-    out = torch.full((cap + 1,), n, dtype=torch.int64, device=mask_f.device)
-    out.scatter_(0, tgt, torch.arange(n, dtype=torch.int64, device=mask_f.device))
-    return out[:cap]
+    out = torch.full(mask_f.shape[:-1] + (cap + 1,), mask_f.numel(), dtype=torch.int64,
+                     device=mask_f.device)
+    src = torch.arange(mask_f.numel(), dtype=torch.int64, device=mask_f.device)
+    out.scatter_(-1, tgt, src.reshape(mask_f.shape))
+    return out[..., :cap]
 
 
-def _ocnt_inc(device, rowcap=0, refit=0, claim=0) -> torch.Tensor:
-    """[3] int32 increments of the overflow counters (OCNT_*)."""
+def _ocnt_inc(device, rowcap=0, refit=0, claim=0, lead=()) -> torch.Tensor:
+    """[*lead, 3] int32 increments of the overflow counters (OCNT_*); a
+    fleet's are [B] each."""
     return torch.stack(
-        [torch.as_tensor(p, device=device).to(torch.int32).reshape(()) for p in (rowcap, refit, claim)]
+        [torch.as_tensor(p, device=device).to(torch.int32).expand(lead) for p in (rowcap, refit, claim)],
+        dim=-1,
     )
 
 
@@ -344,70 +364,93 @@ class GatedRows(NamedTuple):
     slot0: torch.Tensor
     need: torch.Tensor
     n_gated: torch.Tensor
+    seg: torch.Tensor  # the row's subtable for the probe: lvl, a fleet's r*L + lvl
 
 
 def gated_insert_rows(cfg: MapConfig, mask, own_keys, own_slot, own_found, own_plane) -> GatedRows:
     """A point inserts at level l only while every ancestor voxel exists and
     is not a plane (UpdateOctoTree's descent, voxel_map.cc:185-241); the
-    surviving rows are compacted to insert_row_cap (level 0 first)."""
-    L, N = own_found.shape
-    miss = L * cfg.capacity
+    surviving rows are compacted to insert_row_cap (level 0 first).
+
+    mask [N] and the own chain's probe [L, N]; or a fleet's mask [B, N] (each
+    replica's compacted points) with the probe [L, B*N] in fleet slots: each
+    replica's rows are gated and compacted as a single map's are, and the
+    B*R rows lie side by side (pidx naming fleet points r*N + i, seg the
+    subtable r*L + lvl, n_gated [B])."""
+    lead = tuple(mask.shape[:-1])
+    mask = mask.reshape(-1, mask.shape[-1])
+    B, N = mask.shape
+    L = own_found.shape[0]
+    R = cfg.insert_row_cap
+    miss = B * L * cfg.capacity
     dev = mask.device
-    mask_f = mask.repeat(L)
-    found_f = own_found.reshape(L * N) & mask_f
-    elig = torch.ones((N,), dtype=torch.bool, device=dev)
+
+    def by_replica(x):  # [L, B*N, ...] -> [B, L*N, ...], level-major; a view at B = 1
+        return x.reshape((L, B, N) + tuple(x.shape[2:])).transpose(0, 1).reshape(
+            (B, L * N) + tuple(x.shape[2:]))
+
+    mask_f = mask.repeat(1, L)
+    found_f = by_replica(own_found) & mask_f
+    elig = torch.ones((B, N), dtype=torch.bool, device=dev)
     gates = []
     for lvl in range(L):
         gates.append(elig)
-        elig = elig & own_found[lvl] & ~own_plane[lvl]
-    gate_f = torch.cat(gates) & mask_f
-    R = cfg.insert_row_cap
-    order = compact_order(gate_f, R)
-    pidx = torch.clamp(order % N, max=N - 1)
+        elig = elig & own_found[lvl].reshape(B, N) & ~own_plane[lvl].reshape(B, N)
+    gate_f = torch.cat(gates, dim=1) & mask_f
+    order = compact_order(gate_f, R)          # [B, R] of B*L*N rows; B*L*N for unfilled slots
     cols = torch.cat(
         [
-            own_keys.reshape(L * N, 3).to(torch.int64),
-            torch.arange(L, dtype=torch.int64, device=dev).repeat_interleave(N)[:, None],
-            gate_f.to(torch.int64)[:, None],
-            found_f.to(torch.int64)[:, None],
-            own_slot.reshape(L * N, 1).to(torch.int64),
+            by_replica(own_keys).to(torch.int64),
+            torch.arange(B * L, dtype=torch.int64, device=dev).repeat_interleave(N).reshape(
+                B, L * N, 1),
+            gate_f.to(torch.int64)[..., None],
+            found_f.to(torch.int64)[..., None],
+            by_replica(own_slot).to(torch.int64)[..., None],
         ],
-        dim=1,
+        dim=2,
     )
-    rows7 = _gather_fill(cols, order, 0)
+    rows7 = _gather_fill(cols.reshape(B * L * N, 7), order.reshape(-1), 0)
     mask_r = rows7[:, 4] > 0
     found_r = rows7[:, 5] > 0
+    seg = rows7[:, 3]
+    if B == 1:
+        pidx = torch.clamp(order % N, max=N - 1)
+    else:  # fleet point r*N + i of row r*L*N + l*N + i; an unfilled slot's r*N
+        pidx = order % N + torch.arange(B, dtype=torch.int64, device=dev)[:, None] * N
     return GatedRows(
-        order=order, pidx=pidx, keys=rows7[:, 0:3].to(torch.int32), lvl=rows7[:, 3],
-        mask=mask_r, found=found_r,
-        slot0=torch.where(found_r & mask_r, rows7[:, 6], miss),
+        order=order.reshape(-1), pidx=pidx.reshape(-1),
+        keys=rows7[:, 0:3].to(torch.int32), lvl=seg if B == 1 else seg % L, mask=mask_r,
+        found=found_r, slot0=torch.where(found_r & mask_r, rows7[:, 6], miss),
         need=mask_r & ~found_r,
-        n_gated=gate_f.sum(),
+        n_gated=gate_f.sum(1).reshape(lead),
+        seg=seg,
     )
 
 
 def resolve_insert_rows(ptab, cfg: MapConfig, rows: GatedRows):
     """Slot resolution: probe-hit rows keep their match-phase slot, new keys
     claim (module doc).  Returns (ptab with sentinel row, slot, ok)."""
-    miss = cfg.levels * cfg.capacity
     ptab_x, slot_c, ok_c = _find_or_insert_flat(
-        _with_sentinel(ptab), rows.keys, rows.lvl, rows.need, cfg
+        _with_sentinel(ptab), rows.keys, rows.seg, rows.need, cfg
     )
     slot = torch.where(ok_c, slot_c, rows.slot0)
-    return ptab_x, slot, slot < miss
+    return ptab_x, slot, slot < ptab.shape[0]
 
 
 def insert_packed_rows_hinted(vm: VoxelMap, cfg: MapConfig, rows: GatedRows,
                               mom_rows, moms_rows) -> VoxelMap:
     """Gated insert with the per-row moments precomputed by the moments
-    kernel (ops/insert_rows.py)."""
+    kernel (ops/insert_rows.py); a fleet passes its flat view
+    (``fleet_flat``) and its rows, and gets the flat view back."""
+    lead = tuple(vm.ocnt.shape[:-1])
     ptab_x, slot, ok = resolve_insert_rows(vm.ptab, cfg, rows)
     return _insert_finish(
         vm, cfg, ptab_x, None, None, rows.keys, rows.lvl, slot, ok,
         ocnt_inc=_ocnt_inc(
             vm.ocnt.device,
             rowcap=torch.clamp(rows.n_gated - cfg.insert_row_cap, min=0),
-            claim=(rows.mask & ~ok).sum(),
+            claim=(rows.mask & ~ok).reshape(lead + (-1,)).sum(-1),
+            lead=lead,
         ),
         packed_rows=(mom_rows, moms_rows),
     )
@@ -450,6 +493,12 @@ def insert_points_hinted(vm: VoxelMap, cfg: MapConfig, p_w, var, mask, own_keys,
     )
 
 
+def fleet_flat(vm: VoxelMap) -> VoxelMap:
+    """A fleet's maps ([B, L*C, W] tables) as one flat map of B*L*C slots
+    (views; ``ocnt`` stays [B, 3]); one map as it is."""
+    return VoxelMap(*(t.reshape(-1, t.shape[-1]) for t in vm[:5]), ocnt=vm.ocnt)
+
+
 def _insert_finish(vm: VoxelMap, cfg: MapConfig, ptab_x, p_w_rows, var_rows, keys, lvl_ids,
                    slot, ok, ocnt_inc, packed_rows=None) -> VoxelMap:
     """Moment accumulation, thresholds and the budgeted refit, after slot
@@ -460,11 +509,17 @@ def _insert_finish(vm: VoxelMap, cfg: MapConfig, ptab_x, p_w_rows, var_rows, key
     gathered more than update_size_threshold new points; at most
     refit_budget unique slots refit (the rest wait for a later scan and
     count in ocnt); plane rows saturate at the storage dtype's range before
-    the downcast; is_plane is mirrored into ptab for the match probe."""
+    the downcast; is_plane is mirrored into ptab for the match probe.
+
+    A fleet passes its flat view (module doc; ``ocnt`` [B, 3]): the rows
+    are the replicas' rows side by side, B*R of them, and the budget holds
+    for each replica's rows."""
     dtype = vm.meta.dtype
     dev = vm.meta.device
-    L, C = cfg.levels, cfg.capacity
-    miss = L * C
+    L = cfg.levels
+    lead = tuple(vm.ocnt.shape[:-1])
+    batch = math.prod(lead)
+    miss = ptab_x.shape[0] - 1
     budget = cfg.refit_budget
     meta_x, mom_x = _with_sentinel(vm.meta), _with_sentinel(vm.mom)
     moms_x, plane_x = _with_sentinel(vm.moms), _with_sentinel(vm.plane)
@@ -495,16 +550,17 @@ def _insert_finish(vm: VoxelMap, cfg: MapConfig, ptab_x, p_w_rows, var_rows, key
         & ((meta_t[:, _M_INIT] <= 0.5) | (meta_t[:, _M_NEW] > float(cfg.update_size_threshold)))
     )
 
-    # Up to refit_budget unique slots: one sort groups duplicates, a prefix
-    # sum packs the unique ids to the front.
-    srt = torch.sort(torch.where(refit, tgt, miss)).values
-    first = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), srt[1:] != srt[:-1]])
+    # Up to refit_budget unique slots a replica: one sort groups
+    # duplicates, a prefix sum packs the unique ids to the front.
+    srt = torch.sort(torch.where(refit, tgt, miss).reshape(batch, -1)).values
+    first = torch.cat([torch.ones((batch, 1), dtype=torch.bool, device=dev),
+                       srt[:, 1:] != srt[:, :-1]], dim=1)
     first = first & (srt < miss)
-    pos = torch.cumsum(first.to(torch.int64), 0) - 1
+    pos = torch.cumsum(first.to(torch.int64), 1) - 1
     pos_t = torch.where(first & (pos < budget), pos, budget)
-    fs = torch.full((budget + 1,), miss, dtype=torch.int64, device=dev)
-    fs.scatter_(0, pos_t, srt)
-    fs = fs[:budget]
+    fs = torch.full((batch, budget + 1), miss, dtype=torch.int64, device=dev)
+    fs.scatter_(1, pos_t, srt)
+    fs = fs[:, :budget].reshape(-1)
 
     if cfg.use_pallas_refit:
         # The refit kernel, reading each slot's rows from the tables
@@ -541,7 +597,8 @@ def _insert_finish(vm: VoxelMap, cfg: MapConfig, ptab_x, p_w_rows, var_rows, key
         (fs, torch.full_like(fs, _T_PLANE)), (meta_fit[:, _M_PLANE] > 0.5).to(torch.int32)
     )
 
-    inc = _ocnt_inc(dev, refit=torch.clamp(first.sum() - budget, min=0)) + ocnt_inc
+    n_over = torch.clamp(first.sum(1) - budget, min=0).reshape(lead)
+    inc = _ocnt_inc(dev, refit=n_over, lead=lead) + ocnt_inc
     return VoxelMap(
         ptab=ptab_x[:miss], meta=meta_x[:miss], mom=mom_x[:miss], moms=moms_x[:miss],
         plane=plane_x[:miss], ocnt=vm.ocnt + inc,
@@ -649,21 +706,23 @@ def slide_map(vm: VoxelMap, cfg: MapConfig, position: torch.Tensor, half_map_siz
     """Drop the voxels outside a box of ``half_map_size`` level-0 voxels
     around ``position`` (mapSliding/clearMemOutOfMap, voxel_map.cc:552-594):
     occupancy and statistics are cleared, and later inserts reuse the slots.
-    The distance trigger lives with the caller."""
+    The distance trigger lives with the caller.  A fleet's maps ([B, L*C,
+    W] tables, ``position`` [B, 3]) slide each around its own position."""
     C = cfg.capacity
     dev = vm.ptab.device
     center = torch.stack(
-        [torch.floor(position / level_size(cfg, lvl)).to(torch.int32) for lvl in range(cfg.levels)]
+        [torch.floor(position / level_size(cfg, lvl)).to(torch.int32) for lvl in range(cfg.levels)],
+        dim=-2,
     )
     halves = torch.tensor([int(half_map_size * (2 ** lvl)) for lvl in range(cfg.levels)],
                           dtype=torch.int32, device=dev)
-    delta = vm.ptab[:, 0:3] - center.repeat_interleave(C, dim=0)
+    delta = vm.ptab[..., 0:3] - center.repeat_interleave(C, dim=-2)
     inside = torch.all(torch.abs(delta) <= halves.repeat_interleave(C)[:, None], dim=-1)
-    keep = (vm.ptab[:, _T_OCC] > 0) & inside
-    kf = keep.to(vm.meta.dtype)[:, None]
-    ks = keep.to(vm.moms.dtype)[:, None]
+    keep = (vm.ptab[..., _T_OCC] > 0) & inside
+    kf = keep.to(vm.meta.dtype)[..., None]
+    ks = keep.to(vm.moms.dtype)[..., None]
     return vm._replace(
-        ptab=vm.ptab * keep.to(torch.int32)[:, None],
+        ptab=vm.ptab * keep.to(torch.int32)[..., None],
         meta=vm.meta * kf,
         mom=vm.mom * kf,
         moms=vm.moms * ks,

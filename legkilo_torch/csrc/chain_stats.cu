@@ -15,7 +15,10 @@
 // its critical path, not by bytes or flops.
 //
 // One kernel, chain_warp_kernel<KIN>, for both branches (KIN = use_kin):
-// ONE warp of 32 threads.  The TPU kernel walks the buckets as a sequential
+// ONE warp of 32 threads a replica.  A fleet of B replicas is one launch of
+// B such warps, a block each (so up to one a SM at B <= 132), block r
+// reading and writing replica r's rows at their strides: each replica's
+// walk is the walk a launch of that replica alone makes.  The TPU kernel walks the buckets as a sequential
 // grid with the state in VMEM scratch and its BlockSpec pipeline fetching
 // bucket b + 1 during bucket b.  Here lane c keeps column c of the
 // covariance in registers, every lane keeps its own copy of the nominal
@@ -54,6 +57,27 @@ chain_warp_kernel(const float* __restrict__ params, const float* __restrict__ cl
                   float* opos, float* orotcov, float* oposcov, float* onm, float* frot,
                   float* flin, float* fcov, float* fclocks, int nb, int kmax) {
   namespace w = lk_warp;
+  // Replica blockIdx.x of a fleet: every input and output at its stride.
+  // The inputs staged or read before the walk are shifted here; the ones
+  // the walk and its end use are indexed from rb, the replica's first
+  // bucket (shifted pointers would hold registers through the walk).
+  const int rep = blockIdx.x, rb = rep * nb;
+  {
+    const size_t r = rep, ev = static_cast<size_t>(nb) * kmax;
+    params += r * 40;
+    clocks += r * 2;
+    rot0 += r * 9;
+    lin0 += r * 27;
+    cov0 += r * 900;
+    brow += r * 3 * nb;
+    etime += r * ev;
+    egate += r * ev;
+    eacc += r * 3 * ev;
+    egyr += r * 3 * ev;
+    efp += r * 12 * ev;
+    efv += r * 12 * ev;
+    ect += r * 4 * ev;
+  }
   __shared__ Shared<KIN> sh;
   w::SmemOf<KIN>& sm = sh.sm;
   float(&ring)[2][w::S40] = sh.ring;
@@ -81,7 +105,8 @@ chain_warp_kernel(const float* __restrict__ params, const float* __restrict__ cl
   }
   w::stage(sm.prm, params, 40, lane);
   w::cp_commit();
-  if (nb > 0) w::stage_s40(ring[0], s40, lane);
+  // nb * 6,400 B a replica: every replica's s40 stays 16-byte aligned.
+  if (nb > 0) w::stage_s40(ring[0], s40 + static_cast<size_t>(rb) * w::S40, lane);
   w::cp_commit();
   float p[30], rot[9], lin[27];
 #pragma unroll
@@ -97,7 +122,7 @@ chain_warp_kernel(const float* __restrict__ params, const float* __restrict__ cl
   const float g_over_an = sm.prm[36];
   for (int b = 0; b < nb; ++b) {
     if (b + 1 < nb)
-      w::stage_s40(ring[(b + 1) & 1], s40 + static_cast<size_t>(b + 1) * w::S40, lane);
+      w::stage_s40(ring[(b + 1) & 1], s40 + static_cast<size_t>(rb + b + 1) * w::S40, lane);
     w::cp_commit();  // possibly empty: one group a bucket keeps cp_wait<1> exact
     for (int k = 0; k < kmax; ++k) {
       const int ev = b * kmax + k;
@@ -124,30 +149,30 @@ chain_warp_kernel(const float* __restrict__ params, const float* __restrict__ cl
     if (g > 0.5f && nm > 0.5f) lu = t;
     if (lane == 0) {
 #pragma unroll
-      for (int k = 0; k < 9; ++k) orot[9 * b + k] = rot[k];
+      for (int k = 0; k < 9; ++k) orot[9 * (rb + b) + k] = rot[k];
 #pragma unroll
-      for (int k = 0; k < 3; ++k) opos[3 * b + k] = lin[k];
-      onm[b] = nm;
+      for (int k = 0; k < 3; ++k) opos[3 * (rb + b) + k] = lin[k];
+      onm[rb + b] = nm;
     }
     if (lane < 3) {
 #pragma unroll
-      for (int i = 0; i < 3; ++i) orotcov[9 * b + 3 * i + lane] = p[i];
+      for (int i = 0; i < 3; ++i) orotcov[9 * (rb + b) + 3 * i + lane] = p[i];
     } else if (lane < 6) {
 #pragma unroll
-      for (int i = 0; i < 3; ++i) oposcov[9 * b + 3 * i + lane - 3] = p[3 + i];
+      for (int i = 0; i < 3; ++i) oposcov[9 * (rb + b) + 3 * i + lane - 3] = p[3 + i];
     }
   }
   if (lane < 30) {
 #pragma unroll
-    for (int r = 0; r < 30; ++r) fcov[r * 30 + lane] = p[r];
+    for (int r = 0; r < 30; ++r) fcov[900 * rep + r * 30 + lane] = p[r];
   }
   if (lane == 0) {
 #pragma unroll
-    for (int k = 0; k < 9; ++k) frot[k] = rot[k];
+    for (int k = 0; k < 9; ++k) frot[9 * rep + k] = rot[k];
 #pragma unroll
-    for (int k = 0; k < 27; ++k) flin[k] = lin[k];
-    fclocks[0] = lp;
-    fclocks[1] = lu;
+    for (int k = 0; k < 27; ++k) flin[27 * rep + k] = lin[k];
+    fclocks[2 * rep] = lp;
+    fclocks[2 * rep + 1] = lu;
   }
 }
 
@@ -160,14 +185,15 @@ int launch_warp(const float* params, const float* clocks, const float* rot0, con
                 const float* eacc, const float* egyr, const float* efp, const float* efv,
                 const float* ect, const float* s40, float* orot, float* opos, float* orotcov,
                 float* oposcov, float* onm, float* frot, float* flin, float* fcov,
-                float* fclocks, int nb, int kmax, cudaStream_t st) {
+                float* fclocks, int nb, int kmax, int batch, cudaStream_t st) {
+  if (batch <= 0) return 0;
   const size_t dyn = static_cast<size_t>(nb) * (3 + (KIN ? 36 : 8) * kmax) * sizeof(float);
   if (dyn + sizeof(Shared<KIN>) > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         chain_warp_kernel<KIN>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(dyn));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  chain_warp_kernel<KIN><<<1, lk_warp::NW, dyn, st>>>(
+  chain_warp_kernel<KIN><<<batch, lk_warp::NW, dyn, st>>>(
       params, clocks, rot0, lin0, cov0, brow, etime, egate, eacc, egyr, efp, efv, ect, s40, orot,
       opos, orotcov, oposcov, onm, frot, flin, fcov, fclocks, nb, kmax);
   return static_cast<int>(cudaGetLastError());
@@ -182,13 +208,13 @@ LK_API int chain_stats_launch(const float* params, const float* clocks, const fl
                               const float* ect, const float* s40, float* orot, float* opos,
                               float* orotcov, float* oposcov, float* onm, float* frot,
                               float* flin, float* fcov, float* fclocks, int nb, int kmax,
-                              int use_kin, void* stream) {
+                              int use_kin, int batch, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (use_kin)
     return launch_warp<true>(params, clocks, rot0, lin0, cov0, brow, etime, egate, eacc, egyr,
                              efp, efv, ect, s40, orot, opos, orotcov, oposcov, onm, frot, flin,
-                             fcov, fclocks, nb, kmax, st);
+                             fcov, fclocks, nb, kmax, batch, st);
   return launch_warp<false>(params, clocks, rot0, lin0, cov0, brow, etime, egate, eacc, egyr, efp,
                             efv, ect, s40, orot, opos, orotcov, oposcov, onm, frot, flin, fcov,
-                            fclocks, nb, kmax, st);
+                            fclocks, nb, kmax, batch, st);
 }

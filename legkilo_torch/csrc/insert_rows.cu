@@ -32,6 +32,12 @@
 //     stores: every store instruction of the warp writes 512 consecutive
 //     bytes.
 //
+// A fleet of B replicas is one launch: the buckets are the replicas'
+// buckets side by side (NBr = NB / B a replica), the points and rows the
+// replicas' points and rows, every index global; a row reads the extrinsic
+// rotation of its bucket's replica, ext + 9 * (bucket / NBr).  The traps
+// check the fleet's sizes.  With B = 1, NBr = NB: the single launch.
+//
 // Arithmetic as the first port: fp32 with FMA contraction (chip_smoke holds
 // it at rel 1e-4 a moment row against moments_plain).
 //
@@ -50,7 +56,7 @@ constexpr int kMomW = 9;
 constexpr int kMomsW = 60;
 
 struct MomentsArgs {
-  const float* ext;        // [9] ext_r row-major
+  const float* ext;        // [B, 9] ext_r row-major, a row a replica
   const float* sizes;      // voxel size by level
   const float* rots;       // [NB, 9]
   const float* poss;       // [NB, 3]
@@ -64,7 +70,7 @@ struct MomentsArgs {
   const long long* lvl;    // [R] at lvl_s
   float* mom;              // [R, 9]
   float* moms;             // [R, 60]
-  int R, NB, N, L, pi_sr, pi_sc, bc_sr, bc_sc, key_sr, key_sc, lvl_s;
+  int R, NB, N, L, pi_sr, pi_sc, bc_sr, bc_sc, key_sr, key_sc, lvl_s, nb_rep;
 };
 
 __device__ __forceinline__ void sandwich(const float m[9], const float c[9], float out[9]) {
@@ -117,7 +123,7 @@ __global__ void __launch_bounds__(kRows) moments_kernel(const MomentsArgs a) {
   for (int i = 0; i < 3; ++i)
     pw[i] = rot[3 * i] * pi[0] + rot[3 * i + 1] * pi[1] + rot[3 * i + 2] * pi[2] + __ldg(a.poss + bi * 3 + i);
 
-  const float* e = a.ext;
+  const float* e = a.ext + 9 * (bi / a.nb_rep);  // the bucket's replica
   const float sk[9] = {0.f, -pi[2], pi[1], pi[2], 0.f, -pi[0], -pi[1], pi[0], 0.f};
   float re[9], rc[9];
 #pragma unroll
@@ -208,10 +214,11 @@ LK_API int moments_rows_launch(const float* ext, const float* sizes, const float
                                const long long* pidx, const long long* bidx, const int* keys,
                                const long long* lvl, float* mom, float* moms, int R, int NB, int N, int L,
                                int pi_sr, int pi_sc, int bc_sr, int bc_sc, int key_sr, int key_sc, int lvl_s,
-                               void* stream) {
-  if (R <= 0) return 0;
-  const MomentsArgs a{ext,  sizes, rots, poss, rcov, pcov, p_i, bcov, pidx, bidx, keys, lvl, mom,
-                      moms, R,     NB,   N,    L,     pi_sr, pi_sc, bc_sr, bc_sc, key_sr, key_sc, lvl_s};
+                               int batch, void* stream) {
+  if (R <= 0 || batch <= 0) return 0;
+  const MomentsArgs a{ext,   sizes, rots,  poss,  rcov,   pcov,   p_i,   bcov, pidx,
+                      bidx,  keys,  lvl,   mom,   moms,   R,      NB,    N,    L,
+                      pi_sr, pi_sc, bc_sr, bc_sc, key_sr, key_sc, lvl_s, NB / batch};
   moments_kernel<<<lk_blocks(R, kRows), kRows, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,6 +6,15 @@
 // and compute what they compute, in their [component, row] layout (row r of
 // component k at k * C + r).
 //
+// A fleet of B replicas is one launch of each: the rows are the replicas'
+// rows side by side (replica r's rows r * rpr ... r * rpr + rpr - 1, rpr =
+// C / B), each replica with its own par row; keys' probe starts name the
+// replica's own tables (segment r * L + level of the fleet's flat map), and
+// select's buckets are the replicas' buckets side by side (replica r's
+// buckets r * NBr ... r * NBr + NBr - 1).  Every row and bucket computes
+// what a launch of its replica alone computes: the same inputs, the same
+// order of work.  With B = 1 rpr = C and NBr = NB: the single launch.
+//
 // Bound on the H100: neither kernel is bound by the card's rates at the main
 // path's C = 3584 rows.  keys reads 15 and writes 75 floats a row (~1.3 MB,
 // 0.4 us of memory traffic) over a dependent chain of ~650 flops a row, so
@@ -75,15 +84,18 @@ __global__ void __launch_bounds__(kKeysThreads)
 keys_kernel(const float* __restrict__ par, const float* __restrict__ pts, const float* __restrict__ rb,
             const float* __restrict__ pb, float* __restrict__ piw, float* __restrict__ covs,
             int* __restrict__ keys, float* __restrict__ vc, int* __restrict__ idx0, int C, int levels,
-            int capacity) {
+            int capacity, int rpr) {
   __shared__ float sp[64];               // par
   __shared__ float tangent_var;          // sin(beam)^2
   __shared__ float inv_sizes[4];         // 1 / size of each level
   __shared__ float w1s[9][kKeysRows];    // warp 2's sandwich, for warp 3's sum
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // Replica blockIdx.y: its par row, its rows, its tables.
+  const int rep = blockIdx.y;
+  par += 64 * rep;
   const int row = blockIdx.x * kKeysRows + lane;
-  const bool live = row < C;
-  const int c = live ? row : C - 1;
+  const bool live = row < rpr;
+  const int c = rep * rpr + (live ? row : rpr - 1);
 
   // The row's inputs are loaded ahead of the barrier.
   const float px = pts[0 * C + c], py = pts[1 * C + c], pz = pts[2 * C + c];
@@ -143,7 +155,8 @@ keys_kernel(const float* __restrict__ par, const float* __restrict__ pts, const 
         }
         h ^= static_cast<uint32_t>(ki) * prime[i];
       }
-      if (live) idx0[m * C + c] = static_cast<int>(h & static_cast<uint32_t>(capacity - 1)) + lvl * capacity;
+      if (live)
+        idx0[m * C + c] = static_cast<int>(h & static_cast<uint32_t>(capacity - 1)) + (rep * levels + lvl) * capacity;
     }
   } else if (warp == 2) {
     // Sensor covariance in the LiDAR frame (calcBodyCov, voxel_map.cc:22-40).
@@ -280,16 +293,17 @@ struct SelectShared {
 };
 
 struct SelectArgs {
-  const float *par, *piw, *bcov, *vcs, *plane, *flags, *mask;
+  const float *par, *piw, *bcov, *vcs, *plane, *flags, *mask;  // par: a row of 8 a replica
   float* out;
-  int C, levels;
+  int C, levels, rpr;  // rpr: rows a replica
 };
 
 // Candidate m of row c: found, isp, found * isp * gates, prob, sl, n, centre.
 __device__ __forceinline__ void select_candidate(const SelectArgs& a, float* rec, int m, int c) {
   constexpr int F = 8 * kCandStride;  // a field's stride in sh.cand
   const int C = a.C, nc = 2 * a.levels;
-  const float sigma_num = a.par[0], radius_k = a.par[1];
+  const float* par = a.par + 8 * (c / a.rpr);  // the row's replica
+  const float sigma_num = par[0], radius_k = par[1];
   float pw[3], wc[9], cen[3], n3[3], pv[21];
   const float* pr = a.plane + static_cast<size_t>(m) * 31 * C + c;  // column k at pr[k * C]
 #pragma unroll
@@ -354,7 +368,6 @@ __device__ void select_rows(const SelectArgs& a, SelectShared& sh, int n_rows) {
   constexpr int F = 8 * kCandStride;
   const int lane = threadIdx.x & 31, q = lane & 7;
   const int C = a.C, levels = a.levels, nc = 2 * levels;
-  const float ratio = a.par[2];
   const bool cand = q < nc;
   const int chain = cand && q >= levels ? 1 : 0;
   const int lvl = cand ? q - chain * levels : 0;
@@ -377,6 +390,7 @@ __device__ void select_rows(const SelectArgs& a, SelectShared& sh, int n_rows) {
 #pragma unroll
     for (int k = 0; k < 9; ++k) ws[k] = __ldg(a.bcov + (9 + k) * C + c);
     const float row_mask = __ldg(a.mask + c);
+    const float ratio = a.par[8 * (c / a.rpr) + 2];
     {
       const int m = threadIdx.x / kRowsPerPass, ic = threadIdx.x % kRowsPerPass;
       if (m < nc && i0 + ic < n_rows) select_candidate(a, &sh.cand[0][m * kCandStride + ic], m, sh.rows[i0 + ic]);
@@ -469,15 +483,17 @@ __device__ void select_rows(const SelectArgs& a, SelectShared& sh, int n_rows) {
 // One bucket's (or one orphan span's) rows: see the comment above.
 __global__ void __launch_bounds__(kThreads, 1)
 select_kernel(SelectArgs a, const float* __restrict__ bidx, float* __restrict__ s40,
-              float* __restrict__ nm, int n_buckets) {
+              float* __restrict__ nm, int n_buckets, int nb_rep) {
   extern __shared__ __align__(16) unsigned char select_smem[];
   SelectShared& sh = *reinterpret_cast<SelectShared*>(select_smem);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int C = a.C;
   const int b = blockIdx.x;
   const bool bucket_block = b < n_buckets;
-  const int lo = bucket_block ? 0 : (b - n_buckets) * kOrphanSpan;
-  const int hi = bucket_block ? C : min(C, lo + kOrphanSpan);
+  // A bucket's rows lie among its replica's rows; an orphan block takes a
+  // span of all the rows.
+  const int lo = bucket_block ? (b / nb_rep) * a.rpr : (b - n_buckets) * kOrphanSpan;
+  const int hi = min(C, lo + (bucket_block ? a.rpr : kOrphanSpan));
   const float f_nb = static_cast<float>(n_buckets);
 
   // This thread's sums tile (rows 4ta..4ta + 3, columns 4tb..4tb + 3), ta <= tb.
@@ -621,25 +637,30 @@ select_kernel(SelectArgs a, const float* __restrict__ bidx, float* __restrict__ 
 
 }  // namespace
 
+// batch replicas of C / batch rows each (par [batch, 64]).
 LK_API int keys_launch(const float* par, const float* pts, const float* rb, const float* pb,
                        float* piw, float* covs, int* keys, float* vc, int* idx0, int C, int levels,
-                       int capacity, void* stream) {
-  if (C <= 0) return 0;
-  keys_kernel<<<lk_blocks(C, kKeysRows), kKeysThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      par, pts, rb, pb, piw, covs, keys, vc, idx0, C, levels, capacity);
+                       int capacity, int batch, void* stream) {
+  if (C <= 0 || batch <= 0) return 0;
+  const int rpr = C / batch;
+  const dim3 grid(lk_blocks(rpr, kKeysRows), batch);
+  keys_kernel<<<grid, kKeysThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      par, pts, rb, pb, piw, covs, keys, vc, idx0, C, levels, capacity, rpr);
   return static_cast<int>(cudaGetLastError());
 }
 
 LK_API int select_launch(const float* par, const float* piw, const float* bcov, const float* vc,
                          const float* plane, const float* flags, const float* mask,
                          const float* bidx, float* out, float* s40, float* nm, int C, int levels,
-                         int n_buckets, void* stream) {
+                         int n_buckets, int batch, void* stream) {
+  if (batch <= 0) return 0;
   const int grid = n_buckets + lk_blocks(C, kOrphanSpan);
   if (grid <= 0) return 0;
   constexpr int smem = static_cast<int>(sizeof(SelectShared));  // above 48 KB: the opt-in
   const cudaError_t e = cudaFuncSetAttribute(select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const SelectArgs a{par, piw, bcov, vc, plane, flags, mask, out, C, levels};
-  select_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a, bidx, s40, nm, n_buckets);
+  const SelectArgs a{par, piw, bcov, vc, plane, flags, mask, out, C, levels, C / batch};
+  select_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a, bidx, s40, nm, n_buckets,
+                                                                             n_buckets / batch);
   return static_cast<int>(cudaGetLastError());
 }

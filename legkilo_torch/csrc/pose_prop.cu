@@ -15,7 +15,11 @@
 //   prefix product of the delta rotations exp(w dt), left to right
 //   two cumulative sums: velocity dv = dt (R_start a + g), position dt v_start
 //
-// One thread block; each thread takes SPT slots (i, i + T, ... for a block
+// A fleet of B replicas is one launch of B blocks: block r reads replica
+// r's par and rows at its stride and writes its outputs at its stride, so
+// each replica's slots compute what a launch of that replica alone does.
+//
+// One thread block a replica; each thread takes SPT slots (i, i + T, ... for a block
 // of T = MP / SPT <= 1,024 threads), so MP runs to 6,400, where the
 // 9 x MP floats of shared memory reach the 227 KB a block may opt in to.
 // Every cumulative structure is an inclusive Hillis-Steele doubling scan
@@ -78,7 +82,11 @@ __global__ void __launch_bounds__(1024)
 pose_kernel(const float* __restrict__ par, const float* __restrict__ in,
             float* __restrict__ out, int mp) {
   extern __shared__ float buf[];  // [9, mp]
-  auto s = [&](int k) { return F(par[k]); };
+  // Replica blockIdx.x: its par row and rows, as offsets of the kernel's
+  // own pointers (a shifted pointer would hold two registers the whole
+  // kernel long, and pose_kernel<2> runs at the 64-register cap).
+  const int rep = blockIdx.x;
+  auto s = [&](int k) { return F(par[32 * rep + k]); };
 
   F t[SPT], dt[SPT];
   bool gate[SPT];
@@ -90,13 +98,13 @@ pose_kernel(const float* __restrict__ par, const float* __restrict__ in,
 #pragma unroll
   for (int j = 0; j < SPT; ++j) {
     const int i = slot<SPT>(j);
-    t[j] = F(in[0 * mp + i]);
-    gate[j] = in[1 * mp + i] > 0.5f;
-    lat[j][0] = F(in[2 * mp + i]);
+    t[j] = F(in[(9 * rep + 0) * mp + i]);
+    gate[j] = in[(9 * rep + 1) * mp + i] > 0.5f;
+    lat[j][0] = F(in[(9 * rep + 2) * mp + i]);
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
-      lat[j][1 + k] = F(in[(3 + k) * mp + i]) - s(kBw + k);
-      lat[j][4 + k] = s(kGsc) * F(in[(6 + k) * mp + i]) - s(kBa + k);
+      lat[j][1 + k] = F(in[(9 * rep + 3 + k) * mp + i]) - s(kBw + k);
+      lat[j][4 + k] = s(kGsc) * F(in[(9 * rep + 6 + k) * mp + i]) - s(kBa + k);
     }
     lat[j][7] = sel(gate[j], t[j], F(kNeg));
   }
@@ -224,32 +232,34 @@ pose_kernel(const float* __restrict__ par, const float* __restrict__ in,
   for (int j = 0; j < SPT; ++j) {
     const int i = slot<SPT>(j);
 #pragma unroll
-    for (int k = 0; k < 9; ++k) out[k * mp + i] = r_end[j][k].v;
+    for (int k = 0; k < 9; ++k) out[(12 * rep + k) * mp + i] = r_end[j][k].v;
 #pragma unroll
-    for (int k = 0; k < 3; ++k) out[(9 + k) * mp + i] = (s(kPos + k) + cs[j][k]).v;
+    for (int k = 0; k < 3; ++k) out[(12 * rep + 9 + k) * mp + i] = (s(kPos + k) + cs[j][k]).v;
   }
 }
 
 template <int SPT>
-int launch(const float* par, const float* in, float* out, int mp, cudaStream_t st) {
+int launch(const float* par, const float* in, float* out, int mp, int batch, cudaStream_t st) {
   const int smem = 9 * mp * static_cast<int>(sizeof(float));
   if (smem > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(pose_kernel<SPT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  pose_kernel<SPT><<<1, mp / SPT, smem, st>>>(par, in, out, mp);
+  pose_kernel<SPT><<<batch, mp / SPT, smem, st>>>(par, in, out, mp);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // MP a multiple of 128 up to 6,400 (the wrapper checks): SPT slots a thread,
-// the least power of two that keeps the block at 1,024 threads or fewer.
-LK_API int pose_launch(const float* par, const float* in, float* out, int mp, void* stream) {
+// the least power of two that keeps the block at 1,024 threads or fewer;
+// batch replicas (par [batch, 32], in [batch, 9, MP], out [batch, 12, MP]).
+LK_API int pose_launch(const float* par, const float* in, float* out, int mp, int batch, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (mp <= 1024) return launch<1>(par, in, out, mp, st);
-  if (mp <= 2048) return launch<2>(par, in, out, mp, st);
-  if (mp <= 4096) return launch<4>(par, in, out, mp, st);
-  return launch<8>(par, in, out, mp, st);
+  if (batch <= 0) return 0;
+  if (mp <= 1024) return launch<1>(par, in, out, mp, batch, st);
+  if (mp <= 2048) return launch<2>(par, in, out, mp, batch, st);
+  if (mp <= 4096) return launch<4>(par, in, out, mp, batch, st);
+  return launch<8>(par, in, out, mp, batch, st);
 }

@@ -18,6 +18,10 @@ kinematic branch splits its 18x18 inverse over the lanes.  See the source
 for the design and what bounds it.  On a CPU tensor it runs
 ``chain_plain``, the same recursion in eskf_fused ops (the port of the JAX
 package's ``filter_deferred._chain_fused_core``).
+
+A fleet of B replicas gives every argument and output a leading B: one
+launch of B warps, a replica each (the kernel's design is per replica);
+``chain_plain`` runs the replicas one after another.
 """
 
 from __future__ import annotations
@@ -35,6 +39,10 @@ F32 = torch.float32
 def chain_plain(params, clocks, rot0, lin0, cov0, brow, etime, egate, eacc, egyr,
                 efp, efv, ect, s40, use_kin: bool):
     """Plain PyTorch version of the chain kernel (same contract)."""
+    if params.dim() == 2:  # a fleet: the replicas one after another
+        args = (params, clocks, rot0, lin0, cov0, brow, etime, egate, eacc, egyr, efp, efv, ect, s40)
+        outs = [chain_plain(*(a[r] for a in args), use_kin=use_kin) for r in range(params.shape[0])]
+        return tuple(torch.stack(xs) for xs in zip(*outs))
     nb, kmax = etime.shape
     q, r6 = params[0:30], params[30:36]
     g_an, kin_noise = params[36], params[37]
@@ -70,23 +78,27 @@ def chain_plain(params, clocks, rot0, lin0, cov0, brow, etime, egate, eacc, egyr
 
 def chain_call(params, clocks, rot0, lin0, cov0, brow, etime, egate, eacc, egyr,
                efp, efv, ect, s40, use_kin: bool):
-    """The chain kernel on a CUDA tensor, its plain version on a CPU one."""
+    """The chain kernel on a CUDA tensor, its plain version on a CPU one;
+    for a fleet, every argument with a leading B (params [B, 40])."""
     args = (params, clocks, rot0, lin0, cov0, brow, etime, egate, eacc, egyr,
             efp, efv, ect, s40)
     if params.device.type != "cuda":
         return chain_plain(*args, use_kin=use_kin)
-    nb, kmax = etime.shape
+    lead = tuple(params.shape[:-1])
+    nb, kmax = etime.shape[-2:]
     shapes = ((40,), (2,), (3, 3), (27,), (30, 30), (nb, 3), (nb, kmax), (nb, kmax),
               (nb, kmax, 3), (nb, kmax, 3), (nb, kmax, 12), (nb, kmax, 12),
               (nb, kmax, 4), (nb, 40, 40))
     for i, (a, s) in enumerate(zip(args, shapes)):
-        if tuple(a.shape) != s:
-            raise ValueError(f"chain_call: argument {i} has shape {tuple(a.shape)}, expected {s}")
+        if tuple(a.shape) != lead + s or len(lead) > 1:
+            raise ValueError(f"chain_call: argument {i} has shape {tuple(a.shape)}, expected "
+                             f"{lead + s}")
     dev = _build.check_tensors("chain_call", args, [F32] * len(args))
     if s40.data_ptr() % 16:
         raise ValueError("chain_call: s40 is not 16-byte aligned (the kernel copies it 16 B at a time)")
-    outs = empty_chain_outputs(nb, dev)
-    _build.launch("chain_stats_launch", args + outs, [nb, kmax, int(bool(use_kin))])
+    outs = empty_chain_outputs(nb, dev, lead)
+    _build.launch("chain_stats_launch", args + outs,
+                  [nb, kmax, int(bool(use_kin)), lead[0] if lead else 1])
     chain_call.launches += 1
     return outs
 
@@ -94,31 +106,34 @@ def chain_call(params, clocks, rot0, lin0, cov0, brow, etime, egate, eacc, egyr,
 chain_call.launches = 0
 
 
-def empty_chain_outputs(nb: int, dev):
-    """The nine outputs of a chain kernel (module doc), uninitialised."""
+def empty_chain_outputs(nb: int, dev, lead=()):
+    """The nine outputs of a chain kernel (module doc), uninitialised, with
+    the leading dims ``lead`` (a fleet's (B,))."""
     shapes = ((nb, 3, 3), (nb, 3), (nb, 3, 3), (nb, 3, 3), (nb,), (3, 3), (27,), (30, 30), (2,))
-    return tuple(torch.empty(s, dtype=F32, device=dev) for s in shapes)
+    return tuple(torch.empty(tuple(lead) + s, dtype=F32, device=dev) for s in shapes)
 
 
 def pack_state_and_events(carry, packet, params, use_kin: bool):
     """A scan's chain inputs that do not depend on the match, as the chain
     kernels take them: (params [40], clocks [2], rot0, lin0, cov0) and
-    (etime, egate, eacc, egyr, efp, efv, ect)."""
-    nb, kmax = packet.imu_time.shape
+    (etime, egate, eacc, egyr, efp, efv, ect); a fleet's (carry, packet and
+    params with a leading B) with the same leading B."""
+    lead = tuple(packet.imu_time.shape[:-2])
+    nb, kmax = packet.imu_time.shape[-2:]
     noise = params.noise
     dev = carry.cov.device
     pvec = torch.cat([
-        noise.q_diag, noise.imu_meas_r, params.g_over_acc_norm.reshape(1),
-        noise.kin_meas_noise.reshape(1), torch.zeros(2, dtype=F32, device=dev),
-    ])
-    clocks = torch.stack([carry.last_predict_t, carry.last_update_t])
+        noise.q_diag, noise.imu_meas_r, params.g_over_acc_norm.unsqueeze(-1),
+        noise.kin_meas_noise.unsqueeze(-1), torch.zeros(lead + (2,), dtype=F32, device=dev),
+    ], dim=-1)
+    clocks = torch.stack([carry.last_predict_t, carry.last_update_t], dim=-1)
     if use_kin:
-        efp = packet.foot_pos.reshape(nb, kmax, 12).contiguous()
-        efv = packet.foot_vel.reshape(nb, kmax, 12).contiguous()
+        efp = packet.foot_pos.reshape(lead + (nb, kmax, 12)).contiguous()
+        efv = packet.foot_vel.reshape(lead + (nb, kmax, 12)).contiguous()
         ect = packet.contact.to(F32)
     else:  # the IMU branch never reads them
-        efp = efv = torch.zeros((nb, kmax, 12), dtype=F32, device=dev)
-        ect = torch.zeros((nb, kmax, 4), dtype=F32, device=dev)
+        efp = efv = torch.zeros(lead + (nb, kmax, 12), dtype=F32, device=dev)
+        ect = torch.zeros(lead + (nb, kmax, 4), dtype=F32, device=dev)
     head = (pvec, clocks, carry.state.rot.contiguous(), carry.state.lin.contiguous(),
             carry.cov.contiguous())
     events = (packet.imu_time.contiguous(), packet.imu_mask.to(F32), packet.imu_acc.contiguous(),
@@ -133,7 +148,7 @@ def unpack_chain_outputs(carry, outs):
     orot, opos, orotcov, oposcov, onm, frot, flin, fcov, fclocks = outs
     new_carry = carry._replace(
         state=State(rot=frot, lin=flin), cov=fcov,
-        last_predict_t=fclocks[0], last_update_t=fclocks[1],
+        last_predict_t=fclocks[..., 0], last_update_t=fclocks[..., 1],
     )
     return new_carry, orot, opos, orotcov, oposcov, onm.to(torch.int32)
 
@@ -145,7 +160,7 @@ def run_chain_stats(carry, packet, params, s40, nmatch_b, use_kin: bool = False)
     rot_cov, pos_cov [NB,3,3], nmatch [NB] int32)."""
     head, events = pack_state_and_events(carry, packet, params, use_kin)
     brow = torch.stack(
-        [packet.bucket_time, packet.bucket_mask.to(F32), nmatch_b.to(F32)], dim=1
+        [packet.bucket_time, packet.bucket_mask.to(F32), nmatch_b.to(F32)], dim=-1
     )
     outs = chain_call(*head, brow.contiguous(), *events, s40.contiguous(), use_kin=use_kin)
     return unpack_chain_outputs(carry, outs)

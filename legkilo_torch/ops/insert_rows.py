@@ -32,6 +32,13 @@ entries, one kernel (``csrc/insert_rows.cu``):
 On a CUDA tensor each entry launches the kernel; on a CPU tensor it runs its
 plain version (``moments_rows_plain`` is the gather in torch, then
 ``moments_plain``).
+
+A fleet of B replicas calls ``moments_rows_call`` once with ext_r [B,3,3]
+and the replicas' buckets, points and rows side by side (replica r's
+buckets r * NB/B ..., points r * N/B ..., rows r * R/B ...), every index
+global and each point's bucket one of its replica's: one launch, each row
+reading its bucket's replica's extrinsic rotation.  The plain version runs
+the replicas one after another.
 """
 
 from __future__ import annotations
@@ -89,6 +96,16 @@ def moments_rows_plain(ext_r, sizes, rots, poss, rot_covs, pos_covs, p_i_c, body
                        pidx, bidx, keys, lvl):
     """Plain version of ``moments_rows_call``: the rows gathered in torch,
     then ``moments_plain``; returns (mom [R,9], moms [R,60])."""
+    if ext_r.dim() == 3:  # a fleet: the replicas one after another, indices made local
+        batch = ext_r.shape[0]
+        nbr, n, rr = rots.shape[0] // batch, p_i_c.shape[0] // batch, pidx.shape[0] // batch
+        outs = []
+        for r in range(batch):
+            bk, pt, rw = (slice(r * k, (r + 1) * k) for k in (nbr, n, rr))
+            outs.append(moments_rows_plain(
+                ext_r[r], sizes, rots[bk], poss[bk], rot_covs[bk], pos_covs[bk], p_i_c[pt],
+                body_cov_c[pt], pidx[rw] - r * n, bidx[pt] - r * nbr, keys[rw], lvl[rw]))
+        return tuple(torch.cat(xs) for xs in zip(*outs))
     nb = rots.shape[0]
     bucket_rows = torch.cat(
         [rots.reshape(nb, 9), poss, rot_covs.reshape(nb, 9), pos_covs.reshape(nb, 9)], dim=1
@@ -104,12 +121,14 @@ def moments_rows_call(ext_r, sizes, rots, poss, rot_covs, pos_covs, p_i_c, body_
     """The moments kernel on a CUDA tensor, ``moments_rows_plain`` on a CPU one.
     A row's ``pidx`` must name a point, its ``lvl`` a size and its point's
     ``bidx`` be >= 0: the kernel traps on one that does not, as indexing a
-    CUDA tensor asserts."""
+    CUDA tensor asserts.  ext_r [B,3,3] makes it a fleet's call (module
+    doc)."""
     if rots.device.type != "cuda":
         return moments_rows_plain(ext_r, sizes, rots, poss, rot_covs, pos_covs, p_i_c, body_cov_c,
                                   pidx, bidx, keys, lvl)
     name = "moments_rows_call"
     nb, n, r = rots.shape[0], p_i_c.shape[0], pidx.shape[0]
+    batch = ext_r.shape[0] if ext_r.dim() == 3 else 1
     want = {"rots": (rots, (nb, 3, 3)), "poss": (poss, (nb, 3)), "rot_covs": (rot_covs, (nb, 3, 3)),
             "pos_covs": (pos_covs, (nb, 3, 3)), "p_i_c": (p_i_c, (n, 3)),
             "body_cov_c": (body_cov_c, (n, 3, 3)), "bidx": (bidx, (n,)), "keys": (keys, (r, 3)),
@@ -119,8 +138,9 @@ def moments_rows_call(ext_r, sizes, rots, poss, rot_covs, pos_covs, p_i_c, body_
             raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, expected {shape}")
     if nb < 1:
         raise ValueError(f"{name}: no buckets")
-    if ext_r.numel() != 9 or sizes.dim() != 1:
-        raise ValueError(f"{name}: ext_r must hold 9 floats and sizes be 1-D")
+    if ext_r.numel() != 9 * batch or nb % batch or sizes.dim() != 1:
+        raise ValueError(f"{name}: ext_r must hold 9 floats a replica, the buckets split evenly "
+                         "over the replicas and sizes be 1-D")
     if body_cov_c.stride(1) != 3 * body_cov_c.stride(2):
         raise ValueError(f"{name}: body_cov_c's rows must read as 9 floats at one stride")
     args = (ext_r, sizes, rots, poss, rot_covs, pos_covs, p_i_c, body_cov_c, pidx, bidx, keys, lvl)
@@ -130,7 +150,7 @@ def moments_rows_call(ext_r, sizes, rots, poss, rot_covs, pos_covs, p_i_c, body_
     _build.launch(
         "moments_rows_launch", args + (mom, moms),
         [r, nb, n, sizes.shape[0], *p_i_c.stride(), body_cov_c.stride(0), body_cov_c.stride(2),
-         *keys.stride(), lvl.stride(0)],
+         *keys.stride(), lvl.stride(0), batch],
     )
     moments_rows_call.launches += 1
     return mom, moms

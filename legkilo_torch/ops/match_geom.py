@@ -25,6 +25,14 @@ work; select as one launch: a block a bucket, which gathers its own rows,
 selects their planes and sums their statistics, and blocks for the rows in
 no bucket); on a CPU tensor it runs the plain version, which repeats the
 kernel's arithmetic in the same order.
+
+A fleet of B replicas is one launch of each kernel: par gains a leading B
+(a row a replica) and the C rows are the replicas' C / B rows side by
+side.  keys' probe starts then name the replica's own tables, segment
+``r * L + level`` of the fleet's flat map; select's ``n_buckets`` are the
+replicas' buckets side by side, replica r's rows naming its own buckets
+``r * NB/B ...`` (or none).  The plain versions run the replicas one after
+another.
 """
 
 from __future__ import annotations
@@ -71,6 +79,16 @@ def _sandwich(m, c):
 
 def keys_plain(par, pts_t, rb_t, pb_t, levels: int, capacity: int):
     """Plain PyTorch version of the keys kernel (same contract)."""
+    if par.dim() == 2:  # a fleet: the replicas one after another
+        rpr = pts_t.shape[1] // par.shape[0]
+        outs = []
+        for r in range(par.shape[0]):
+            cols = slice(r * rpr, (r + 1) * rpr)
+            out = list(keys_plain(par[r], pts_t[:, cols], rb_t[:, cols], pb_t[:, cols], levels,
+                                  capacity))
+            out[4] = out[4] + r * levels * capacity  # the replica's own tables
+            outs.append(out)
+        return tuple(torch.cat(xs, dim=1) for xs in zip(*outs))
     s = par.reshape(-1)
     px, py, pz = pts_t[0], pts_t[1], pts_t[2]
     e = [s[_P_EXT_R + i] for i in range(9)]
@@ -138,16 +156,19 @@ def keys_plain(par, pts_t, rb_t, pb_t, levels: int, capacity: int):
 
 
 def keys_call(par, pts_t, rb_t, pb_t, levels: int, capacity: int):
-    """The keys kernel on a CUDA tensor, its plain version on a CPU one."""
+    """The keys kernel on a CUDA tensor, its plain version on a CPU one;
+    par [64], or [B, 64] for a fleet of B replicas of C / B rows each."""
     if par.device.type != "cuda":
         return keys_plain(par, pts_t, rb_t, pb_t, levels, capacity)
     C = pts_t.shape[1]
+    batch = par.shape[0] if par.dim() == 2 else 1
     args = (par.reshape(-1), pts_t, rb_t, pb_t)
     for a, rows in zip(args[1:], (3, 9, 3)):
         if tuple(a.shape) != (rows, C):
             raise ValueError(f"keys_call: shape {tuple(a.shape)}, expected {(rows, C)}")
-    if args[0].numel() != 64 or not 1 <= levels <= 4:
-        raise ValueError("keys_call: par must hold 64 floats and 1 <= levels <= 4")
+    if args[0].numel() != 64 * batch or C % batch or not 1 <= levels <= 4:
+        raise ValueError("keys_call: par must hold 64 floats a replica, the rows split evenly "
+                         "over the replicas and 1 <= levels <= 4")
     dev = _build.check_tensors("keys_call", args, [F32] * 4)
     outs = (
         torch.empty((6, C), dtype=F32, device=dev),
@@ -156,7 +177,7 @@ def keys_call(par, pts_t, rb_t, pb_t, levels: int, capacity: int):
         torch.empty((6 * levels, C), dtype=F32, device=dev),
         torch.empty((2 * levels, C), dtype=I32, device=dev),
     )
-    _build.launch("keys_launch", args + outs, [C, levels, capacity])
+    _build.launch("keys_launch", args + outs, [C, levels, capacity, batch])
     keys_call.launches += 1
     return outs
 
@@ -174,6 +195,9 @@ def _nwn(n3, w):
 def select_plain(par, piw_t, bcov_t, vc_t, plane_t, flags_t, mask_t, bidx_t,
                  levels: int, n_buckets: int):
     """Plain PyTorch version of the select kernel (same contract)."""
+    if par.dim() == 2:  # a fleet: the replicas one after another
+        return _select_plain_fleet(par, piw_t, bcov_t, vc_t, plane_t, flags_t, mask_t, bidx_t,
+                                   levels, n_buckets)
     s = par.reshape(-1)
     sigma_num, radius_k, ratio = s[0], s[1], s[2]
     nc = 2 * levels
@@ -249,28 +273,50 @@ def select_plain(par, piw_t, bcov_t, vc_t, plane_t, flags_t, mask_t, bidx_t,
     return out, s40.reshape(n_buckets * 40, 40), nm
 
 
+def _select_plain_fleet(par, piw_t, bcov_t, vc_t, plane_t, flags_t, mask_t, bidx_t,
+                        levels: int, n_buckets: int):
+    """``select_plain`` of a fleet (par [B, 8]): each replica's rows with
+    their buckets counted from the replica's first, a bucket of another
+    replica read as none; the outputs side by side."""
+    batch = par.shape[0]
+    rpr, nbr = piw_t.shape[1] // batch, n_buckets // batch
+    outs = []
+    for r in range(batch):
+        cols = slice(r * rpr, (r + 1) * rpr)
+        b = bidx_t[:, cols].to(torch.int64) - r * nbr
+        local = torch.where((b >= 0) & (b < nbr), b, nbr).to(bidx_t.dtype)
+        outs.append(select_plain(par[r], piw_t[:, cols], bcov_t[:, cols], vc_t[:, cols],
+                                 plane_t[:, cols], flags_t[:, cols], mask_t[:, cols], local,
+                                 levels, nbr))
+    out, s40, nm = zip(*outs)
+    return torch.cat(out, dim=1), torch.cat(s40), torch.cat(nm)
+
+
 def select_call(par, piw_t, bcov_t, vc_t, plane_t, flags_t, mask_t, bidx_t,
                 levels: int, n_buckets: int):
     """The select kernel on a CUDA tensor (one launch), the plain version on
-    a CPU one."""
+    a CPU one; par [8], or [B, 8] for a fleet of B replicas of C / B rows
+    and n_buckets / B buckets each."""
     if par.device.type != "cuda":
         return select_plain(par, piw_t, bcov_t, vc_t, plane_t, flags_t, mask_t, bidx_t,
                             levels, n_buckets)
     C = piw_t.shape[1]
+    batch = par.shape[0] if par.dim() == 2 else 1
     args = (par.reshape(-1), piw_t, bcov_t, vc_t, plane_t, flags_t, mask_t, bidx_t)
     rows = (None, 6, 18, 6 * levels, 62 * levels, 4 * levels, 1, 1)
     for a, nr in zip(args[1:], rows[1:]):
         if tuple(a.shape) != (nr, C):
             raise ValueError(f"select_call: shape {tuple(a.shape)}, expected {(nr, C)}")
-    if args[0].numel() != 8 or not 1 <= levels <= 4:
-        raise ValueError("select_call: par must hold 8 floats and 1 <= levels <= 4")
+    if args[0].numel() != 8 * batch or C % batch or n_buckets % batch or not 1 <= levels <= 4:
+        raise ValueError("select_call: par must hold 8 floats a replica, the rows and buckets "
+                         "split evenly over the replicas and 1 <= levels <= 4")
     dev = _build.check_tensors("select_call", args, [F32] * 8)
     outs = (
         torch.empty((46, C), dtype=F32, device=dev),
         torch.empty((n_buckets * 40, 40), dtype=F32, device=dev),
         torch.empty((n_buckets, 128), dtype=F32, device=dev),
     )
-    _build.launch("select_launch", args + outs, [C, levels, n_buckets])
+    _build.launch("select_launch", args + outs, [C, levels, n_buckets, batch])
     select_call.launches += 1
     return outs
 

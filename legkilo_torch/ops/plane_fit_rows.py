@@ -21,6 +21,11 @@ entries, one kernel (``csrc/plane_fit_rows.cu``):
   packed moments (voxel_map._pack_moments), meta_t [4,B] -> [35,B].  On the
   card it runs the same kernel on its rows in order.
 
+A fleet's insert (core/filter_deferred.insert_phase) calls
+``fit_slots_call`` once with its flat tables (M = B*L*C + 1 rows: every
+replica's slots, then the one sentinel) and the replicas' refit slots side
+by side as fleet slots: the same launch, M its only bound.
+
 On a CUDA tensor each entry launches the kernel; on a CPU tensor it runs its
 plain version.  ``fit_rows_plain`` is the kernel's arithmetic in the
 kernel's order of operations on [B] rows, so the two take the same branches

@@ -16,6 +16,10 @@ each, MP <= ``MAX_MP``); on a CPU
 tensor it runs ``pose_plain``, which takes the same doubling steps in the
 same order, so the two round their sums and products alike.  Padded slots
 (gate 0) are exact no-ops.
+
+A fleet of B replicas passes par [B, 32] and rows [B, 9, MP] and gets
+[B, 12, MP]: one launch of B blocks, a replica each; ``pose_plain`` runs
+the replicas one after another.
 """
 
 from __future__ import annotations
@@ -84,6 +88,8 @@ def _latch_clock(s, rows):
 
 def pose_plain(par, rows):
     """Plain PyTorch version of the pose kernel (same contract)."""
+    if rows.dim() == 3:
+        return torch.stack([pose_plain(par[r], rows[r]) for r in range(rows.shape[0])])
     s = par.reshape(-1)
     mp = rows.shape[1]
     w_seg, a_seg, dt = _latch_clock(s, rows)
@@ -124,19 +130,22 @@ def pose_plain(par, rows):
 
 
 def pose_call(par, rows):
-    """The pose kernel on a CUDA tensor, its plain version on a CPU one."""
+    """The pose kernel on a CUDA tensor, its plain version on a CPU one;
+    rows [9, MP] or, for a fleet, [B, 9, MP] with par [B, 32]."""
     if rows.device.type != "cuda":
         return pose_plain(par, rows)
-    mp = rows.shape[1]
+    lead = tuple(rows.shape[:-2])
+    batch = rows.shape[0] if lead else 1
+    mp = rows.shape[-1]
     args = (par.reshape(-1), rows)
-    if rows.shape[0] != IN_W or mp % 128 != 0 or not 0 < mp <= MAX_MP:
-        raise ValueError(f"pose_call: rows {tuple(rows.shape)}, expected ({IN_W}, MP) with MP a "
+    if len(lead) > 1 or rows.shape[-2] != IN_W or mp % 128 != 0 or not 0 < mp <= MAX_MP:
+        raise ValueError(f"pose_call: rows {tuple(rows.shape)}, expected ([B,] {IN_W}, MP) with MP a "
                          f"multiple of 128 up to {MAX_MP} (the kernel's shared memory: 9 x MP floats)")
-    if args[0].numel() != PAR_W:
-        raise ValueError(f"pose_call: par must hold {PAR_W} floats")
+    if args[0].numel() != PAR_W * batch:
+        raise ValueError(f"pose_call: par must hold {PAR_W} floats a replica")
     dev = _build.check_tensors("pose_call", args, [F32] * 2)
-    out = torch.empty((12, mp), dtype=F32, device=dev)
-    _build.launch("pose_launch", args + (out,), [mp])
+    out = torch.empty(lead + (12, mp), dtype=F32, device=dev)
+    _build.launch("pose_launch", args + (out,), [mp, batch])
     pose_call.launches += 1
     return out
 

@@ -134,6 +134,18 @@ def make_static_config(cfg: Config, use_kin=None, return_cloud: bool = False) ->
     )
 
 
+def make_params(cfg: Config, device, g_over_acc_norm: float = 1.0) -> FilterParams:
+    """FilterParams from a full Config: the noise, the IMU <- LiDAR
+    extrinsic and ``g_over_acc_norm`` (set from the first packet by the
+    first-frame initialisation)."""
+    return FilterParams(
+        noise=make_noise_params(cfg.eskf, device),
+        ext_r=torch.tensor(np.reshape(cfg.extrinsic_R, (3, 3)), dtype=torch.float32, device=device),
+        ext_t=torch.tensor(cfg.extrinsic_T, dtype=torch.float32, device=device),
+        g_over_acc_norm=torch.tensor(g_over_acc_norm, dtype=torch.float32, device=device),
+    )
+
+
 class OdometryRunner:
     """Stateful replay engine around the per-scan filter, on ``device``;
     with ``return_cloud`` each result carries its scan's world cloud."""
@@ -146,12 +158,7 @@ class OdometryRunner:
         if cfg.tpu.dtype != "float32":
             raise NotImplementedError("legkilo_torch runs in float32 only")
         dev = self.device
-        self.params = FilterParams(
-            noise=make_noise_params(cfg.eskf, dev),
-            ext_r=torch.tensor(np.reshape(cfg.extrinsic_R, (3, 3)), dtype=torch.float32, device=dev),
-            ext_t=torch.tensor(cfg.extrinsic_T, dtype=torch.float32, device=dev),
-            g_over_acc_norm=torch.tensor(1.0, device=dev),
-        )
+        self.params = make_params(cfg, dev)
         self.builder = PacketBuilder(cfg)
         self.carry = init_carry(self.scfg, dev)
         self.initialized = False

@@ -232,16 +232,17 @@ def test_empty_statistics_are_an_exact_no_op():
 
 
 def test_warp_kernel_takes_no_block_barrier():
-    """Both branches of the fused chain are one warp: chain_stats.cu holds
-    no block kernel, launches 32 threads for either branch, and orders its
-    lanes with __syncwarp() only."""
+    """Both branches of the fused chain are one warp a replica:
+    chain_stats.cu holds no block kernel, launches a block of 32 threads a
+    replica of the fleet for either branch (one block at B = 1), and orders
+    its lanes with __syncwarp() only."""
     with open(os.path.join(CSRC, "chain_stats.cu")) as fh:
         src = fh.read()
     with open(os.path.join(CSRC, "lk_chain_warp.cuh")) as fh:
         hdr = fh.read()
     code = "\n".join(line.split("//")[0] for line in src.splitlines())   # comments out
     assert "__launch_bounds__(lk_warp::NW)" in src and "constexpr int NW = 32;" in hdr
-    assert re.search(r"chain_warp_kernel<KIN><<<1, lk_warp::NW,", src)
+    assert re.search(r"chain_warp_kernel<KIN><<<batch, lk_warp::NW,", src)
     assert "launch_warp<true>(" in src and "launch_warp<false>(" in src
     assert len(re.findall(r"__global__", code)) == 1 and "lk_chain.cuh" not in code
     assert "chain_kernel" not in code.replace("chain_warp_kernel", "")

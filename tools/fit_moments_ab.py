@@ -59,6 +59,15 @@ ITERS = 200
 STEP_ITERS = 40
 
 
+def moments_batch_args(d):
+    """[1] where this version's moments_rows_launch takes the fleet's
+    replica count (``int batch``: a version with the replica axis), else []."""
+    with open(os.path.join(d, "insert_rows.cu")) as fh:
+        src = fh.read()
+    sig = src[src.index("LK_API int moments_rows_launch("):]
+    return [1] if "int batch" in sig[: sig.index(")")] else []
+
+
 def build(tag, d):
     os.makedirs(OUT, exist_ok=True)
     so = os.path.join(OUT, f"{tag}.so")
@@ -118,13 +127,14 @@ def old_moments(lib, margs):
     return step, lambda: launch(args, out), step
 
 
-def new_moments(lib, margs):
-    """The indexed kernel, launched as moments_rows_call launches it."""
-    lib.moments_rows_launch.argtypes = [P] * 14 + [I] * 11 + [P]
+def new_moments(lib, margs, batch=()):
+    """The indexed kernel, launched as moments_rows_call launches it
+    (``batch``: [1] where the version takes the fleet's replica count)."""
+    lib.moments_rows_launch.argtypes = [P] * 14 + [I] * (11 + len(batch)) + [P]
     r, nb, dev = margs[8].shape[0], margs[2].shape[0], margs[2].device
     p_i_c, body_cov_c, keys, lvl = margs[6], margs[7], margs[10], margs[11]
     ints = [r, nb, p_i_c.shape[0], margs[1].shape[0], *p_i_c.stride(), body_cov_c.stride(0),
-            body_cov_c.stride(2), *keys.stride(), lvl.stride(0)]
+            body_cov_c.stride(2), *keys.stride(), lvl.stride(0), *batch]
 
     def launch(mom, moms):
         check(lib.moments_rows_launch(*ptrs(*margs, mom, moms), *ints, stream()))
@@ -206,7 +216,8 @@ def main():
     margs = cs.moments_inputs(torch, dev, np.random.default_rng(7))
     fargs, n_real = cs.fit_inputs(torch, dev)
     cases = {
-        "moments": {"old": old_moments(libs["old"], margs), "new": new_moments(libs["new"], margs)},
+        "moments": {"old": old_moments(libs["old"], margs),
+                    "new": new_moments(libs["new"], margs, moments_batch_args(new_dir))},
         "fit": {"old": old_fit(libs["old"], fargs), "new": new_fit(libs["new"], fargs)},
     }
 

@@ -155,10 +155,14 @@ def main():
 
     r, nb = margs[8].shape[0], margs[2].shape[0]
     p_i_c, body_cov_c, keys, lvl = margs[6], margs[7], margs[10], margs[11]
+    with open(os.path.join(src, "insert_rows.cu")) as fh:
+        sig = fh.read().split("LK_API int moments_rows_launch(")[1].split(")")[0]
+    batch = [1] if "int batch" in sig else []  # a version with the fleet's replica axis
     ints = [r, nb, p_i_c.shape[0], margs[1].shape[0], *p_i_c.stride(), body_cov_c.stride(0),
-            body_cov_c.stride(2), *keys.stride(), lvl.stride(0)]
+            body_cov_c.stride(2), *keys.stride(), lvl.stride(0), *batch]
     mom, moms = torch.empty((r, 9), device=dev), torch.empty((r, 60), device=dev)
-    mlib.moments_rows_launch.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+    mlib.moments_rows_launch.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * len(ints)
+                                         + [ctypes.c_void_p])
 
     def stamped_moments():
         rc = mlib.moments_rows_launch(*[t.data_ptr() for t in list(margs) + [mom, moms]], *ints, stream())

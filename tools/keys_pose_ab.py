@@ -42,6 +42,15 @@ KEYS_SHAPES = ((3584, 3), (300, 2))
 TIMED = ("keys_c3584_l3", "pose_mp128", "pose_mp256", "pose_mp384", "pose_mp1280")
 
 
+def batch_args(d, name, entry):
+    """[1] where this version's C entry point takes the fleet's replica
+    count (``int batch``: a version with the replica axis), else []."""
+    with open(os.path.join(d, name)) as fh:
+        src = fh.read()
+    sig = src[src.index(f"LK_API int {entry}("):]
+    return [1] if "int batch" in sig[: sig.index(")")] else []
+
+
 def build(tag, d):
     os.makedirs(OUT, exist_ok=True)
     so = os.path.join(OUT, f"{tag}.so")
@@ -78,8 +87,8 @@ def main():
     tags = [f"v{i}_{os.path.abspath(d).split(os.sep)[-3]}" for i, d in enumerate(dirs)]
     print(f"[card] {cs.card_line()}", flush=True)
     procs = [(tag, *build(tag, d)) for tag, d in zip(tags, dirs)]
-    libs = {}
-    for tag, so, p in procs:
+    libs, extra = {}, {}
+    for (tag, so, p), d in zip(procs, dirs):
         text, _ = p.communicate()
         if p.returncode:
             print(f"[ab] build {tag} FAILED\n{text}")
@@ -87,8 +96,12 @@ def main():
         for name, info in ptxas_lines(text):
             print(f"[ab] {tag} {name}: {info}")
         lib = ctypes.CDLL(so)
-        lib.keys_launch.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        lib.pose_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p]
+        extra[tag] = (batch_args(d, "match_geom.cu", "keys_launch"),
+                      batch_args(d, "pose_prop.cu", "pose_launch"))
+        lib.keys_launch.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * (3 + len(extra[tag][0]))
+                                    + [ctypes.c_void_p])
+        lib.pose_launch.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * (1 + len(extra[tag][1]))
+                                    + [ctypes.c_void_p])
         libs[tag] = lib
     dev = torch.device("cuda")
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
@@ -100,7 +113,8 @@ def main():
                 torch.empty((6 * levels, c), device=dev), torch.empty((2 * levels, c), dtype=torch.int32, device=dev)]
 
         def run(tag, kargs=kargs, outs=outs, c=c, levels=levels):
-            rc = libs[tag].keys_launch(*[t.data_ptr() for t in list(kargs) + outs], c, levels, 1 << 14, stream())
+            rc = libs[tag].keys_launch(*[t.data_ptr() for t in list(kargs) + outs], c, levels, 1 << 14,
+                                       *extra[tag][0], stream())
             assert rc == 0, rc
             return outs
 
@@ -114,7 +128,8 @@ def main():
         out = torch.empty((12, mp), device=dev)
 
         def run(tag, pargs=pargs, out=out, mp=mp):
-            rc = libs[tag].pose_launch(pargs[0].data_ptr(), pargs[1].data_ptr(), out.data_ptr(), mp, stream())
+            rc = libs[tag].pose_launch(pargs[0].data_ptr(), pargs[1].data_ptr(), out.data_ptr(), mp,
+                                       *extra[tag][1], stream())
             assert rc == 0, rc
             return [out]
 

@@ -66,11 +66,13 @@ def stamp(src: str) -> str:
     src = sub("// The row pass over sh.rows[0..n_rows), 64 rows a round.",
               "__shared__ long long ph_[8];\n__shared__ long long t_last_;\n__shared__ long long role_[3];\n"
               "// The row pass over sh.rows[0..n_rows), 64 rows a round.")
-    src = sub("float* __restrict__ nm, int n_buckets) {",
-              "float* __restrict__ nm, long long* __restrict__ stamps, int n_buckets) {\n"
+    src = sub("float* __restrict__ nm, int n_buckets",
+              "float* __restrict__ nm, long long* __restrict__ stamps, int n_buckets")
+    src = sub("  extern __shared__ __align__(16) unsigned char select_smem[];\n",
+              "  extern __shared__ __align__(16) unsigned char select_smem[];\n"
               "  const long long t0_ = clock64();\n"
               "  if (threadIdx.x == 0) { for (int k = 0; k < 8; ++k) ph_[k] = 0; t_last_ = t0_; "
-              "role_[0] = role_[1] = role_[2] = 0; }")
+              "role_[0] = role_[1] = role_[2] = 0; }\n")
     src = sub("    __syncthreads();\n    const int end = total + sh.step_total;",
               "    __syncthreads();\n    " + st(0) + "\n    const int end = total + sh.step_total;")
     src = sub("    if (i0 > 0) __syncthreads();  // the last round's records are read",
@@ -92,7 +94,7 @@ def stamp(src: str) -> str:
               f"    for (int k = 0; k < 3; ++k) stamps[blockIdx.x * {NSLOT} + 6 + k] = role_[k];\n  }}\n"
               "  if (!bucket_block) return;")
     src = sub("float* nm, int C,", "float* nm, long long* stamps, int C,")
-    src = sub("(a, bidx, s40, nm, n_buckets)", "(a, bidx, s40, nm, stamps, n_buckets)")
+    src = sub("(a, bidx, s40, nm, n_buckets", "(a, bidx, s40, nm, stamps, n_buckets")
     return src
 
 
@@ -102,6 +104,7 @@ def build(tag, d, stamped):
     # keys_launch out, select_launch renamed: the probe launches as the port does.
     src = src[: src.index("LK_API int keys_launch")] + src[src.index("LK_API int select_launch"):]
     src = src.replace("LK_API int select_launch(", "LK_API int probe_launch(")
+    takes_batch = "int n_buckets, int batch," in src  # a version with the fleet's replica axis
     if stamped:
         src = stamp(src)
     path = os.path.join(OUT, f"{tag}_{'stamped' if stamped else 'plain'}.cu")
@@ -110,7 +113,7 @@ def build(tag, d, stamped):
     so = path[:-3] + ".so"
     cmd = [NVCC, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
            "-shared", "-Xptxas", "-v", "-I", d, "-I", os.path.join(ROOT, "legkilo_torch", "csrc"), path, "-o", so]
-    return so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return so, takes_batch, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
 def main():
@@ -119,7 +122,9 @@ def main():
     print(f"[card] {cs.card_line()}", flush=True)
     procs = [(tag, stamped, *build(tag, d, stamped)) for tag, d in zip(tags, dirs) for stamped in (False, True)]
     libs = {}
-    for tag, stamped, so, p in procs:
+    batch_arg = {}
+    for tag, stamped, so, takes_batch, p in procs:
+        batch_arg[tag] = [1] if takes_batch else []
         text, _ = p.communicate()
         if p.returncode:
             print(f"[phases] build {tag} stamped={stamped} FAILED\n{text}")
@@ -134,7 +139,8 @@ def main():
                 subprocess.run([os.path.join(os.path.dirname(NVCC), "cuobjdump"), "-sass", so], stdout=fh,
                                stderr=subprocess.STDOUT)
         lib = ctypes.CDLL(so)
-        lib.probe_launch.argtypes = [ctypes.c_void_p] * (11 + stamped) + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.probe_launch.argtypes = ([ctypes.c_void_p] * (11 + stamped)
+                                     + [ctypes.c_int] * (3 + len(batch_arg[tag])) + [ctypes.c_void_p])
         libs[(tag, stamped)] = lib
 
     dev = torch.device("cuda")
@@ -151,7 +157,8 @@ def main():
 
         def run(tag, stamped):
             ptrs = [t.data_ptr() for t in list(sargs) + list(outs)] + ([stamps.data_ptr()] if stamped else [])
-            rc = libs[(tag, stamped)].probe_launch(*ptrs, c, 3, nb, torch.cuda.current_stream().cuda_stream)
+            rc = libs[(tag, stamped)].probe_launch(*ptrs, c, 3, nb, *batch_arg[tag],
+                                                   torch.cuda.current_stream().cuda_stream)
             assert rc == 0, rc
 
         ref = mg.select_plain(*sargs, 3, nb)
