@@ -103,6 +103,22 @@ Phases, each printing its own lines:
     ("fleet_scale": launches a step at B = 64 within 10 % of B = 1's); and
     ``sweep --bags`` in this process over two 4 s bags ("fleet_bags": a TUM
     file a bag, each under the bound).
+12. The multi-device layer (legkilo_torch/parallel/: a process a card,
+    torch.distributed): ``sweep --pallas --pipeline deferred --distinct 4
+    --duration 4 --chunk 8`` with bench.py's configuration from a YAML
+    file (the batched five-kernel route), --traj_out and --save_ckpt on two ranks
+    sharing the card (gloo, by the backend rule, which each rank logs),
+    ranks being subprocesses of this script that print their launch
+    counters, against the same command in this process: TUM files byte for
+    byte, checkpoint leaves, mean_matched and every ATE equal, each rank's
+    six kernels once a fleet step; ``--replicas 8 --duration 2`` in
+    broadcast mode gives the one-process final_spread_m ("mesh").  With two
+    cards or more the same over NCCL and ``scale`` over 1 ... n cards; on
+    one card a line says they did not run.  ``scale --devices 1`` in this
+    process (the sequential pipeline, no kernel; "scale"), and bench.py's
+    configuration on the cluttered world of tests/test_cluttered_world.py
+    within that test's bounds ("clutter": the non-planar branches of
+    select and fit on the card).
 
 Each run sets every launch counter to 0 before and reads it after: the
 kernels of the path it drives must have launched, and the others must not.
@@ -2086,12 +2102,285 @@ def phase_fleet_bags(torch, data):
     return rec
 
 
+MESH_DISTINCT = ["--distinct", "4", "--duration", "4", "--chunk", "8"]
+MESH_BROADCAST = ["--replicas", "8", "--duration", "2"]
+MESH_RANKS = 2
+MESH_TIMEOUT_S = 600
+SCALE_DURATION_S = 1.0
+CLUTTER_BOUNDS = dict(rms_m=0.05, final_m=0.06, match_rate=0.6, nonplanar_l0=12, parents=5)
+
+
+def rank_main(argv) -> int:
+    """One rank of the mesh phase, run as ``python3 -c "import chip_smoke;
+    chip_smoke.rank_main(...)"`` from the checkout: ``cli.main(argv)`` with
+    the launch counters set to 0 before and printed after."""
+    from legkilo_torch import cli
+
+    reset_counters()
+    rc = cli.main(argv)
+    log("[counters] " + json.dumps(read_counters()))
+    return rc
+
+
+def run_ranks(argv, n, env_edit=None):
+    """``legkilo_torch`` ARGV on ``n`` ranks (subprocesses of this script's
+    ``rank_main``, joined at a free localhost port); every rank must exit 0
+    within MESH_TIMEOUT_S, or all are killed and the phase fails.  Returns
+    (the report rank 0 prints, each rank's counters, each rank's backend
+    log line)."""
+    import socket
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{sock.getsockname()[1]}"
+    env = dict(os.environ)
+    for k in ("LOCAL_RANK", "LOCAL_WORLD_SIZE", "RANK", "WORLD_SIZE"):
+        env.pop(k, None)
+    env.update(env_edit or {})
+    code = "import sys, chip_smoke; sys.exit(chip_smoke.rank_main(sys.argv[1:]))"
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code] + argv + ["--coordinator", coord, "--num_processes", str(n),
+                                               "--process_id", str(i)],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for i in range(n)]
+    outs = []
+    try:
+        for i, p in enumerate(procs):
+            out, err = p.communicate(timeout=MESH_TIMEOUT_S)
+            if p.returncode != 0:
+                raise RuntimeError(f"rank {i} of {argv}: exit code {p.returncode}\n{err[-3000:]}")
+            outs.append((out, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    reports = [json.loads(l) for out, _ in outs for l in out.splitlines() if l.startswith("{")]
+    if len(reports) != 1:
+        raise RuntimeError(f"{argv}: {len(reports)} reports, expected rank 0's alone")
+    counters = [json.loads(l[len("[counters] "):]) for out, _ in outs for l in out.splitlines()
+                if l.startswith("[counters] ")]
+    backends = [l.split("] ", 1)[-1] for _, err in outs for l in err.splitlines() if "backend" in l]
+    return reports[0], counters, backends
+
+
+def _same_files(a, b, names):
+    import filecmp
+
+    return all(filecmp.cmp(os.path.join(a, x), os.path.join(b, x), shallow=False) for x in names)
+
+
+def _same_npz(a, b):
+    with np.load(a) as x, np.load(b) as y:
+        return sorted(x.files) == sorted(y.files) and all(
+            x[k].dtype == y[k].dtype and np.array_equal(x[k], y[k]) for k in x.files)
+
+
+def mesh_distinct_case(torch, tag, root, cfg, env_edit=None):
+    """``sweep --pallas --pipeline deferred --distinct 4 --duration 4
+    --chunk 8 --config_file CFG`` (bench.py's configuration: the batched
+    five-kernel route) with --traj_out/--save_ckpt in this process and on
+    MESH_RANKS ranks: TUM files byte for byte, checkpoints leaf for leaf,
+    mean_matched and the ATEs equal; each rank's six kernels launched once
+    a fleet step (fit also once a replica of its own for the first-frame
+    map), chain_points never."""
+    from legkilo_torch import cli
+
+    common = ["sweep", "--pallas", "--pipeline", "deferred", "--config_file", cfg] + MESH_DISTINCT
+    d = {k: os.path.join(root, f"{tag}_{k}") for k in ("d1", "d2", "c1", "c2")}
+    reset_counters()
+    t0 = time.perf_counter()
+    one = cli_json(cli, common + ["--traj_out", d["d1"], "--save_ckpt", d["c1"]])
+    t_one = time.perf_counter() - t0
+    c_one = read_counters()
+    t0 = time.perf_counter()
+    two, counters, backends = run_ranks(common + ["--traj_out", d["d2"], "--save_ckpt", d["c2"]],
+                                        MESH_RANKS, env_edit)
+    t_two = time.perf_counter() - t0
+    names = [f"sim{r}.tum" for r in range(one["replicas"])]
+    b = one["replicas"] // MESH_RANKS
+    want_rank = {k: two["scans"] + (b if k == "fit" else 0) for k in FUSED_KERNELS}
+    want_one = {k: one["scans"] + (one["replicas"] if k == "fit" else 0) for k in FUSED_KERNELS}
+    rec = dict(one=one, ranks=two, counters_one=c_one, counters_ranks=counters,
+               tum_equal=_same_files(d["d1"], d["d2"], names),
+               ckpt_equal=_same_npz(d["c1"] + ".npz", d["c2"] + ".npz"),
+               wall_one_s=t_one, wall_ranks_s=t_two)
+    for line in backends:
+        log(f"[{tag}] {line}")
+    log(f"[{tag}] {json.dumps(rec)}")
+    if not (rec["tum_equal"] and rec["ckpt_equal"]):
+        raise RuntimeError(f"{tag}: TUM equal {rec['tum_equal']}, checkpoint equal {rec['ckpt_equal']}")
+    if two["devices"] != MESH_RANKS or any(two[k] != one[k] for k in (
+            "replicas", "scans", "mean_matched", "ate_per_replica_m")):
+        raise RuntimeError(f"{tag}: {MESH_RANKS} ranks {two} against one process {one}")
+    for c in counters:
+        if {k: c[k] for k in FUSED_KERNELS} != want_rank or c["chain_points"]:
+            raise RuntimeError(f"{tag}: a rank's launches {c}, expected {want_rank}")
+    if {k: c_one[k] for k in FUSED_KERNELS} != want_one or c_one["chain_points"]:
+        raise RuntimeError(f"{tag}: one process's launches {c_one}, expected {want_one}")
+    return rec, backends
+
+
+def mesh_broadcast_case(torch, tag, cfg, env_edit=None):
+    """``sweep --pallas --pipeline deferred --replicas 8 --duration 2
+    --config_file CFG`` in this process and on MESH_RANKS ranks: the same
+    final_spread_m; each rank's six kernels launched once a fleet step."""
+    from legkilo_torch import cli
+
+    common = ["sweep", "--pallas", "--pipeline", "deferred", "--config_file", cfg] + MESH_BROADCAST
+    one = cli_json(cli, common)
+    two, counters, _ = run_ranks(common, MESH_RANKS, env_edit)
+    log(f"[{tag}] one process {json.dumps(one)}; {MESH_RANKS} ranks {json.dumps(two)}; "
+        f"rank counters {json.dumps(counters)}")
+    if (two["processes"], two["devices"], two["replicas"]) != (MESH_RANKS, MESH_RANKS,
+                                                              one["replicas"]):
+        raise RuntimeError(f"{tag}: report {two}")
+    if two["final_spread_m"] != one["final_spread_m"] or not np.isfinite(two["final_spread_m"]):
+        raise RuntimeError(f"{tag}: final_spread_m {two['final_spread_m']} on {MESH_RANKS} ranks, "
+                           f"{one['final_spread_m']} in one process")
+    steps = 3 + two["scans"]  # the warm-up steps and the timed ones
+    for c in counters:
+        if any(c[k] != steps for k in FUSED_KERNELS) or c["chain_points"]:
+            raise RuntimeError(f"{tag}: a rank's launches {c}, expected {steps} each")
+    return one, two
+
+
+def phase_mesh(torch):
+    """The fleet across ranks (legkilo_torch/parallel/: one process a card,
+    torch.distributed): MESH_RANKS ranks share the one card (gloo, by
+    multihost.backend_for) against one process, in ``--distinct`` and in
+    broadcast mode.  With two cards or more, the same over NCCL with a rank
+    a card and ``scale`` over 1 ... n cards; on one card a line says those
+    did not run."""
+    import shutil
+
+    from legkilo_torch.parallel import multihost
+
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "mesh")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    cards = torch.cuda.device_count()
+    # Both ranks on this process's card: the first visible one.
+    first = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    share = {"CUDA_VISIBLE_DEVICES": first}
+    backend = multihost.backend_for("cuda", MESH_RANKS, 1)
+    log(f"[mesh] {MESH_RANKS} ranks sharing one card: backend {backend} "
+        f"(multihost.backend_for: more ranks than cards on the host)")
+    if backend != "gloo":
+        raise RuntimeError(f"mesh: backend {backend} for two ranks on one card")
+    cfg = os.path.join(root, "bench.yaml")
+    bag_config_file(cfg, use_kin=False)
+    rec, backends = mesh_distinct_case(torch, "mesh", root, cfg, share)
+    if len(backends) != MESH_RANKS or not all("backend gloo" in l for l in backends):
+        raise RuntimeError(f"mesh: the ranks logged {backends}")
+    one, two = mesh_broadcast_case(torch, "mesh_broadcast", cfg, share)
+    out = dict(distinct=rec, broadcast_one=one, broadcast_ranks=two)
+    if cards >= 2:
+        nccl, backends = mesh_distinct_case(torch, "mesh_nccl", root, cfg)
+        if not all("backend nccl" in l for l in backends):
+            raise RuntimeError(f"mesh_nccl: the ranks logged {backends}")
+        mesh_broadcast_case(torch, "mesh_nccl_broadcast", cfg)
+        counts = ",".join(str(n) for n in range(1, cards + 1))
+        scale, _, _ = run_ranks(["scale", "--devices", counts, "--duration",
+                                 str(SCALE_DURATION_S)], cards)
+        log(f"[mesh_scale] {json.dumps(scale)}")
+        out.update(nccl=nccl, scale=scale)
+    else:
+        log("[mesh] NCCL with a rank a card and scale across cards not run: this machine has "
+            f"{cards} card")
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"[mesh] replica-scans/s --distinct 4: one process {rec['one']['replica_scans_per_s']}, "
+        f"{MESH_RANKS} ranks on the card {rec['ranks']['replica_scans_per_s']}; broadcast B = 8: "
+        f"one process {one['replica_scans_per_s']}, {MESH_RANKS} ranks "
+        f"{two['replica_scans_per_s']}; {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def phase_scale(torch):
+    """``scale --devices 1 --duration 1.0`` in this process: the sequential
+    pipeline of a default StaticConfig (no kernel launches), one record of
+    efficiency 1.0."""
+    from legkilo_torch import cli
+
+    t_phase = time.perf_counter()
+    reset_counters()
+    recs = cli_json(cli, ["scale", "--devices", "1", "--duration", str(SCALE_DURATION_S)])
+    counts = read_counters()
+    log(f"[scale] {json.dumps(recs)}; launches {json.dumps(counts)}; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if len(recs) != 1 or recs[0]["devices"] != 1 or recs[0]["efficiency"] != 1.0:
+        raise RuntimeError(f"scale: {recs}")
+    if not recs[0]["replica_scans_per_s"] > 0 or any(counts.values()):
+        raise RuntimeError(f"scale: {recs}, launches {counts}")
+    return recs
+
+
+def clutter_data():
+    """tests/test_cluttered_world.py's data: 4 s, 2,000 points a scan, seed
+    3, its trajectory, on cluttered_world(seed=7)."""
+    from legkilo_torch.models import sim
+
+    traj = sim.Trajectory(speed=0.8, z0=1.0, roll_amp=0.05, pitch_amp=0.03, bob=0.03)
+    return sim.simulate(sim.SimConfig(duration=4.0, scan_points=2000, seed=3),
+                        world=sim.cluttered_world(seed=7), traj=traj)
+
+
+def phase_clutter(torch):
+    """bench.py's five-kernel configuration streamed over the cluttered
+    world (rubble steps and crossing discs: L0 voxels that refuse a plane
+    fit, the non-planar branches of select and fit), held to the JAX test's
+    bounds (RMS and final position error, mean match rate after 5 scans,
+    non-planar L0 voxels, planar L1 children inside them); every fused
+    kernel launched, chain_points never."""
+    from legkilo_torch.runner import OdometryRunner, bench_config, replay
+
+    t_phase = time.perf_counter()
+    data = clutter_data()
+    t_sim = time.perf_counter() - t_phase
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner = OdometryRunner(bench_config(), device="cuda")
+    for _ in replay(runner, data.scans, data.imu):
+        pass
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counters()
+    _, gt = data.gt_in_filter_frame()
+    gtm = {round(t, 6): i for i, t in enumerate(data.gt_times)}
+    errs = np.array([np.linalg.norm(r.pos - gt[gtm[round(r.time, 6)]])
+                     for r in runner.results if round(r.time, 6) in gtm])
+    vm, c = runner.carry.vm, runner.scfg.map_cfg.capacity
+    meta, ptab = vm.meta.cpu().numpy(), vm.ptab.cpu().numpy()
+    nonplane0 = (meta[:c, 2] > 0) & ~(ptab[:c, 4] > 0)
+    plane1 = (meta[c:2 * c, 2] > 0) & (ptab[c:2 * c, 4] > 0)
+    parents = {tuple(k) for k in ptab[:c][nonplane0, 0:3]} & {
+        tuple(k) for k in np.floor_divide(ptab[c:2 * c][plane1, 0:3], 2)}
+    rec = dict(scans=len(runner.results), rms_m=float(np.sqrt((errs ** 2).mean())),
+               final_m=float(errs[-1]), match_rate=float(np.mean(
+                   [r.n_matched / max(r.n_points, 1) for r in runner.results[5:]])),
+               nonplanar_l0=int(nonplane0.sum()), parents=len(parents),
+               ms_per_scan=wall / len(runner.results) * 1e3, sim_s=t_sim, launches=counts)
+    log(f"[clutter] {json.dumps(rec)}; bounds {json.dumps(CLUTTER_BOUNDS)}; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    b = CLUTTER_BOUNDS
+    if not (rec["rms_m"] < b["rms_m"] and rec["final_m"] < b["final_m"]
+            and rec["match_rate"] > b["match_rate"] and rec["nonplanar_l0"] >= b["nonplanar_l0"]
+            and rec["parents"] >= b["parents"]):
+        raise RuntimeError(f"clutter: {rec} outside {b}")
+    if any(counts[k] <= 0 for k in FUSED_KERNELS) or counts["chain_points"]:
+        raise RuntimeError(f"clutter: launches {counts}")
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="build,kernels,main,chunk,stream1,four,profile,kin,points,points_kin,"
                             "slide,points_chunk,ref2ms,repeat,leg_fusion,mixed,seq,seq_kin,"
-                            "bag,bag_kin,fleet_equal,fleet,fleet_scale,fleet_bags")
+                            "bag,bag_kin,fleet_equal,fleet,fleet_scale,fleet_bags,mesh,scale,clutter")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -2166,6 +2455,12 @@ def main(argv=None) -> int:
             phase_fleet_bags(torch, data)
     if "fleet_equal" in phases:
         phase_fleet_equal(torch)
+    if "mesh" in phases:
+        phase_mesh(torch)
+    if "scale" in phases:
+        phase_scale(torch)
+    if "clutter" in phases:
+        phase_clutter(torch)
     if "profile" in phases:
         p4 = phase_profile(torch, "profile4", five=False)
         p5 = phase_profile(torch, "profile5")

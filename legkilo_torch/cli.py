@@ -1,4 +1,4 @@
-"""Command line: ``python -m legkilo_torch run|eval|sim|sweep``.
+"""Command line: ``python -m legkilo_torch run|eval|sim|sweep|scale``.
 
 ``run`` replays a ROS1 bag through the port, as ``python -m legkilo_tpu
 run`` does: PointCloud2 scans decoded by ``lidar_type``, Imu messages (or,
@@ -52,12 +52,33 @@ every mode here; the JAX command reads it with ``--distinct``/``--bags``
 only).  ``--pallas`` turns on all five kernel switches, in every mode (the
 JAX command reads it without ``--distinct``/``--bags`` only), which makes
 the fleet step one launch of each kernel for all replicas; other
-configurations step the replicas one after another.  The JAX command's
-multi-host flags wait for the port's multi-device layer.
+configurations step the replicas one after another.
 
-``run``, ``sim`` and ``sweep`` take ``--device``: ``cuda`` (the default)
-raises when no card is present; ``cpu`` runs the plain PyTorch versions of
-the kernels.
+``sweep`` and ``scale`` take the JAX command's multi-process flags,
+``--coordinator HOST:PORT --num_processes N --process_id I``: one process a
+card (parallel/multihost.py), each rank stepping its own B/N replicas and
+the fleet statistics reduced over all of them; without ``--coordinator``
+the process group comes from ``torchrun``'s environment.  Rank 0 prints
+the report; broadcast mode reports ``processes`` (the world size) and
+``devices`` (the mesh size).  With ``--distinct``/``--bags`` every rank
+loads every stream and steps its own shard, ``--traj_out`` files are
+written by the rank that holds the replica, ``mean_matched`` and
+``ate_per_replica_m`` cover the whole fleet, ``--save_ckpt`` writes (on
+rank 0) the whole fleet in rank order and ``--resume`` gives each rank its
+rows; a run across ranks equals the one-process run.  (The JAX command
+converts sharded outputs with ``np.asarray``, which JAX refuses across
+processes, so this mode is held against the port's one process.)
+
+``scale`` measures weak-scaling efficiency (parallel/scaling.py) as the JAX
+command does: the sequential pipeline of a default ``StaticConfig`` on a
+sim of ``--duration``, ``--replicas_per_device`` replicas a rank on meshes
+of the first n ranks for each n of ``--devices``, and prints the records
+(devices, replicas, wall_s, replica_scans_per_s, efficiency) as one JSON
+list.
+
+``run``, ``sim``, ``sweep`` and ``scale`` take ``--device``: ``cuda`` (the
+default) raises when no card is present; ``cpu`` runs the plain PyTorch
+versions of the kernels (and the gloo backend across ranks).
 Every command logs to stderr and to a file under ``logs/`` at
 ``--log_level`` (WARNING by default).
 """
@@ -72,6 +93,31 @@ import time
 import numpy as np
 
 log = logging.getLogger("legkilo_torch")
+
+
+def _load_config(path):
+    from . import config as config_mod
+
+    return config_mod.load(path) if path else config_mod.Config()
+
+
+def _maybe_multihost(args) -> bool:
+    """Bring the process group up from the flags (before any CUDA call);
+    True in a run of more than one process."""
+    from .parallel import multihost
+
+    if args.coordinator or args.num_processes:
+        multihost.initialize(coordinator_address=args.coordinator,
+                             num_processes=args.num_processes,
+                             process_id=args.process_id, device=args.device)
+    return multihost.process_count() > 1
+
+
+def _add_multihost_args(p) -> None:
+    p.add_argument("--coordinator", default=None,
+                   help="process group address host:port (rank 0 listens there)")
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
 
 
 def cmd_run(args: argparse.Namespace) -> int:
@@ -198,12 +244,11 @@ def cmd_run(args: argparse.Namespace) -> int:
 def cmd_sim(args: argparse.Namespace) -> int:
     import torch
 
-    from . import config as config_mod
     from .io.tum import TrajectoryWriter, ate_rmse
     from .models import sim as sim_mod
     from .runner import run_offline
 
-    cfg = config_mod.load(args.config_file) if args.config_file else config_mod.Config()
+    cfg = _load_config(args.config_file)
     cfg.lidar.filter_num = 1
     cfg.lidar.blind = 0.3
     if args.pipeline:
@@ -305,46 +350,67 @@ def _load_bag_streams(cfg, path: str):
     return scans, events
 
 
-def _save_fleet_ckpt(path, carry, bparams, n_done: int) -> str:
+def _save_fleet_ckpt(path, carry, bparams, n_done: int, mesh=None) -> str:
     """Fleet checkpoint: the batched carry (every replica's state,
     covariance, clocks and map), the per-replica FilterParams as extras
     ``bp_000`` ... and the fleet step cursor, in the single filter's npz
-    container (the JAX CLI's format)."""
-    from .convert import params_to_numpy
+    container (the JAX CLI's format).  Across ranks every rank gathers the
+    whole fleet in rank order and rank 0 writes it: the file one process
+    writes for the same fleet.  Returns the path (None on other ranks)."""
+    from .convert import carry_from_leaves, carry_leaves, params_leaves
     from .io import checkpoint as ckpt
+    from .parallel.mesh import gather_rows
+    from .parallel.multihost import process_index
 
-    extras = {f"bp_{i:03d}": leaf for i, leaf in enumerate(params_to_numpy(bparams))}
-    return ckpt.save(path, carry, step=int(n_done), extras=extras)
-
-
-def _load_fleet_ckpt(path, carry_like, bparams_like):
-    """(carry, bparams, n_done) saved by ``_save_fleet_ckpt``, checked
-    against freshly built templates: another replica count or config
-    raises ValueError."""
-    from .convert import params_from_numpy, params_leaves
-    from .io import checkpoint as ckpt
-
-    carry, step, extras = ckpt.load(path, carry_like)
-    leaves = []
-    for i, like in enumerate(params_leaves(bparams_like)):
-        arr = extras[f"bp_{i:03d}"]
-        if tuple(arr.shape) != tuple(like.shape):
-            raise ValueError(f"fleet checkpoint param {i} shape {arr.shape} != "
-                             f"{tuple(like.shape)} (replica count / config mismatch?)")
-        leaves.append(arr)
-    return carry, params_from_numpy(leaves, carry_like.cov.device), int(step or 0)
+    leaves = carry_leaves(carry) + params_leaves(bparams)
+    if mesh is not None:
+        leaves = gather_rows(mesh, leaves)
+    if process_index() != 0:
+        return None
+    extras = {f"bp_{i:03d}": leaf.cpu().numpy() for i, leaf in enumerate(leaves[12:])}
+    return ckpt.save(path, carry_from_leaves(leaves[:12]), step=int(n_done), extras=extras)
 
 
-def _sweep_distinct(args, cfg, device) -> int:
+def _load_fleet_ckpt(path, carry_like, bparams_like, mesh=None):
+    """(carry, bparams, n_done) saved by ``_save_fleet_ckpt``: this rank's
+    rows of the whole fleet, checked against templates of this rank's
+    shard; another replica count or config raises ValueError."""
+    from .convert import carry_from_leaves, carry_leaves, params_from_numpy, params_leaves
+    from .convert import load_jax_checkpoint
+    from .parallel.mesh import LocalMesh, shard_rows
+
+    mesh = mesh or LocalMesh()
+    carry, step, extras = load_jax_checkpoint(path, carry_like.cov.device)
+    n = mesh.size()
+    rows = shard_rows(mesh, n * int(carry_like.cov.shape[0]))
+    got = carry_leaves(carry) + [extras[f"bp_{i:03d}"] for i in range(len(params_leaves(bparams_like)))]
+    likes = carry_leaves(carry_like) + params_leaves(bparams_like)
+    for i, (x, like) in enumerate(zip(got, likes)):
+        want = (n * like.shape[0],) + tuple(like.shape[1:])
+        if tuple(x.shape) != want:
+            raise ValueError(f"fleet checkpoint leaf {i} shape {tuple(x.shape)} != {want} "
+                             "(replica count / config mismatch?)")
+    mine = [x[rows] for x in got]
+    carry = carry_from_leaves([x.to(like.dtype) for x, like in zip(mine[:12], likes)])
+    return carry, params_from_numpy(mine[12:], carry_like.cov.device), int(step or 0)
+
+
+def _sweep_distinct(args, cfg, device, mesh) -> int:
     """Distinct-replay fleet: every replica advances through its own stream
     each step.  ``--distinct N`` generates N different synthetic worlds
-    (varied trajectory and noise seed); ``--bags`` replays real .bag files."""
+    (varied trajectory and noise seed); ``--bags`` replays real .bag files.
+    Every rank loads every stream and steps its own shard of the replicas
+    (module doc)."""
     import glob
     import os
+
+    import torch
 
     from .io.dataset import decimate_blind, to_device_packet
     from .io.tum import TrajectoryWriter, ate_rmse
     from .models import sim as sim_mod
+    from .parallel.mesh import gather_rows, shard_rows
+    from .parallel.multihost import process_index
     from .parallel.sweep import (
         fleet_init, make_fleet_chunk_step, make_fleet_step, stack_fleet_chunks, stack_packets,
     )
@@ -369,6 +435,11 @@ def _sweep_distinct(args, cfg, device) -> int:
         streams = [(d.scans, d.imu) for d in datas]
         names = [f"sim{r}" for r in range(len(datas))]
 
+    big_b = len(streams)
+    if big_b % mesh.size():
+        print(json.dumps({"error": f"{big_b} replicas not divisible by {mesh.size()} devices"}))
+        return 1
+    mine = shard_rows(mesh, big_b)  # this rank's replicas
     scfg = make_static_config(cfg, use_kin=False)
     params = make_params(cfg, device)  # g_over_acc_norm set a replica by fleet_init
     pkt_seqs, first_clouds, mean_accs, mean_gyrs, end_offsets = [], [], [], [], []
@@ -384,15 +455,19 @@ def _sweep_distinct(args, cfg, device) -> int:
         first_clouds.append(pts)
         pkt_seqs.append(pkts)
 
-    carry, bparams = fleet_init(scfg, params, first_clouds, np.stack(mean_accs),
-                                np.stack(mean_gyrs), np.asarray(end_offsets), float(cfg.gravity),
-                                device=device)
+    # fleet_init is one initialisation a replica, stacked: this rank's rows
+    # of the whole fleet's.
+    carry, bparams = fleet_init(scfg, params, first_clouds[mine], np.stack(mean_accs[mine]),
+                                np.stack(mean_gyrs[mine]), np.asarray(end_offsets[mine]),
+                                float(cfg.gravity), device=device)
     n_done = 0
     if args.resume:
-        carry, bparams, n_done = _load_fleet_ckpt(args.resume, carry, bparams)
+        carry, bparams, n_done = _load_fleet_ckpt(args.resume, carry, bparams, mesh)
         log.info("Resumed fleet from %s at step %d", args.resume, n_done)
 
-    steps = stack_packets([[to_device_packet(p, device) for p in seq[1:]] for seq in pkt_seqs])
+    t_min = min(len(seq) for seq in pkt_seqs) - 1  # the whole fleet's steps
+    steps = stack_packets([[to_device_packet(p, device) for p in seq[1:1 + t_min]]
+                           for seq in pkt_seqs[mine]])
     max_steps = max(0, int(args.max_steps or 0))
     hi = min(len(steps), n_done + max_steps) if max_steps else len(steps)
     steps = steps[n_done:hi]
@@ -401,21 +476,21 @@ def _sweep_distinct(args, cfg, device) -> int:
         return 1
     chunk = min(max(1, int(args.chunk or 1)), len(steps))
 
-    est, est_rot = [], []  # a step's [B, 3], [B, 3, 3]
+    est, est_rot = [], []  # a step's [b, 3], [b, 3, 3]
     stats = None
     if chunk > 1:
-        step = make_fleet_chunk_step(scfg)
+        step = make_fleet_chunk_step(scfg, mesh=mesh)
         chunks = stack_fleet_chunks(steps, chunk)
         t0 = time.perf_counter()
         for dev in chunks:
             carry, outs, stats = step(carry, dev, bparams)
-            pos, rot = outs.pos.cpu().numpy(), outs.rot.cpu().numpy()  # [B, K, ...]
+            pos, rot = outs.pos.cpu().numpy(), outs.rot.cpu().numpy()  # [b, K, ...]
             for k in range(pos.shape[1]):
                 est.append(pos[:, k])
                 est_rot.append(rot[:, k])
         n_steps = len(chunks) * chunk
     else:
-        step = make_fleet_step(scfg)
+        step = make_fleet_step(scfg, mesh=mesh)
         t0 = time.perf_counter()
         for dev in steps:
             carry, out, stats = step(carry, dev, bparams)
@@ -425,43 +500,49 @@ def _sweep_distinct(args, cfg, device) -> int:
     sync(carry)
     wall = time.perf_counter() - t0
     times = [[p.end_time for p in seq[1 + n_done : 1 + n_done + n_steps]] for seq in pkt_seqs]
-    est = np.stack(est)          # [T, B, 3]
-    est_rot = np.stack(est_rot)  # [T, B, 3, 3]
-    b = est.shape[1]
+    est = np.stack(est)          # [T, b, 3]
+    est_rot = np.stack(est_rot)  # [T, b, 3, 3]
+    ids = range(big_b)[mine]     # this rank's replicas' indices in the fleet
 
     report = {
-        "replicas": b, "devices": 1, "scans": n_steps, "wall_s": round(wall, 2),
-        "replica_scans_per_s": round(b * n_steps / max(wall, 1e-9), 1),
+        "replicas": big_b, "devices": mesh.size(), "scans": n_steps, "wall_s": round(wall, 2),
+        "replica_scans_per_s": round(big_b * n_steps / max(wall, 1e-9), 1),
         "mean_matched": round(float(stats.mean_matched), 1), "chunk": chunk,
     }
     if n_done:
         report["resumed_at"] = n_done
     if args.save_ckpt:
-        report["checkpoint"] = _save_fleet_ckpt(args.save_ckpt, carry, bparams, n_done + n_steps)
+        report["checkpoint"] = _save_fleet_ckpt(args.save_ckpt, carry, bparams, n_done + n_steps,
+                                                mesh)
     if datas is not None:
-        ates = []
-        for r, d in enumerate(datas):
-            _, gt_pos_f = d.gt_in_filter_frame()
-            gtm = {round(t, 6): i for i, t in enumerate(d.gt_times)}
+        ates = np.zeros(len(ids))
+        for j, r in enumerate(ids):
+            _, gt_pos_f = datas[r].gt_in_filter_frame()
+            gtm = {round(t, 6): i for i, t in enumerate(datas[r].gt_times)}
             sel = [i for i, t in enumerate(times[r]) if round(t, 6) in gtm]
             idx = [gtm[round(times[r][i], 6)] for i in sel]
-            ates.append(round(ate_rmse(est[sel, r], gt_pos_f[idx], align=False), 4))
-        report["ate_per_replica_m"] = dict(zip(names, ates))
+            ates[j] = ate_rmse(est[sel, j], gt_pos_f[idx], align=False)
+        (ates,) = gather_rows(mesh, [torch.from_numpy(ates).to(device)])
+        report["ate_per_replica_m"] = dict(zip(names, (round(float(a), 4) for a in ates)))
     if args.traj_out:
         os.makedirs(args.traj_out, exist_ok=True)
-        for r, name in enumerate(names):
-            with TrajectoryWriter(os.path.join(args.traj_out, f"{name}.tum")) as w:
+        for j, r in enumerate(ids):
+            with TrajectoryWriter(os.path.join(args.traj_out, f"{names[r]}.tum")) as w:
                 for t in range(n_steps):
-                    w.write(times[r][t], est_rot[t, r], est[t, r])
-    print(json.dumps(report))
+                    w.write(times[r][t], est_rot[t, j], est[t, j])
+    if process_index() == 0:
+        print(json.dumps(report))
     return 0
 
 
 def cmd_sweep(args: argparse.Namespace) -> int:
-    from . import config as config_mod
+    multihost_run = _maybe_multihost(args)
+
     from . import resolve_device
     from .io.dataset import PacketBuilder, to_device_packet
     from .models import sim as sim_mod
+    from .parallel.mesh import make_mesh, shard_batch
+    from .parallel.multihost import hierarchical_mesh, process_count, process_index
     from .parallel.sweep import (
         batched_carry, broadcast_packets, make_fleet_chunk_step, make_fleet_step, perturb_params,
         stack_fleet_chunks,
@@ -470,7 +551,10 @@ def cmd_sweep(args: argparse.Namespace) -> int:
     from .utils.timing import sync
 
     device = resolve_device(args.device)
-    cfg = config_mod.load(args.config_file) if args.config_file else config_mod.Config()
+    # Across processes the (dcn, ici) mesh: replicas split over hosts first,
+    # then over a host's ranks (one a card).
+    mesh = hierarchical_mesh(device.type) if multihost_run else make_mesh(device_type=device.type)
+    cfg = _load_config(args.config_file)
     cfg.only_imu_use = True
     cfg.lidar.filter_num = 1
     cfg.lidar.blind = 0.3
@@ -480,7 +564,7 @@ def cmd_sweep(args: argparse.Namespace) -> int:
         cfg.tpu.use_pallas = cfg.tpu.use_pallas_match = cfg.tpu.use_pallas_insert = True
         cfg.tpu.use_pallas_pose = cfg.tpu.use_pallas_refit = True
     if args.distinct or args.bags:
-        return _sweep_distinct(args, cfg, device)
+        return _sweep_distinct(args, cfg, device, mesh)
 
     data = sim_mod.simulate(sim_mod.SimConfig(duration=args.duration))
     builder = PacketBuilder(cfg)
@@ -494,13 +578,15 @@ def cmd_sweep(args: argparse.Namespace) -> int:
 
     scfg = make_static_config(cfg, use_kin=False)
     params = make_params(cfg, device, float(cfg.gravity / np.linalg.norm(data.mean_acc)))
-    b = args.replicas or 1
-    carry = batched_carry(scfg, b, device)
-    bparams = perturb_params(params, b, scale=args.noise_scale)
+    big_b = args.replicas or mesh.size()
+    carry = shard_batch(batched_carry(scfg, big_b, device), mesh)
+    bparams = shard_batch(perturb_params(params, big_b, scale=args.noise_scale), mesh)
+    b = big_b // mesh.size()
     # Every packet staged on the card first: the step rate is the card's.
+    # A broadcast packet's shard is the packet broadcast to this rank's b.
     devs = [broadcast_packets(to_device_packet(p, device), b) for p in packets]
     chunk = max(1, int(args.chunk or 1))
-    step = make_fleet_step(scfg)
+    step = make_fleet_step(scfg, mesh=mesh)
     # Warm-up on the first packets (kernel build, map bootstrap); the rate
     # is the steady state's.
     stats = None
@@ -511,7 +597,7 @@ def cmd_sweep(args: argparse.Namespace) -> int:
     timed = devs[n_warm:]
     t0 = time.perf_counter()
     if chunk > 1:
-        step = make_fleet_chunk_step(scfg)
+        step = make_fleet_chunk_step(scfg, mesh=mesh)
         timed = stack_fleet_chunks(timed, chunk)
         n_timed = len(timed) * chunk
     else:
@@ -521,13 +607,61 @@ def cmd_sweep(args: argparse.Namespace) -> int:
     sync(carry)
     wall = time.perf_counter() - t0
     report = {
-        "replicas": b, "devices": 1, "processes": 1, "scans": n_timed,
-        "wall_s": round(wall, 2), "replica_scans_per_s": round(b * n_timed / max(wall, 1e-9), 1),
+        "replicas": big_b, "devices": mesh.size(), "processes": process_count(),
+        "scans": n_timed, "wall_s": round(wall, 2),
+        "replica_scans_per_s": round(big_b * n_timed / max(wall, 1e-9), 1),
         "final_spread_m": float(stats.pos_spread),
     }
     if chunk > 1:
         report["chunk"] = chunk
-    print(json.dumps(report))
+    if process_index() == 0:
+        print(json.dumps(report))
+    return 0
+
+
+def cmd_scale(args: argparse.Namespace) -> int:
+    """Weak-scaling efficiency across ranks (one a card), as the JAX
+    command measures it across devices: the sequential pipeline of a
+    default ``StaticConfig``, off every kernel."""
+    _maybe_multihost(args)
+
+    from . import resolve_device
+    from .core.filter import StaticConfig
+    from .core.voxel_map import map_config_from
+    from .io.dataset import PacketBuilder, to_device_packet
+    from .models import sim as sim_mod
+    from .parallel.multihost import process_count, process_index
+    from .parallel.scaling import measure_scaling
+    from .runner import make_params
+
+    device = resolve_device(args.device)
+    cfg = _load_config(args.config_file)
+    cfg.only_imu_use = True
+    cfg.lidar.filter_num = 1
+    cfg.lidar.blind = 0.3
+    cfg.voxel_map.capacity_log2 = min(cfg.voxel_map.capacity_log2, 14)
+    data = sim_mod.simulate(sim_mod.SimConfig(duration=args.duration))
+    builder = PacketBuilder(cfg)
+    for ev in data.imu:
+        builder.add_imu(ev)
+    packets = []
+    for scan in data.scans:
+        builder.add_scan(scan)
+        while builder.ready():
+            packets.append(to_device_packet(builder.pop(), device))
+
+    scfg = StaticConfig(map_cfg=map_config_from(cfg.voxel_map), use_kin=False,
+                        dept_err=cfg.voxel_map.dept_err, beam_err=cfg.voxel_map.beam_err)
+    params = make_params(cfg, device, float(cfg.gravity / np.linalg.norm(data.mean_acc)))
+    if args.devices:
+        counts = [int(x) for x in args.devices.split(",")]
+    else:
+        n = process_count()
+        counts = sorted({1, max(n // 2, 1), n})
+    res = measure_scaling(scfg, params, packets, counts,
+                          replicas_per_device=args.replicas_per_device)
+    if process_index() == 0:
+        print(json.dumps(res))
     return 0
 
 
@@ -601,11 +735,12 @@ def main(argv=None) -> int:
                    help="frame delta for the relative pose error")
     p.set_defaults(fn=cmd_eval)
 
-    p = sub.add_parser("sweep", help="Monte-Carlo fleet replay (B replicas on one card)")
+    p = sub.add_parser("sweep", help="Monte-Carlo fleet replay (B replicas, sharded over ranks)")
     p.add_argument("--config_file", default=None)
     p.add_argument("--duration", type=float, default=3.0)
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
-    p.add_argument("--replicas", type=int, default=None, help="B (default 1: one card)")
+    p.add_argument("--replicas", type=int, default=None,
+                   help="B (default: one a rank)")
     p.add_argument("--noise_scale", type=float, default=0.1,
                    help="log-normal jitter of each replica's q_diag (broadcast mode)")
     p.add_argument("--pipeline", default=None, choices=["sequential", "deferred"])
@@ -625,8 +760,24 @@ def main(argv=None) -> int:
                    help="with --distinct/--bags: restore a fleet checkpoint and continue")
     p.add_argument("--max_steps", type=int, default=0,
                    help="with --distinct/--bags: stop after N fleet steps")
+    _add_multihost_args(p)
     p.set_defaults(fn=cmd_sweep)
+
+    p = sub.add_parser("scale", help="weak-scaling efficiency across ranks (one a card)")
+    p.add_argument("--config_file", default=None)
+    p.add_argument("--duration", type=float, default=2.0)
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    p.add_argument("--devices", default=None, help="comma list of rank counts, e.g. 1,2,4")
+    p.add_argument("--replicas_per_device", type=int, default=1)
+    _add_multihost_args(p)
+    p.set_defaults(fn=cmd_scale)
 
     args = parser.parse_args(argv)
     setup_logging(log_dir="logs", level=getattr(logging, args.log_level.upper(), logging.WARNING))
-    return args.fn(args)
+    try:
+        return args.fn(args)
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()

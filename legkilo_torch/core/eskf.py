@@ -26,7 +26,7 @@ import torch
 
 from .eskf_fused import inv3 as _inv3, inv18
 from .so3 import exp_so3, skew
-from .state import DIM_STATE, State
+from .state import DIM_STATE, State, boxplus
 
 _R_JITTER = 1e-4  # the reference adds this to the N == 1 innovation (eskf.cc:100)
 _IDX_BA, _IDX_IMU_A = 9, 18  # error-state offsets of (ba, bw) and (imu_a, imu_w)
@@ -78,11 +78,6 @@ def imu_innovation(
     za = gravity_over_acc_norm * acc - state.imu_a - state.ba
     zg = gyr - state.imu_w - state.bw
     return torch.cat([za, zg], dim=-1)
-
-
-def boxplus(state: State, dx: torch.Tensor) -> State:
-    """rot <- rot Exp(dx[0:3]); lin += dx[3:] (State::operator+=, eskf.cc:18-29)."""
-    return State(rot=state.rot @ exp_so3(dx[..., 0:3]), lin=state.lin + dx[..., 3:DIM_STATE])
 
 
 def _eye(n: int, like: torch.Tensor) -> torch.Tensor:

@@ -278,6 +278,16 @@ def point_features(p_i: torch.Tensor, normal: torch.Tensor, center: torch.Tensor
     return torch.cat([mt, normal, v, d], dim=-1)
 
 
+def point_suffstats(p_i, normal, center, r, matched) -> torch.Tensor:
+    """Per-bucket S = sum_n w X X^T in the dense [..., NB, P] layout (the
+    JAX module's one batched contraction): points [..., NB, P, 3], normals
+    and centres likewise, variances and validity [..., NB, P] ->
+    [..., NB, 40, 40]."""
+    w = matched.to(p_i.dtype) / (r + _R_JITTER)
+    x = point_features(p_i, normal, center)
+    return torch.einsum("...pi,...pj->...ij", x * w[..., None], x)
+
+
 def point_suffstats_compact(p_i, normal, center, r, matched, bidx, nb: int) -> torch.Tensor:
     """Per-bucket S = sum w X X^T over compacted rows, summed in row order
     on every device (core/ordered_sum.py); rows whose bucket index is out

@@ -478,3 +478,11 @@ def to_device_packet(pkt: HostPacket, device):
         foot_vel=t(pkt.foot_vel),
         contact=t(pkt.contact),
     )
+
+
+def first_packet_imu_stats(events: Sequence) -> Tuple[np.ndarray, np.ndarray]:
+    """Mean acc and gyr over the first packet's events (StateInitial,
+    state_initial.hpp:34-72)."""
+    accs = np.stack([e.acc for e in events])
+    gyrs = np.stack([e.gyr for e in events])
+    return accs.mean(axis=0), gyrs.mean(axis=0)

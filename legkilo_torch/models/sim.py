@@ -1,9 +1,10 @@
 """Synthetic legged-robot world simulator (golden-sequence test + bench data).
 
-The port's own copy of ``legkilo_tpu/models/sim.py`` (numpy only) with
-the box world the port's sim command and chip_smoke use: the same seed gives
-the same scans and events in both packages.  (The JAX module's corridor,
-floor and cluttered worlds serve its robustness tests.)
+The port's own copy of ``legkilo_tpu/models/sim.py`` (numpy only): the box
+world the port's sim command and chip_smoke use, and the corridor, floor
+and cluttered worlds of the robustness tests (the last with bounded facets
+that refuse a plane fit); the same world and seed give the same scans and
+events in both packages.
 
 The reference has no tests; its validation is dataset replay (SURVEY.md §4).
 For hermetic tests and benchmarking we generate a synthetic box world
@@ -45,6 +46,106 @@ def box_world(half_x=6.0, half_y=5.0, height=3.0) -> List[Plane]:
         Plane(np.array([0.0, half_y, 0.0]), -e[1]),
         Plane(np.array([0.0, -half_y, 0.0]), e[1]),
     ]
+
+
+def corridor_world(half_y=2.0, height=2.5, half_x=1e4) -> List[Plane]:
+    """A long corridor along +x: floor, ceiling, 2 side walls; end caps
+    pushed beyond sensor range.  Geometrically degenerate along x — every
+    visible plane normal is ⊥ x̂, so forward translation is unobservable
+    from LiDAR alone and must come from IMU/leg-kinematic fusion (the
+    regime the reference's contact-velocity update, KILO.cc:260-314, is
+    built for)."""
+    e = np.eye(3)
+    return [
+        Plane(np.array([0.0, 0.0, 0.0]), e[2]),
+        Plane(np.array([0.0, 0.0, height]), -e[2]),
+        Plane(np.array([0.0, half_y, 0.0]), -e[1]),
+        Plane(np.array([0.0, -half_y, 0.0]), e[1]),
+        Plane(np.array([half_x, 0.0, 0.0]), -e[0]),
+        Plane(np.array([-half_x, 0.0, 0.0]), e[0]),
+    ]
+
+
+def floor_world() -> List[Plane]:
+    """A single dominant plane (open field): only z / roll / pitch are
+    LiDAR-observable — the hardest degenerate stretch."""
+    return [Plane(np.array([0.0, 0.0, 0.0]), np.array([0.0, 0.0, 1.0]))]
+
+
+@dataclasses.dataclass
+class Facet:
+    """A bounded plane patch (disc): rays hit it only within ``radius`` of
+    ``center``, from either side.  Dense differently-oriented facets inside
+    one voxel are geometry that genuinely refuses a plane fit — the
+    is-plane=false regime (init_plane eigen gate + cut_octo_tree descent,
+    voxel_map.cc:42-183) that infinite-plane worlds can never exercise."""
+
+    center: np.ndarray  # [3]
+    normal: np.ndarray  # [3] unit
+    radius: float
+
+
+def cluttered_world(
+    seed: int = 0,
+    half_x: float = 6.0,
+    half_y: float = 5.0,
+    height: float = 3.0,
+    rubble: bool = True,
+    rubble_grid: float = 0.6,
+    rubble_h: float = 0.65,
+    n_clusters: int = 40,
+    facets_per_cluster: int = 6,
+    walls: bool = True,
+) -> List:
+    """A world with genuine non-planar structure: rubble terrain (the floor
+    is overlapping horizontal discs at random stepped heights — voxels
+    straddling a step hold two height levels and fail the plane eigen-gate)
+    plus vegetation-like clusters of crossing discs.
+
+    Purpose: stress the is-plane=false regime (init_plane eigen gate +
+    cut_octo_tree level descent, voxel_map.cc:42-183) with geometry that
+    LEGITIMATELY refuses a plane fit — infinite-plane worlds can never
+    produce one.  Calibration notes (measured at the reference's own
+    0.5 m / 0.01 gate): an isolated disc is locally planar; even two
+    perfectly crossing planes inside a 0.5 m voxel only reach
+    lam_min ~ 0.005, so sparse scatter produces almost no non-planar
+    voxels — stepped rubble with ~0.6 m height jumps is what reliably
+    crosses the gate (~25 L0 descent sites on a 4 s run), with the
+    cluster scatter adding a few more."""
+    rng = np.random.default_rng(seed)
+    e = np.eye(3)
+    world: List = []
+    if walls:
+        world += [
+            Plane(np.array([half_x, 0.0, 0.0]), -e[0]),
+            Plane(np.array([-half_x, 0.0, 0.0]), e[0]),
+            Plane(np.array([0.0, half_y, 0.0]), -e[1]),
+            Plane(np.array([0.0, -half_y, 0.0]), e[1]),
+            Plane(np.array([0.0, 0.0, height]), -e[2]),
+        ]
+    # bedrock below the rubble so downward rays always terminate
+    world.append(Plane(np.array([0.0, 0.0, 0.0]), e[2].copy()))
+    if rubble:
+        for gx in np.arange(-half_x + 0.3, half_x - 0.3, rubble_grid):
+            for gy in np.arange(-half_y + 0.3, half_y - 0.3, rubble_grid):
+                c = np.array([
+                    gx + rng.uniform(-0.1, 0.1),
+                    gy + rng.uniform(-0.1, 0.1),
+                    rng.uniform(0.05, rubble_h),
+                ])
+                world.append(Facet(c, e[2].copy(), 0.5))
+    for _ in range(n_clusters):
+        c0 = np.array([
+            rng.uniform(-half_x + 0.5, half_x - 0.5),
+            rng.uniform(-half_y + 0.5, half_y - 0.5),
+            rng.uniform(rubble_h + 0.2, height - 0.3),
+        ])
+        for _ in range(facets_per_cluster):
+            c = c0 + rng.normal(scale=0.25, size=3)
+            n = rng.normal(size=3)
+            n /= np.linalg.norm(n)
+            world.append(Facet(c, n, float(rng.uniform(0.15, 0.4))))
+    return world
 
 
 @dataclasses.dataclass
@@ -199,18 +300,36 @@ class SimData:
         return rot, pos
 
 
-def _raycast(origin: np.ndarray, dirs: np.ndarray, world: List[Plane], max_range: float):
-    """First-hit distances of rays against the world's planes (front faces).
+def _raycast(origin: np.ndarray, dirs: np.ndarray, world: List, max_range: float):
+    """First-hit distances of rays against planes and facet discs.
     Returns (t [N], hit [N])."""
-    best = np.full(len(dirs), max_range)
+    n = len(dirs)
+    best = np.full(n, max_range)
     for pl in world:
+        if not isinstance(pl, Plane):
+            continue
         denom = dirs @ pl.normal
         num = (pl.point - origin) @ pl.normal
         with np.errstate(divide="ignore", invalid="ignore"):
             t = num / denom
         valid = (denom < -1e-9) & (t > 0.1)  # hit front face only
         best = np.where(valid & (t < best), t, best)
-    return best, best < max_range
+    facets = [f for f in world if isinstance(f, Facet)]
+    if facets:
+        fn = np.stack([f.normal for f in facets])          # [F, 3]
+        fc = np.stack([f.center for f in facets])          # [F, 3]
+        fr = np.array([f.radius for f in facets])          # [F]
+        denom = dirs @ fn.T                                 # [N, F]
+        num = np.einsum("fj,fj->f", fc - origin, fn)        # [F]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            t = num[None, :] / denom                        # [N, F]
+        hitp = origin + t[..., None] * dirs[:, None, :]     # [N, F, 3]
+        d2 = ((hitp - fc[None, :, :]) ** 2).sum(-1)         # [N, F]
+        valid = (np.abs(denom) > 1e-9) & (t > 0.1) & (d2 <= fr[None, :] ** 2)
+        t = np.where(valid, t, max_range)
+        best = np.minimum(best, t.min(axis=1))
+    hit = best < max_range
+    return best, hit
 
 
 def simulate(

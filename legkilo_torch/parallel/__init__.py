@@ -1,1 +1,2 @@
-"""The fleet: B filter replicas stepped together (parallel/sweep.py)."""
+"""The fleet: B filter replicas stepped together (parallel/sweep.py), sharded
+over ranks, one process a card (multihost.py, mesh.py, scaling.py)."""

@@ -1,5 +1,5 @@
-"""Monte-Carlo fleet replay: B filter replicas on one card (port of
-legkilo_tpu/parallel/sweep.py, without the device mesh).
+"""Monte-Carlo fleet replay: B filter replicas, sharded over ranks (port of
+legkilo_tpu/parallel/sweep.py).
 
 A replica is one full filter instance (state, covariance, its own voxel
 map).  The fleet carry is ``FilterCarry`` with a leading replica axis on
@@ -11,8 +11,12 @@ core/filter_fleet.py's ``process_scan_fleet``: on the five-kernel
 configuration one launch of each kernel serves every replica; any other
 configuration runs the replicas one after another.
 
-The JAX module's ``mesh`` arguments (replicas sharded over devices and
-hosts) are not here: the port's fleet runs on one device.
+With a ``mesh`` (parallel/mesh.py: one rank a card), each rank steps its
+own shard of the replicas, ``mesh.size()`` shards of B/n, and the
+``FleetStats`` reduce over the whole fleet: every rank gathers the
+replicas' poses and match counts in rank order (``gather_rows``) and runs
+the same reduction on the same [B, ...] tensors, so each rank holds the
+statistics of a one-process fleet of B, bit for bit.
 """
 
 from __future__ import annotations
@@ -37,10 +41,11 @@ from ..core.filter_fleet import (
     stack_replicas,
     tree_map,
 )
+from .mesh import gather_rows
 
 
 class FleetStats(NamedTuple):
-    """Per-step fleet statistics (reduced across replicas)."""
+    """Per-step fleet statistics (reduced across replicas and ranks)."""
 
     mean_pos: torch.Tensor      # [3]
     pos_spread: torch.Tensor    # [] max deviation from the mean
@@ -48,7 +53,11 @@ class FleetStats(NamedTuple):
     min_matched: torch.Tensor   # []
 
 
-def _stats(pos, n_matched) -> FleetStats:
+def _stats(pos, n_matched, mesh=None) -> FleetStats:
+    """The statistics of the whole fleet: this rank's [b, 3] poses and [b]
+    match counts gathered over the mesh into [B, ...] first."""
+    if mesh is not None:
+        pos, n_matched = gather_rows(mesh, [pos, n_matched])
     mean = pos.mean(dim=0)
     return FleetStats(
         mean_pos=mean,
@@ -67,27 +76,30 @@ def batched_carry(scfg: StaticConfig, batch: int, device="cuda") -> FilterCarry:
     return _broadcast(init_carry(scfg, torch.device(device)), batch)
 
 
-def make_fleet_step(scfg: StaticConfig, with_stats: bool = True):
+def make_fleet_step(scfg: StaticConfig, mesh=None, with_stats: bool = True):
     """The fleet step ``(carry [B,...], packet [B,...], params [B,...]) ->
     (carry, out, stats)``; ``params`` is batched too, so noise-parameter
-    sweeps need nothing more."""
+    sweeps need nothing more.  With a ``mesh`` the tensors are this rank's
+    shard ([B/n, ...], ``shard_batch``) and the stats the whole
+    fleet's."""
 
     def step(carry, packet, params):
         carry, out = process_scan_fleet(carry, packet, params, scfg)
-        return carry, out, (_stats(out.pos, out.n_matched) if with_stats else None)
+        return carry, out, (_stats(out.pos, out.n_matched, mesh) if with_stats else None)
 
     return step
 
 
-def make_fleet_chunk_step(scfg: StaticConfig, with_stats: bool = True):
+def make_fleet_chunk_step(scfg: StaticConfig, mesh=None, with_stats: bool = True):
     """The chunked fleet step: every replica advances K scans a call,
     ``(carry [B,...], packets [B,K,...], params [B,...]) -> (carry, outs
     [B,K,...], stats)``, equal to K calls of the per-scan step; stats
-    reduce over the replicas' last scan of the chunk."""
+    reduce over the replicas' last scan of the chunk (over the whole fleet
+    with a ``mesh``, as ``make_fleet_step``)."""
 
     def step(carry, packets, params):
         carry, outs = process_scan_chunk_fleet(carry, packets, params, scfg)
-        stats = _stats(outs.pos[:, -1], outs.n_matched[:, -1]) if with_stats else None
+        stats = _stats(outs.pos[:, -1], outs.n_matched[:, -1], mesh) if with_stats else None
         return carry, outs, stats
 
     return step
@@ -155,7 +167,9 @@ def perturb_params(params: FilterParams, batch: int, scale: float = 0.0,
     """Batch params, with the process noise ``q_diag`` of each replica
     scaled by a log-normal factor exp(scale N(0, 1)) when ``scale`` > 0
     (parameter-sweep mode).  The factors come from a ``torch.Generator``
-    seeded with ``seed`` (not ``jax.random``'s bits)."""
+    seeded with ``seed`` (not ``jax.random``'s bits); every rank of a mesh
+    draws the whole fleet's and keeps its rows (``shard_batch``), so a
+    replica's factor does not depend on the number of ranks."""
     base = _broadcast(params, batch)
     if scale <= 0.0:
         return base
