@@ -67,11 +67,11 @@ Phases, each printing its own lines:
    trajectories and every final map table must be equal bit for bit);
    configs/leg_fusion.yaml as ``sim --config_file`` loads it (the fused
    path with every kernel switch off, leg kinematics, NB = 64, P = 128,
-   caps 4,096, three levels of 2^17 slots; 3 s, "leg_fusion"); bench.py's
+   caps 4,096, three levels of 2^17 slots; 2 s, "leg_fusion"); bench.py's
    configuration with the match kernels off, the match on its torch path
    feeding the chain, moments, pose and refit kernels (8 s, "mixed"); the
-   default Config(), the sequential pipeline (3 s, "seq"); and
-   configs/diter.yaml, sequential with leg kinematics (3 s, "seq_kin").
+   default Config(), the sequential pipeline (2 s, "seq"); and
+   configs/diter.yaml, sequential with leg kinematics (2 s, "seq_kin").
    leg_fusion, seq and seq_kin launch none of the kernels; mixed exactly
    its four.  The leg_fusion and seq runs each trace 2 of their scans
    after 2 (the card's activity only; "profile_leg_fusion",
@@ -102,8 +102,23 @@ Phases, each printing its own lines:
     profiler, peak MB a replica); B = 1, 8, 64 and 256 for 16 scans
     ("fleet_scale": launches a step at B = 64 within 10 % of B = 1's); and
     ``sweep --bags`` in this process over two 4 s bags ("fleet_bags": a TUM
-    file a bag, each under the bound).
-12. The multi-device layer (legkilo_torch/parallel/: a process a card,
+    file a bag, each under the bound).  The kernels phase also holds the
+    per-point chain (both branches) at B = 64 that way.
+12. The fleet on the configurations off the five kernels, each one batched
+    step for all its replicas: ``sweep --replicas 8 --duration 1`` in this
+    process on the JAX command's defaults (``Config()``, the sequential
+    pipeline), then its fleet of 8 on the bench sim ("fleet_seq");
+    configs/leg_fusion.yaml with leg kinematics, a fleet of 4
+    ("fleet_leg_fusion"); bench.py's configuration on the per-point path,
+    pose and refit kernels on, a fleet of 8 over 16 scans, then 3 steps
+    with the constant-velocity pose and ``return_cloud`` and 4 with leg
+    kinematics at B = 4 ("fleet_points": the per-point chain once a fleet
+    step).  Each prints device launches a fleet step at B = 1 and 8 (8
+    within 10 % of 1), replica-scans/s, host and device ms a fleet step,
+    peak MB a replica, and holds 2 replicas against their own single runs
+    over 2 (per-point: 3) scans at tests/test_torch_fleet_routes.py's
+    tolerances.
+13. The multi-device layer (legkilo_torch/parallel/: a process a card,
     torch.distributed): ``sweep --pallas --pipeline deferred --distinct 4
     --duration 4 --chunk 8`` with bench.py's configuration from a YAML
     file (the batched five-kernel route), --traj_out and --save_ckpt on two ranks
@@ -123,9 +138,9 @@ Phases, each printing its own lines:
 Each run sets every launch counter to 0 before and reads it after: the
 kernels of the path it drives must have launched, and the others must not.
 
-The last two lines are a JSON object with one entry per kernel (the six
+The last two lines are a JSON object with one entry per kernel (the eight
 fleet kernels at B = 64 as ``<name>_fleet64``, their launches from
-"fleet") and
+"fleet" and, for the per-point chain, from "fleet_points") and
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script exits
 non-zero and prints no result; so does a machine without CUDA, or a
 directory holding this script without the package.
@@ -155,7 +170,8 @@ BAG_DURATION_S = 8.0     # the Imu bag, cut to keep the phases within ~6.5 min
 MIXED_DURATION_S = 8.0   # the match off its kernels
 # The paths off every kernel launch ~10^5 small operations a scan (seconds
 # a scan on the card), so they run the fewest scans a run takes (30).
-SLOW_DURATION_S = 3.0    # leg_fusion.yaml, Config() sequential, diter.yaml
+SLOW_DURATION_S = 2.0    # leg_fusion.yaml, Config() sequential, diter.yaml: 20 scans
+SLOW_SCANS = int(SLOW_DURATION_S * 10)
 SLOW_WARM, SLOW_PROF = 2, 2  # their profiler windows: 2 scans after 2, inside the runs
 SLIDE_THRESH_M = 1.0     # the sim's path moves ~5 m in 8 s
 SLIDE_HALF_MAP = 20      # level-0 voxels (10 m) each side of the pose
@@ -1144,7 +1160,8 @@ def path_config(five=True, points=False):
 
 
 def run_workload(torch, data, tag: str, use_kin=False, five=True, chunk=0, latch=True,
-                 points=False, edit=None, slides=False, config=None, keep=False, window=None):
+                 points=False, edit=None, slides=False, config=None, keep=False, window=None,
+                 min_scans=30):
     """One run_offline over ``data`` on the card.  ``five`` off leaves the
     pose and refit kernels out (plain torch); ``points`` takes the per-point
     path; ``config()`` gives a configuration and the wrappers its path
@@ -1214,7 +1231,7 @@ def run_workload(torch, data, tag: str, use_kin=False, five=True, chunk=0, latch
     if keep:
         rec["poses"] = [(r.rot, r.pos) for r in results]
         rec["carry"] = runner.carry
-    if len(results) < 30:
+    if len(results) < min_scans:
         raise RuntimeError(f"{tag}: only {len(results)} scans")
     if slides and n_slides < 2:
         raise RuntimeError(f"{tag}: {n_slides} map slides, expected at least 2")
@@ -1587,13 +1604,16 @@ def _fit_tables_random(torch, dev, rng, m=600, budget=128):
 
 
 def _fleet_kernel_cases(torch, dev, rng, b, small=False):
-    """For each of the six kernels of the fleet path: (fleet args, the B
-    single-replica args, call(args), the B single outputs as the fleet's,
-    bytes and flops of one replica).  Every replica draws its own inputs
-    (fit: its own tables of 2,048 random planar patches, 1,024 refit
-    slots).  ``small``: the CPU tests' sizes (NB = 8, 256 match rows, 512
-    insert rows, maps of 3 x 2^11 slots, tables of 600 patches, 128 refit
-    slots)."""
+    """For each kernel with a replica axis (the six of the fused path, and
+    the per-point chain's two branches as ``chain_points`` and
+    ``chain_points_kin``): (fleet args, the B single-replica args,
+    call(args), the B single outputs as the fleet's, bytes and flops of one
+    replica).  Every replica draws its own inputs (fit: its own tables of
+    2,048 random planar patches, 1,024 refit slots; the per-point chain:
+    NB 28, P 256, the ``points`` shapes).  ``small``: the CPU tests' sizes
+    (NB = 8, 256 match rows, 512 insert rows, maps of 3 x 2^11 slots,
+    tables of 600 patches, 128 refit slots, P 128)."""
+    from legkilo_torch.ops import chain_points as cp
     from legkilo_torch.ops import chain_stats as cs
     from legkilo_torch.ops import insert_rows as ir
     from legkilo_torch.ops import match_geom as mg
@@ -1683,6 +1703,18 @@ def _fleet_kernel_cases(torch, dev, rng, b, small=False):
                                      fleet_fs]), singles,
         lambda a: pfr.fit_slots_call(*a), lambda outs: torch.cat(outs),
         fit_bytes(singles[0]), FIT_FLOPS_PER_SLOT * budget)
+
+    for name, use_kin in (("chain_points", False), ("chain_points_kin", True)):
+        singles = [chain_points_inputs(torch, dev, rng, use_kin, nb=nbs, p=128 if small else 256)
+                   for _ in range(b)]
+        nb, k = singles[0][7].shape
+        p = singles[0][14].shape[1]
+        cases[name] = (
+            _stack_args(torch, singles, ["stack"] * 19), singles,
+            lambda a, use_kin=use_kin: cp.chain_points_call(*a, use_kin=use_kin),
+            lambda outs: tuple(torch.stack(xs) for xs in zip(*outs)),
+            nbytes(list(singles[0])) + 4 * (nb * (9 + 3 + 9 + 9 + 1) + 9 + 27 + 900 + 2),
+            chain_points_flops(nb, k, p, use_kin))
     return cases
 
 
@@ -1694,12 +1726,12 @@ def _fleet_vs_plain(torch, name, got, ref, b):
         if not torch.equal(got, ref):
             raise RuntimeError(f"pose (B = {b}): not bit-equal to the plain version")
         return max_abs(got, ref)
-    if name == "chain_stats":
+    if name in ("chain_stats", "chain_points", "chain_points_kin"):
         tol = [1e-4, 1e-4, 1e-3, 1e-3, 0.0, 1e-4, 1e-4, 1e-3, 0.0]
         for i, (x, y, t) in enumerate(zip(got, ref, tol)):
             e = max(rel_err(x[r], y[r]) for r in range(b))
             if not e <= t:
-                raise RuntimeError(f"chain_stats (B = {b}): output {i} rel err {e:.3g} > {t}")
+                raise RuntimeError(f"{name} (B = {b}): output {i} rel err {e:.3g} > {t}")
         return max(max_abs(x, y) for x, y in zip(got, ref))
     if name == "keys":
         if not all(torch.equal(got[i], ref[i]) for i in (2, 3, 4)):
@@ -1719,9 +1751,10 @@ def _fleet_vs_plain(torch, name, got, ref, b):
 
 
 def phase_fleet_kernels(torch, dev):
-    """The six kernels of the fleet path at B = 64 distinct replicas: one
-    launch must be ``torch.equal`` to 64 launches at B = 1 and hold to its
-    plain version at the single launch's tolerances (select by
+    """The kernels with a replica axis (the fused path's six and the
+    per-point chain's two branches) at B = 64 distinct replicas: one launch
+    must be ``torch.equal`` to 64 launches at B = 1 and hold to its plain
+    version at the single launch's tolerances (select by
     ``select_check``); each is timed at B = 1, 8 and 64 beside its bound
     (B times one replica's bytes or flops).  Returns {name: record} for the
     kernels line (the B = 64 launch)."""
@@ -1741,8 +1774,7 @@ def phase_fleet_kernels(torch, dev):
         wants = want if isinstance(want, tuple) else (want,)
         if not all(torch.equal(x, y) for x, y in zip(outs, wants)):
             raise RuntimeError(f"{name}: the B = {bmax} launch differs from {bmax} launches at B = 1")
-        # The plain version of a fleet runs the replicas one after another
-        # (64 chain walks of ~0.2 s in eager torch): one call, timed.
+        # The plain version of a fleet: one call, timed.
         if name == "select":
             (out, s40, nm), (r_out, r_s40, r_nm), _ = select_check(torch, fargs, 3, bmax * 28)
             same = out[0] == r_out[0]  # rows whose gate did not flip, as phase_kernels
@@ -1782,6 +1814,7 @@ def timed_once(torch, fn):
 
 
 def call_plain(name, fargs, plain_fn=None):
+    from legkilo_torch.ops import chain_points as cp
     from legkilo_torch.ops import chain_stats as cs
     from legkilo_torch.ops import insert_rows as ir
     from legkilo_torch.ops import match_geom as mg
@@ -1791,6 +1824,8 @@ def call_plain(name, fargs, plain_fn=None):
         return pp.pose_plain(*fargs)
     if name == "chain_stats":
         return cs.chain_plain(*fargs, use_kin=False)
+    if name in ("chain_points", "chain_points_kin"):
+        return cp.chain_points_plain(*fargs, use_kin=name == "chain_points_kin")
     if name == "keys":
         return mg.keys_plain(*fargs, 3, 1 << 14)
     if name == "moments":
@@ -1803,7 +1838,7 @@ def cases_subset(torch, name, fargs, singles, bb):
     bmax = len(singles)
     if bb == bmax:
         return fargs
-    if name in ("pose", "chain_stats"):
+    if name in ("pose", "chain_stats", "chain_points", "chain_points_kin"):
         return [a[:bb] for a in fargs]
     if name == "keys":
         c = fargs[1].shape[1] // bmax
@@ -1837,19 +1872,20 @@ def fleet_config(latch=True):
     return cfg
 
 
-def fleet_start(torch, cfg, datas):
+def fleet_start(torch, cfg, datas, use_kin=False):
     """Each replica's first-frame initialisation (fleet_init) from its
-    data's first packet, as ``sweep --distinct`` does; returns (scfg, carry,
-    params, each replica's host packets after the first)."""
+    data's first packet, as ``sweep --distinct`` does (``use_kin``: with the
+    data's kinematic events); returns (scfg, carry, params, each replica's
+    host packets after the first)."""
     from legkilo_torch.cli import _packets_from_streams
     from legkilo_torch.io.dataset import decimate_blind
     from legkilo_torch.parallel.sweep import fleet_init
     from legkilo_torch.runner import make_params, make_static_config
 
-    scfg = make_static_config(cfg, use_kin=False)
+    scfg = make_static_config(cfg, use_kin=use_kin)
     seqs, clouds, accs, gyrs, offs = [], [], [], [], []
     for d in datas:
-        pk = _packets_from_streams(cfg, d.scans, d.imu, use_kin=False)
+        pk = _packets_from_streams(cfg, d.scans, d.kin if use_kin else d.imu, use_kin=use_kin)
         m = pk[0].imu_mask
         accs.append(pk[0].imu_acc[m].mean(axis=0))
         gyrs.append(pk[0].imu_gyr[m].mean(axis=0))
@@ -2100,6 +2136,339 @@ def phase_fleet_bags(torch, data):
     if any(counts[k] != want[k] for k in FUSED_KERNELS) or counts["chain_points"]:
         raise RuntimeError(f"fleet_bags: launches {counts}, expected {want}")
     return rec
+
+
+# ---------------------------------------------------------- fleet routes --
+#
+# The fleet on the configurations off the five kernels: the sequential
+# pipeline, the fused path with every switch off, the per-point path.  Each
+# is one batched step for all B replicas (core/filter_fleet.py), so its
+# launches a fleet step do not grow with B.
+
+ROUTE_B = 8                  # fleet_seq, fleet_points
+ROUTE_LEG_FUSION_B = 4
+ROUTE_LAUNCH_BS = (1, 8)     # launches a fleet step, each one profiled step
+ROUTE_COMPARE_REPLICAS = 2   # replicas held against their single runs
+ROUTE_SLOW_SCANS = 2         # the slow routes' fleet steps (and compared scans)
+ROUTE_POINTS_SCANS = 16
+ROUTE_POINTS_COMPARE = 3
+ROUTE_POINTS_EXTRA = 3       # const-vel pose and return_cloud
+ROUTE_POINTS_KIN_B = 4
+# Replicas against their single runs on the card.  A batched cuBLAS product
+# of small matrices rounds apart from the same product at another batch
+# count (tools/batch_invariance_probe.py), and the plain phases are made of
+# such products: a fleet's replica and its single run drift apart by
+# rounding, and now and then a point within that spread of a gate or a
+# voxel boundary matches or lands apart.  Measured by these phases on an
+# NVIDIA H100 80GB HBM3 at 700 W: pos 2.4e-7 / 4.1e-6 / 1.1e-5 m after 2
+# scans of fleet_seq, 2 of fleet_leg_fusion and 3 of the per-point
+# const-vel run; imu_w up to 3.2e-4 and covariance entries 1.4e-4 (the
+# largest 0.24) after one flipped match in ~1,700; a world cloud 7.3e-5 m.
+# The bounds below are about ten times those spreads.  The CPU tests
+# (tests/test_torch_fleet_routes.py) hold the same routes bit for bit or
+# at pos 1e-5 / covariance 1e-6.
+ROUTE_POS_ATOL = 1e-4        # pos, rot
+ROUTE_CLOUD_ATOL = 1e-3      # world clouds (m; points up to ~20 m out)
+ROUTE_LIN_ATOL = 3e-3        # the state's other blocks
+ROUTE_COV_ATOL = 1e-5        # covariance: ATOL + RTOL x its largest entry
+ROUTE_COV_RTOL = 5e-3
+ROUTE_SLOT_FRAC = 1e-3       # occupied map slots whose key, occupancy or count may differ
+ROUTE_MATCH_FRAC = 1e-3      # matched points a scan
+LIN_BLOCKS = ("pos", "vel", "ba", "bw", "grav", "imu_a", "imu_w", "bv", "contact")
+
+
+def points_fleet_config():
+    """bench.py's configuration on the per-point path (chain_impl "jax",
+    pose and refit kernels on)."""
+    return path_config(points=True)
+
+
+ROUTES = {  # phase: (configuration, leg kinematics)
+    "fleet_seq": (seq_config, False),
+    "fleet_leg_fusion": (leg_fusion_config, True),
+    "fleet_points": (points_fleet_config, False),
+}
+
+
+def route_fleet(torch, cfg, data, b, use_kin):
+    """The filter initialised from ``data``'s first packet (``fleet_init``),
+    copied to ``b`` replicas, q_diag jittered by FLEET_NOISE: (scfg, carry,
+    params, the [b, ...] packets after the first, on the card)."""
+    from legkilo_torch.core.filter_fleet import replica, tree_map
+    from legkilo_torch.io.dataset import to_device_packet
+    from legkilo_torch.parallel.sweep import broadcast_packets, perturb_params
+
+    scfg, one, params1, seqs = fleet_start(torch, cfg, [data], use_kin=use_kin)
+    carry = tree_map(lambda x: x.expand((b,) + tuple(x.shape[1:])).clone(), one)
+    params = perturb_params(replica(params1, 0), b, scale=FLEET_NOISE, seed=0)
+    steps = [broadcast_packets(to_device_packet(p, "cuda"), b) for p in seqs[0]]
+    return scfg, carry, params, steps
+
+
+def profiled_step(torch, scfg, carry, packet, params):
+    """One fleet step under torch.profiler (the card's activity): (carry,
+    out, device launches, device ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from legkilo_torch.parallel.sweep import make_fleet_step
+
+    step = make_fleet_step(scfg, with_stats=False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        carry, out, _ = step(carry, packet, params)
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    return carry, out, sum(r[2] for r in rows), sum(r[0] for r in rows) / 1e3
+
+
+def route_launches(torch, phase, data=None):
+    """Device launches of one fleet step of the route ``phase`` at each B
+    of ROUTE_LAUNCH_BS (the first step after the first-frame map, on
+    ``data``, 0.4 s of the bench sim by default): {B: launches}."""
+    from legkilo_torch.core.filter_fleet import tree_map
+
+    config, use_kin = ROUTES[phase]
+    cfg, _ = config()
+    cfg.only_imu_use = not use_kin
+    data = data if data is not None else simulate(0.4, phase)
+    scfg, carry, params, steps = route_fleet(torch, cfg, data, max(ROUTE_LAUNCH_BS), use_kin)
+    out = {}
+    for bb in ROUTE_LAUNCH_BS:
+        sub = [tree_map(lambda x: x[:bb].contiguous(), t) for t in (carry, steps[0], params)]
+        out[bb] = profiled_step(torch, scfg, *sub)[2]
+    return out
+
+
+def route_compare(torch, scfg, carry0, params, steps, outs, carry_at, n_rep, n_scans):
+    """Replicas 0 ... n_rep - 1 of a fleet against their own single runs over
+    ``n_scans`` scans (the ROUTE_* tolerances above): n_points,
+    n_cap_dropped, map_overflow and the clocks equal; n_matched within
+    ROUTE_MATCH_FRAC; the maps' keys, occupancy and slot counts equal but
+    for ROUTE_SLOT_FRAC of the occupied slots; pos and rot within
+    ROUTE_POS_ATOL, clouds within ROUTE_CLOUD_ATOL, the state's other
+    blocks within ROUTE_LIN_ATOL, the covariance within ROUTE_COV_ATOL +
+    ROUTE_COV_RTOL x its largest entry.  ``carry_at`` is the fleet's carry
+    after ``n_scans`` steps.  Logs every field's largest difference;
+    returns (max |dpos| m, whether every tensor was bit-equal)."""
+    from legkilo_torch.core.filter import process_scan_any
+    from legkilo_torch.core.filter_fleet import replica
+
+    def leaves(tree, prefix=""):
+        if tree is None:
+            return []
+        if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+            return [kv for f, x in zip(tree._fields, tree) for kv in leaves(x, prefix + f + ".")]
+        return [(prefix[:-1], tree)]
+
+    bit_equal, errs, bad = True, {}, []
+
+    def note(key, value):
+        errs[key] = max(errs.get(key, 0), value)
+
+    for r in range(n_rep):
+        c = replica(carry0, r)
+        pairs = []
+        for k in range(n_scans):
+            c, o = process_scan_any(c, replica(steps[k], r), replica(params, r), scfg)
+            pairs.append((o, replica(outs[k], r)))
+        pairs.append((c, replica(carry_at, r)))
+        for single, fleet in pairs:
+            for (name, y), (_, x) in zip(leaves(single), leaves(fleet)):
+                bit_equal &= bool(torch.equal(x, y))
+                if name in ("vm.ptab", "vm.meta"):
+                    occupied = int((y[..., 3] > 0).sum()) if name == "vm.ptab" else None
+                    nd = int(((x[..., 0:4] != y[..., 0:4]).any(-1) if name == "vm.ptab"
+                              else x[..., 0] != y[..., 0]).sum())
+                    note(f"{name}_slots_differing", nd)
+                    if occupied is not None:
+                        errs["occupied_slots"] = occupied
+                    ok = nd <= ROUTE_SLOT_FRAC * errs["occupied_slots"]
+                elif name in ("vm.mom", "vm.moms", "vm.plane"):
+                    ok = True
+                elif name == "n_matched":
+                    d = int((x.long() - y.long()).abs().max())
+                    note(name, d)
+                    ok = d <= ROUTE_MATCH_FRAC * int(y.max())
+                elif not x.is_floating_point() or name.endswith("_t"):
+                    ok = torch.equal(x, y)
+                elif name == "state.lin":
+                    ok = True
+                    for i, blk in enumerate(LIN_BLOCKS):
+                        e = float((x - y)[..., 3 * i:3 * i + 3].abs().max())
+                        note(f"lin.{blk}", e)
+                        ok &= e <= (ROUTE_POS_ATOL if blk == "pos" else ROUTE_LIN_ATOL)
+                elif name == "cov":
+                    e, scale = float((x - y).abs().max()), float(y.abs().max())
+                    note(name, e)
+                    note("cov_largest_entry", scale)
+                    ok = e <= ROUTE_COV_ATOL + ROUTE_COV_RTOL * scale
+                else:
+                    e = float((x - y).abs().max())
+                    note(name, e)
+                    ok = e <= (ROUTE_CLOUD_ATOL if name == "cloud_world" else ROUTE_POS_ATOL)
+                if not ok:
+                    bad.append(name)
+    log(f"[route_compare] {n_rep} replicas x {n_scans} scans against their single runs, largest "
+        f"differences: " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    if bad:
+        raise RuntimeError(f"{sorted(set(bad))} differ from the single runs beyond the tolerances")
+    return errs.get("pos", 0.0), bit_equal
+
+
+def run_route(torch, tag, cfg, data, use_kin, b, n_steps, n_compare, on_path):
+    """One route's fleet on the card: launches a fleet step at B = 1 and 8
+    (one profiled step each; 8 within 10 % of 1), the fleet of ``b`` over
+    ``n_steps`` steps (its first step profiled: device ms; the rest timed:
+    host ms a fleet step, replica-scans/s; peak MB a replica), the kernel
+    counters of those steps, and ROUTE_COMPARE_REPLICAS replicas against
+    their own single runs over ``n_compare`` scans."""
+    from legkilo_torch.core.filter_fleet import tree_map
+    from legkilo_torch.parallel.sweep import make_fleet_step
+
+    t_phase = time.perf_counter()
+    cfg.only_imu_use = not use_kin
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    scfg, carry0, params, steps = route_fleet(torch, cfg, data, max(b, *ROUTE_LAUNCH_BS), use_kin)
+    steps = steps[:n_steps]
+    if len(steps) < max(n_steps, n_compare, 2):
+        raise RuntimeError(f"{tag}: {len(steps)} packets")
+    launches, dev_ms = {}, {}
+    for bb in ROUTE_LAUNCH_BS:
+        sub = [tree_map(lambda x: x[:bb].contiguous(), t) for t in (carry0, steps[0], params)]
+        _, _, launches[bb], dev_ms[bb] = profiled_step(torch, scfg, *sub)
+    carry0, params = (tree_map(lambda x: x[:b].contiguous(), t) for t in (carry0, params))
+    steps = [tree_map(lambda x: x[:b].contiguous(), s) for s in steps]
+    reset_counters()
+    carry, out, _, device_ms = profiled_step(torch, scfg, carry0, steps[0], params)
+    outs, carry_at = [out], carry
+    step = make_fleet_step(scfg, with_stats=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k, dev in enumerate(steps[1:], start=1):
+        carry, out, _ = step(carry, dev, params)
+        outs.append(out)
+        if k < n_compare:
+            carry_at = carry
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counters()
+    peak = torch.cuda.max_memory_allocated() - mem0
+    n_timed = len(steps) - 1
+    pos = torch.stack([o.pos for o in outs]).cpu().numpy()
+    worst, bit_equal = route_compare(torch, scfg, carry0, params, steps, outs, carry_at,
+                                     ROUTE_COMPARE_REPLICAS, n_compare)
+    rec = dict(replicas=b, steps=len(steps),
+               launches_per_step={str(bb): n for bb, n in launches.items()},
+               device_ms_per_step={str(bb): ms for bb, ms in dev_ms.items()},
+               device_ms_fleet_step=device_ms,
+               ms_per_fleet_step=wall / n_timed * 1e3, replica_scans_per_s=b * n_timed / wall,
+               peak_mb_per_replica=peak / b / 2 ** 20, launches=counts,
+               compared=f"{ROUTE_COMPARE_REPLICAS} replicas x {n_compare} scans",
+               max_abs_pos_vs_single_m=worst, bit_equal_to_singles=bit_equal,
+               mean_matched=float(torch.stack([o.n_matched for o in outs]).float().mean()))
+    log(f"[{tag}] {json.dumps(rec)}")
+    log(f"[{tag}] B = {b}: {rec['replica_scans_per_s']:.2f} replica-scans/s, "
+        f"{rec['ms_per_fleet_step']:.3f} ms a fleet step (host wall, {n_timed} steps), device "
+        f"{device_ms:.3f} ms a fleet step (profiler), peak {rec['peak_mb_per_replica']:.2f} MB a "
+        f"replica; device launches a fleet step " + ", ".join(
+            f"B = {bb}: {n}" for bb, n in launches.items())
+        + f"; replicas vs single runs: max |dpos| {worst:.3g} m, bit-equal {bit_equal}; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    l1, l8 = launches[1], launches[8]
+    if not abs(l8 - l1) <= 0.1 * l1:
+        raise RuntimeError(f"{tag}: {l8} launches a fleet step at B = 8 against {l1} at B = 1")
+    if not np.isfinite(pos).all():
+        raise RuntimeError(f"{tag}: non-finite poses")
+    missing = sorted(k for k in on_path if counts[k] <= 0)
+    stray = sorted(k for k, v in counts.items() if v > 0 and k not in on_path)
+    if missing or stray:
+        raise RuntimeError(f"{tag}: kernels of the path never launched: {missing}; "
+                           f"kernels off the path launched: {stray}")
+    return rec
+
+
+def phase_fleet_seq(torch, data):
+    """The JAX ``sweep`` command's defaults: ``python -m legkilo_torch sweep
+    --replicas 8 --duration 1`` in this process (``Config()``, the
+    sequential pipeline), then the same configuration's fleet of 8 on the
+    bench sim (``run_route``); no kernel launches."""
+    from legkilo_torch import cli
+
+    t_phase = time.perf_counter()
+    reset_counters()
+    cli_rec = cli_json(cli, ["sweep", "--replicas", str(ROUTE_B), "--duration", "1"])
+    counts = read_counters()
+    log(f"[fleet_seq] sweep --replicas {ROUTE_B} --duration 1: {json.dumps(cli_rec)}; launches "
+        f"{json.dumps(counts)}; {time.perf_counter() - t_phase:.1f} s")
+    if cli_rec["replicas"] != ROUTE_B or not np.isfinite(cli_rec["final_spread_m"]) or any(
+            counts.values()):
+        raise RuntimeError(f"fleet_seq: sweep gave {cli_rec}, launches {counts}")
+    cfg, on_path = seq_config()
+    rec = run_route(torch, "fleet_seq", cfg, cut(data, 0.1 * (ROUTE_SLOW_SCANS + 2)), False,
+                    ROUTE_B, ROUTE_SLOW_SCANS, ROUTE_SLOW_SCANS, on_path)
+    rec["sweep"] = cli_rec
+    return rec
+
+
+def phase_fleet_leg_fusion(torch, data):
+    """configs/leg_fusion.yaml (the fused path with every kernel switch off,
+    leg kinematics) as a fleet of 4 (``run_route``); no kernel launches."""
+    cfg, on_path = leg_fusion_config()
+    return run_route(torch, "fleet_leg_fusion", cfg, cut(data, 0.1 * (ROUTE_SLOW_SCANS + 2)),
+                     True, ROUTE_LEG_FUSION_B, ROUTE_SLOW_SCANS, ROUTE_SLOW_SCANS, on_path)
+
+
+def phase_fleet_points(torch, data):
+    """bench.py's configuration on the per-point path, pose and refit
+    kernels on, as a fleet of 8 over 16 scans (``run_route``: the per-point
+    chain kernel once a fleet step, one match pass); then 3 steps of it with
+    the constant-velocity match pose and ``return_cloud`` (the cloud
+    [B, NB, P, 3] finite; one replica against its single run), and 4 steps
+    of it with leg kinematics at B = 4 (the chain's kin branch with its
+    replica axis).  Returns the two per-point records, whose counters give
+    ``chain_points_fleet64`` and ``chain_points_kin_fleet64`` their
+    launches."""
+    from legkilo_torch.parallel.sweep import make_fleet_step
+
+    t_phase = time.perf_counter()
+    cfg, on_path = points_fleet_config()
+    short = cut(data, 0.1 * (ROUTE_POINTS_SCANS + 2))
+    rec = run_route(torch, "fleet_points", cfg, short, False, ROUTE_B, ROUTE_POINTS_SCANS,
+                    ROUTE_POINTS_COMPARE, on_path)
+    if rec["launches"]["chain_points"] != ROUTE_POINTS_SCANS:
+        raise RuntimeError(f"fleet_points: {rec['launches']['chain_points']} per-point chain "
+                           f"launches in {ROUTE_POINTS_SCANS} fleet steps (one a match pass)")
+
+    cfg, _ = points_fleet_config()
+    cfg.tpu.match_pose = "const_vel"
+    scfg, carry0, params, steps = route_fleet(torch, cfg, short, ROUTE_B, False)
+    scfg = scfg._replace(return_cloud=True)
+    steps = steps[:ROUTE_POINTS_EXTRA]
+    reset_counters()
+    step = make_fleet_step(scfg, with_stats=False)
+    carry, outs = carry0, []
+    for dev in steps:
+        carry, out, _ = step(carry, dev, params)
+        outs.append(out)
+    counts = read_counters()
+    cloud = outs[-1].cloud_world
+    worst, bit_equal = route_compare(torch, scfg, carry0, params, steps, outs, carry, 1,
+                                     ROUTE_POINTS_EXTRA)
+    log(f"[fleet_points] const_vel + return_cloud, B = {ROUTE_B}, {len(steps)} steps: cloud "
+        f"{list(cloud.shape)}, launches {json.dumps(counts)}; replica 0 vs its single run: max "
+        f"|dpos| {worst:.3g} m, bit-equal {bit_equal}")
+    if (counts["chain_points"] != len(steps) or counts["pose"] or tuple(cloud.shape[:2]) !=
+            (ROUTE_B, steps[0].points.shape[1]) or not bool(torch.isfinite(cloud).all())):
+        raise RuntimeError(f"fleet_points: const_vel/return_cloud launches {counts}, cloud "
+                           f"{tuple(cloud.shape)}")
+
+    cfg, on_path = points_fleet_config()
+    kin_rec = run_route(torch, "fleet_points_kin", cfg, cut(data, 0.6), True, ROUTE_POINTS_KIN_B,
+                        4, 2, on_path)
+    log(f"[fleet_points] the phase took {time.perf_counter() - t_phase:.1f} s")
+    return rec, kin_rec
 
 
 MESH_DISTINCT = ["--distinct", "4", "--duration", "4", "--chunk", "8"]
@@ -2380,7 +2749,8 @@ def main(argv=None) -> int:
     ap.add_argument("--phases",
                     default="build,kernels,main,chunk,stream1,four,profile,kin,points,points_kin,"
                             "slide,points_chunk,ref2ms,repeat,leg_fusion,mixed,seq,seq_kin,"
-                            "bag,bag_kin,fleet_equal,fleet,fleet_scale,fleet_bags,mesh,scale,clutter")
+                            "bag,bag_kin,fleet_equal,fleet,fleet_scale,fleet_bags,fleet_seq,"
+                            "fleet_leg_fusion,fleet_points,mesh,scale,clutter")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -2404,9 +2774,10 @@ def main(argv=None) -> int:
     recs = phase_kernels(torch, dev) if "kernels" in phases else {}
     fleet_recs = phase_fleet_kernels(torch, dev) if "kernels" in phases else {}
     main_rec = kin_rec = points_rec = points_kin_rec = ref2ms_rec = fleet_rec = None
+    points_fleet_rec = points_kin_fleet_rec = None
     if phases & {"main", "chunk", "stream1", "four", "points", "slide", "points_chunk", "ref2ms",
                   "repeat", "leg_fusion", "mixed", "seq", "seq_kin", "bag", "fleet", "fleet_scale",
-                  "fleet_bags"}:
+                  "fleet_bags", "fleet_seq", "fleet_leg_fusion", "fleet_points"}:
         data = simulate(MAIN_DURATION_S, "main")
         if "main" in phases:
             main_rec = run_workload(torch, data, "main")
@@ -2434,15 +2805,18 @@ def main(argv=None) -> int:
             phase_repeat(torch, cut(data, REPEAT_DURATION_S))
         if "leg_fusion" in phases:
             run_workload(torch, cut(data, SLOW_DURATION_S), "leg_fusion", use_kin=True,
+                         min_scans=SLOW_SCANS,
                          config=leg_fusion_config,
                          window=("profile_leg_fusion", SLOW_WARM, SLOW_PROF))
         if "mixed" in phases:
             run_workload(torch, cut(data, MIXED_DURATION_S), "mixed", config=mixed_config)
         if "seq" in phases:
             run_workload(torch, cut(data, SLOW_DURATION_S), "seq", config=seq_config,
+                         min_scans=SLOW_SCANS,
                          window=("profile_seq", SLOW_WARM, SLOW_PROF))
         if "seq_kin" in phases:
             run_workload(torch, cut(data, SLOW_DURATION_S), "seq_kin", use_kin=True,
+                         min_scans=SLOW_SCANS,
                          config=seq_kin_config)
         if "bag" in phases:
             phase_bag(torch, cut(data, BAG_DURATION_S), "bag", use_kin=False, bound=ATE_BOUND_M,
@@ -2453,6 +2827,12 @@ def main(argv=None) -> int:
             phase_fleet_scale(torch, data)
         if "fleet_bags" in phases:
             phase_fleet_bags(torch, data)
+        if "fleet_seq" in phases:
+            phase_fleet_seq(torch, data)
+        if "fleet_leg_fusion" in phases:
+            phase_fleet_leg_fusion(torch, data)
+        if "fleet_points" in phases:
+            points_fleet_rec, points_kin_fleet_rec = phase_fleet_points(torch, data)
     if "fleet_equal" in phases:
         phase_fleet_equal(torch)
     if "mesh" in phases:
@@ -2505,9 +2885,15 @@ def main(argv=None) -> int:
         })
     for name, rec in fleet_recs.items():
         base = name[: -len(FLEET_SUFFIX)]
+        # The fused path's kernels count in "fleet", the per-point chain's
+        # branches in the per-point fleets of "fleet_points".
+        run, counter = {
+            "chain_points": (points_fleet_rec, "chain_points"),
+            "chain_points_kin": (points_kin_fleet_rec, "chain_points"),
+        }.get(base, (fleet_rec, base))
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[base], "replaces": REPLACES[base],
-            "launches": fleet_rec["launches"][base] if fleet_rec else 0,
+            "launches": run["launches"][counter] if run else 0,
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"], "library_ms": None,
         })

@@ -50,9 +50,11 @@ apply; ``--traj_out DIR`` writes a TUM file a replica, ``--save_ckpt`` /
 the JAX CLI's npz).  ``--chunk K`` advances the fleet K scans a call (in
 every mode here; the JAX command reads it with ``--distinct``/``--bags``
 only).  ``--pallas`` turns on all five kernel switches, in every mode (the
-JAX command reads it without ``--distinct``/``--bags`` only), which makes
-the fleet step one launch of each kernel for all replicas; other
-configurations step the replicas one after another.
+JAX command reads it without ``--distinct``/``--bags`` only).  On every
+configuration (either pipeline, any kernel switches, the per-point chain)
+a fleet step is one batched step for all B replicas, as the JAX command's
+``vmap``: it launches what one filter's step launches, whatever B is
+(with ``--pallas``, each kernel once a match pass).
 
 ``sweep`` and ``scale`` take the JAX command's multi-process flags,
 ``--coordinator HOST:PORT --num_processes N --process_id I``: one process a

@@ -74,8 +74,10 @@ def make_noise_params(eskf_cfg, device) -> NoiseParams:
 def imu_innovation(
     state: State, acc: torch.Tensor, gyr: torch.Tensor, gravity_over_acc_norm
 ) -> torch.Tensor:
-    """z = [(g/|a_mean|) acc - imu_a - ba ; gyr - imu_w - bw] (KILO.cc:248-249)."""
-    za = gravity_over_acc_norm * acc - state.imu_a - state.ba
+    """z = [(g/|a_mean|) acc - imu_a - ba ; gyr - imu_w - bw] (KILO.cc:248-249);
+    a fleet's ``gravity_over_acc_norm`` is [B]."""
+    g = torch.as_tensor(gravity_over_acc_norm, dtype=acc.dtype, device=acc.device)
+    za = g[..., None] * acc - state.imu_a - state.ba
     zg = gyr - state.imu_w - state.bw
     return torch.cat([za, zg], dim=-1)
 
@@ -231,7 +233,7 @@ def build_kin_obs(state: State, acc, gyr, foot_pos, foot_vel, contact, noise: No
         h[..., rows, 6:9] = eye3 * cmask[..., f, :, :]
         h[..., rows, 21:24] = h_w[..., f, :, :] * cmask[..., f, :, :]
         z[..., rows] = z_foot[..., f, :] * c[..., f, None]
-        r[..., rows] = torch.where(c[..., f, None] > 0, noise.kin_meas_noise.to(dtype), one)
+        r[..., rows] = torch.where(c[..., f, None] > 0, noise.kin_meas_noise.to(dtype)[..., None], one)
     mask = torch.cat(
         [torch.ones(batch + (6,), dtype=torch.bool, device=dev),
          contact.to(torch.bool).repeat_interleave(3, dim=-1)],
@@ -252,5 +254,8 @@ def update_by_kin_imu(state: State, cov: torch.Tensor, h: torch.Tensor, z: torch
     k = pht @ inv18(s)
     if gate is not None:
         k = k * gate[..., None, None]
-    dx = (k @ z[..., None])[..., 0]
+    # K z as products summed along each row: a [30, 18] matrix-vector
+    # product rounds differently on the CPU for one replica than for a
+    # fleet's batch of them; the row sums round alike at any batch size.
+    dx = (k * z[..., None, :]).sum(-1)
     return boxplus(state, dx), cov - k @ (h @ cov)

@@ -173,7 +173,7 @@ def predict(
         )
         return torch.cat([r0, r3, r6, Y[..., 9:, :]], dim=-2)
 
-    q_mat = _eye(DIM_STATE, cov) * q_diag
+    q_mat = _eye(DIM_STATE, cov) * q_diag[..., None, :]
     new_cov = rows(cols(cov)) + (dt_cov * dt_cov)[..., None, None] * q_mat
 
     dt_m = dt_mean[..., None]
@@ -218,7 +218,7 @@ def update_by_kin_imu(state, cov, h, z, r, gate=None) -> Tuple[State, torch.Tens
     k = umm(pht, inv18(s))
     if gate is not None:
         k = k * gate[..., None, None]
-    dx = umv(k, z)
+    dx = (k * z[..., None, :]).sum(-1)  # as core/eskf.update_by_kin_imu: any batch size rounds alike
     return boxplus(state, dx), cov - umm(k, umm(hb, _active_rows(cov)))
 
 
@@ -256,7 +256,7 @@ def build_kin_obs(state, acc, gyr, foot_pos, foot_vel, contact, noise, gravity_o
     r_imu = noise.imu_meas_r.expand(batch + (6,))
     r_feet = torch.where(
         c[..., :, None] > 0,
-        noise.kin_meas_noise.expand(batch + (4, 3)),
+        noise.kin_meas_noise[..., None, None].expand(batch + (4, 3)),
         rot.new_ones(batch + (4, 3)),
     ).reshape(batch + (12,))
     r = torch.cat([r_imu, r_feet], dim=-1)
@@ -312,7 +312,7 @@ def point_update_from_stats(state: State, cov: torch.Tensor, s40: torch.Tensor):
     rf = state.rot.reshape(batch + (9,))
     eye3 = _eye(3, cov)
     top = torch.cat(
-        [(eye3[:, None, :] * rf[..., :, None]).reshape(batch + (27, 3)),
+        [(eye3[:, None, :] * rf[..., None, :, None]).reshape(batch + (27, 3)),
          cov.new_zeros(batch + (27, 4))],
         dim=-1,
     )

@@ -191,36 +191,39 @@ def maybe_symmetrize_cov(carry: FilterCarry, scfg: StaticConfig) -> FilterCarry:
     return carry._replace(cov=0.5 * (carry.cov + carry.cov.transpose(-1, -2)))
 
 
+def _where(cond, a, b):
+    """torch.where with ``cond`` of a carry's leading dims ([] or a fleet's
+    [B]) against tensors with more trailing dims."""
+    return torch.where(cond.reshape(cond.shape + (1,) * (a.dim() - cond.dim())), a, b)
+
+
 def _slide_if_moved(carry: FilterCarry, scfg: StaticConfig) -> FilterCarry:
     """The map slide once the pose has moved ``sliding_thresh`` from the
     last slide.  Both maps are formed and one is selected on the card: no
     host read.  A fleet's carry slides each replica on its own trigger."""
     moved = torch.linalg.norm(carry.state.pos - carry.last_slide_pos, dim=-1)
     trigger = moved >= scfg.sliding_thresh
-
-    def pick(a, b):
-        return torch.where(trigger.reshape(trigger.shape + (1,) * (a.dim() - trigger.dim())), a, b)
-
     vm_slid = slide_map(carry.vm, scfg.map_cfg, carry.state.pos, scfg.half_map_size)
     return carry._replace(
-        vm=VoxelMap(*(pick(a, b) for a, b in zip(vm_slid, carry.vm))),
-        last_slide_pos=pick(carry.state.pos, carry.last_slide_pos),
+        vm=VoxelMap(*(_where(trigger, a, b) for a, b in zip(vm_slid, carry.vm))),
+        last_slide_pos=_where(trigger, carry.state.pos, carry.last_slide_pos),
     )
 
 
 def _point_vars(st: State, cov, params: FilterParams, scfg: StaticConfig, p_b):
     """World positions and propagated per-point covariance (KILO.cc:122-140):
-    (p_i, p_w, body_cov, crossmat, var)."""
-    p_i = p_b @ params.ext_r.T + params.ext_t
-    p_w = p_i @ st.rot.T + st.pos
+    (p_i, p_w, body_cov, crossmat, var); a fleet's p_b [B, N, 3] against
+    its replicas' states and params."""
+    p_i = p_b @ params.ext_r.transpose(-1, -2) + params.ext_t[..., None, :]
+    p_w = p_i @ st.rot.transpose(-1, -2) + st.pos[..., None, :]
     body_cov = calc_body_cov(p_b, scfg.dept_err, scfg.beam_err)
     crossmat = skew(p_i)
     rot_ext = st.rot @ params.ext_r
-    rot_cross = st.rot @ crossmat
+    rot_cross = st.rot[..., None, :, :] @ crossmat
     var = (
-        torch.einsum("ij,njk,lk->nil", rot_ext, body_cov, rot_ext)
-        + torch.einsum("nij,jk,nlk->nil", rot_cross, cov[0:3, 0:3], rot_cross)
-        + cov[3:6, 3:6]
+        torch.einsum("...ij,...njk,...lk->...nil", rot_ext, body_cov, rot_ext)
+        + torch.einsum("...nij,...jk,...nlk->...nil", rot_cross, cov[..., 0:3, 0:3], rot_cross)
+        + cov[..., None, 3:6, 3:6]
     )
     return p_i, p_w, body_cov, crossmat, var
 
@@ -228,7 +231,8 @@ def _point_vars(st: State, cov, params: FilterParams, scfg: StaticConfig, p_b):
 def _imu_kin_event(carry: FilterCarry, params: FilterParams, scfg: StaticConfig,
                    t, gate, acc, gyr, foot_pos, foot_vel, contact) -> FilterCarry:
     """One (possibly masked) IMU or kinematic event (predictUpdateImu /
-    predictUpdateKinImu, KILO.cc:235-314)."""
+    predictUpdateKinImu, KILO.cc:235-314); a fleet's with a leading B on
+    the carry, the params and the event."""
     st, cov = carry.state, carry.cov
     gatef = gate.to(cov.dtype)
     dt_cov = (t - carry.last_update_t) * gatef
@@ -252,7 +256,9 @@ def _point_bucket(carry: FilterCarry, params: FilterParams, scfg: StaticConfig, 
     """One (possibly masked) LiDAR time bucket (predictUpdatePoint,
     KILO.cc:108-233): predict, match at the predicted state, point update,
     world points and variances again at the updated state, insert.
-    Returns (carry, n_matched, n_processed, p_w_final [P,3])."""
+    Returns (carry, n_matched, n_processed, p_w_final [P,3]); a fleet's
+    (a leading B on the carry, params, bucket and points) updates each
+    replica on its own matches and inserts into its own map."""
     cfg = scfg.map_cfg
     gatef = gate.to(carry.cov.dtype)
     dt_cov = (t - carry.last_update_t) * gatef
@@ -260,47 +266,49 @@ def _point_bucket(carry: FilterCarry, params: FilterParams, scfg: StaticConfig, 
     st, cov = eskf.predict(carry.state, carry.cov, params.noise.q_diag, dt, dt_cov)
     last_predict_t = torch.where(gate, t, carry.last_predict_t)
 
-    pmask = pmask & gate
+    pmask = pmask & gate[..., None]
     p_i, p_w, body_cov, crossmat, var = _point_vars(st, cov, params, scfg, p_b)
     m = match_points(carry.vm, cfg, p_w, var, pmask)
 
     # Observation rows (KILO.cc:190-210).
     rt_n = m.normal @ st.rot                               # R^T n, row-vector form
-    cr_u = torch.einsum("nij,nj->ni", crossmat, rt_n)
+    cr_u = torch.einsum("...nij,...nj->...ni", crossmat, rt_n)
     h6 = torch.cat([cr_u, m.normal], dim=-1)
     z = -m.signed_dist
     j_nq = torch.cat([p_w - m.center, -m.normal], dim=-1)
-    single_l = torch.clamp(torch.einsum("ni,nij,nj->n", j_nq, m.plane_var, j_nq), min=0.0)
+    single_l = torch.clamp(torch.einsum("...ni,...nij,...nj->...n", j_nq, m.plane_var, j_nq), min=0.0)
     rot_ext = st.rot @ params.ext_r
-    var_bw = torch.einsum("ij,njk,lk->nil", rot_ext, body_cov, rot_ext)
-    r = params.noise.lidar_point_meas_ratio * (
-        single_l + torch.einsum("ni,nij,nj->n", m.normal, var_bw, m.normal)
+    var_bw = torch.einsum("...ij,...njk,...lk->...nil", rot_ext, body_cov, rot_ext)
+    r = params.noise.lidar_point_meas_ratio[..., None] * (
+        single_l + torch.einsum("...ni,...nij,...nj->...n", m.normal, var_bw, m.normal)
     )
 
     st2, cov2 = eskf.update_by_points(st, cov, h6, z, r, m.matched)
-    did_update = torch.any(m.matched)
-    st = State(*(torch.where(did_update, a, b) for a, b in zip(st2, st)))
-    cov = torch.where(did_update, cov2, cov)
+    did_update = torch.any(m.matched, dim=-1)             # a replica's own matches
+    st = State(*(_where(did_update, a, b) for a, b in zip(st2, st)))
+    cov = _where(did_update, cov2, cov)
     last_update_t = torch.where(gate & did_update, t, carry.last_update_t)
 
     # World points and variances at the updated state before the insert
     # (KILO.cc:216-231; only when an update happened).
     _, p_w2, _, _, var2 = _point_vars(st, cov, params, scfg, p_b)
-    p_w_final = torch.where(did_update, p_w2, p_w)
-    var_final = torch.where(did_update, var2, var)
+    p_w_final = _where(did_update, p_w2, p_w)
+    var_final = _where(did_update, var2, var)
     vm = insert_points(carry.vm, cfg, p_w_final, var_final, pmask)
 
     carry = carry._replace(state=st, cov=cov, last_predict_t=last_predict_t,
                            last_update_t=last_update_t, vm=vm)
-    return carry, m.matched.sum().to(torch.int32), pmask.sum().to(torch.int32), p_w_final
+    return (carry, m.matched.sum(-1).to(torch.int32), pmask.sum(-1).to(torch.int32), p_w_final)
 
 
 def process_scan(carry: FilterCarry, packet: ScanPacket, params: FilterParams,
                  scfg: StaticConfig) -> Tuple[FilterCarry, ScanOutput]:
     """One scan through the sequential pipeline: rebase the clocks, then per
     bucket its K event slots and the bucket itself, the map slide, the
-    covariance re-symmetrisation."""
-    nb, kmax = packet.imu_time.shape
+    covariance re-symmetrisation.  A fleet (a leading B on the carry,
+    packet and params; core/filter_fleet.py) steps every replica in the
+    same pass: bucket b of every replica, then bucket b + 1."""
+    nb, kmax = packet.imu_time.shape[-2:]
     ocnt0 = carry.vm.ocnt
     carry = carry._replace(
         last_predict_t=carry.last_predict_t - packet.rebase,
@@ -310,13 +318,14 @@ def process_scan(carry: FilterCarry, packet: ScanPacket, params: FilterParams,
     for b in range(nb):
         for k in range(kmax):
             carry = _imu_kin_event(
-                carry, params, scfg, packet.imu_time[b, k], packet.imu_mask[b, k],
-                packet.imu_acc[b, k], packet.imu_gyr[b, k], packet.foot_pos[b, k],
-                packet.foot_vel[b, k], packet.contact[b, k],
+                carry, params, scfg, packet.imu_time[..., b, k], packet.imu_mask[..., b, k],
+                packet.imu_acc[..., b, k, :], packet.imu_gyr[..., b, k, :],
+                packet.foot_pos[..., b, k, :, :], packet.foot_vel[..., b, k, :, :],
+                packet.contact[..., b, k, :],
             )
-        carry, nm, npr, p_w = _point_bucket(carry, params, scfg, packet.bucket_time[b],
-                                            packet.bucket_mask[b], packet.points[b],
-                                            packet.point_mask[b])
+        carry, nm, npr, p_w = _point_bucket(carry, params, scfg, packet.bucket_time[..., b],
+                                            packet.bucket_mask[..., b], packet.points[..., b, :, :],
+                                            packet.point_mask[..., b, :])
         n_matched.append(nm)
         n_proc.append(npr)
         clouds.append(p_w)
@@ -324,15 +333,15 @@ def process_scan(carry: FilterCarry, packet: ScanPacket, params: FilterParams,
     if scfg.map_sliding_en:
         carry = _slide_if_moved(carry, scfg)
     carry = maybe_symmetrize_cov(carry, scfg)
-    n_valid = (packet.point_mask & packet.bucket_mask[:, None]).sum().to(torch.int32)
+    n_valid = (packet.point_mask & packet.bucket_mask[..., None]).sum((-2, -1)).to(torch.int32)
     out = ScanOutput(
         rot=carry.state.rot,
         pos=carry.state.pos,
-        n_matched=torch.stack(n_matched).sum(),
-        n_points=packet.point_mask.sum().to(torch.int32),
-        n_cap_dropped=n_valid - torch.stack(n_proc).sum(),
+        n_matched=torch.stack(n_matched).sum(0),
+        n_points=packet.point_mask.sum((-2, -1)).to(torch.int32),
+        n_cap_dropped=n_valid - torch.stack(n_proc).sum(0),
         map_overflow=carry.vm.ocnt - ocnt0,
-        cloud_world=torch.stack(clouds) if scfg.return_cloud else None,
+        cloud_world=torch.stack(clouds, dim=-3) if scfg.return_cloud else None,
     )
     return carry, out
 
@@ -346,7 +355,7 @@ def process_scan_any(carry: FilterCarry, packet: ScanPacket, params: FilterParam
 
     if scfg.pipeline == "deferred":
         return process_scan_deferred(carry, packet, params, scfg)
-    check_supported(scfg, *packet.points.shape[0:2])
+    check_supported(scfg, *packet.points.shape[-3:-1])
     return process_scan(carry, packet, params, scfg)
 
 

@@ -51,6 +51,15 @@ the probe reuse belong to the fused path and are not read here;
 
 With ``return_cloud`` both paths return the scan's points in the world
 frame at the chain's post-update bucket poses, [NB, P, 3].
+
+Every phase of both paths takes an optional leading replica axis, so
+``process_scan_deferred`` steps a fleet (core/filter_fleet.py) on any
+switches: each kernel launches once a match pass for all the replicas,
+and each plain phase runs once on [B, ...] tensors, the maps viewed flat
+(core/voxel_map.py's module doc).  A replica's products take the shape
+its single run gives them (``_fold_mm``) where the single run's product
+is a matrix product with more than a few hundred multiply-adds; the
+chains' plain versions run a single replica as a fleet of one.
 """
 
 from __future__ import annotations
@@ -78,8 +87,8 @@ from .plane_fit import calc_body_cov
 from .eskf_fused import point_suffstats_compact
 from .so3 import exp_so3, skew
 from .voxel_map import (
-    VoxelMap,
     _gather_fill,
+    _unflat,
     compact_order,
     fleet_flat,
     gated_insert_rows,
@@ -95,6 +104,17 @@ F32 = torch.float32
 def _row_cap(scfg: StaticConfig, nb: int, p: int) -> int:
     cap = max(scfg.match_cap, scfg.insert_cap) or nb * p
     return min(cap, nb * p)
+
+
+def _fold_mm(x, m):
+    """x @ m for rows x [*lead, ..., k] and a replica's matrix m [*lead, k, j]
+    (lead () or a fleet's (B,)): a replica's rows fold into one [rows, k]
+    matrix, as an unbatched ``x @ m`` folds them, so each replica's product
+    is the one its single run takes, bit for bit."""
+    lead = tuple(m.shape[:-2])
+    if not lead:
+        return x @ m
+    return (x.reshape(lead + (-1, x.shape[-1])) @ m).reshape(tuple(x.shape[:-1]) + (m.shape[-1],))
 
 
 def check_supported(scfg: StaticConfig, nb: int, p: int) -> None:
@@ -115,55 +135,59 @@ def _predicted_bucket_poses_imu(carry: FilterCarry, packet: ScanPacket, params: 
     scan-start state through the event/bucket timeline, with the latched
     rates replaced by their innovation-free post-update values after each
     event (imu_w -> gyr - bw, imu_a -> (g/|a|) acc - ba).  Returns
-    (rot [NB,3,3], pos [NB,3])."""
+    (rot [NB,3,3], pos [NB,3]); a fleet's (a leading B on the carry, packet
+    and params) runs each replica's timeline along the last axis."""
     st0 = carry.state
     dtype, dev = carry.cov.dtype, carry.cov.device
-    nb, kmax = packet.imu_time.shape
-    t_all = torch.cat([packet.imu_time, packet.bucket_time[:, None]], dim=1).reshape(-1)
-    gate = torch.cat([packet.imu_mask, packet.bucket_mask[:, None]], dim=1).reshape(-1)
+    lead = tuple(packet.imu_time.shape[:-2])
+    nb, kmax = packet.imu_time.shape[-2:]
+    m = nb * (kmax + 1)
+    t_all = torch.cat([packet.imu_time, packet.bucket_time[..., None]], dim=-1).reshape(lead + (m,))
+    gate = torch.cat([packet.imu_mask, packet.bucket_mask[..., None]], dim=-1).reshape(lead + (m,))
     is_ev = torch.cat(
-        [packet.imu_mask, torch.zeros((nb, 1), dtype=torch.bool, device=dev)], dim=1
-    ).reshape(-1)
-    m = t_all.shape[0]
-    zpad = torch.zeros((nb, 1, 3), dtype=dtype, device=dev)
-    w_meas = torch.cat([packet.imu_gyr, zpad], dim=1).reshape(m, 3) - st0.bw
+        [packet.imu_mask, torch.zeros(lead + (nb, 1), dtype=torch.bool, device=dev)], dim=-1
+    ).reshape(lead + (m,))
+    zpad = torch.zeros(lead + (nb, 1, 3), dtype=dtype, device=dev)
+    w_meas = torch.cat([packet.imu_gyr, zpad], dim=-2).reshape(lead + (m, 3)) - st0.bw[..., None, :]
     a_meas = (
-        params.g_over_acc_norm * torch.cat([packet.imu_acc, zpad], dim=1).reshape(m, 3)
-        - st0.ba
+        params.g_over_acc_norm[..., None, None]
+        * torch.cat([packet.imu_acc, zpad], dim=-2).reshape(lead + (m, 3))
+        - st0.ba[..., None, :]
     )
 
     # Segment j runs on the rates of the last valid event strictly before j,
     # or on the carried latched rates before any event.
     idx = torch.where(is_ev, torch.arange(m, device=dev), -1)
-    last_ev = torch.cummax(idx, dim=0).values
-    prev_ev = torch.cat([last_ev.new_full((1,), -1), last_ev[:-1]])
-    has = (prev_ev >= 0)[:, None]
-    prev_c = torch.clamp(prev_ev, 0, m - 1)
-    w_seg = torch.where(has, w_meas[prev_c], st0.imu_w)
-    a_seg = torch.where(has, a_meas[prev_c], st0.imu_a)
+    last_ev = torch.cummax(idx, dim=-1).values
+    prev_ev = torch.cat([last_ev.new_full(lead + (1,), -1), last_ev[..., :-1]], dim=-1)
+    has = (prev_ev >= 0)[..., None]
+    prev_c = torch.clamp(prev_ev, 0, m - 1)[..., None].expand(lead + (m, 3))
+    w_seg = torch.where(has, torch.gather(w_meas, -2, prev_c), st0.imu_w[..., None, :])
+    a_seg = torch.where(has, torch.gather(a_meas, -2, prev_c), st0.imu_a[..., None, :])
 
     # dt replicates the chain's last-predict clock; masked slots are no-ops.
     lp = carry.last_predict_t.to(dtype)
     tv = torch.where(gate, t_all, torch.full_like(t_all, -float("inf")))
-    t_end = torch.maximum(torch.cummax(tv, dim=0).values, lp)
-    t_start = torch.cat([lp[None], t_end[:-1]])
+    t_end = torch.maximum(torch.cummax(tv, dim=-1).values, lp[..., None])
+    t_start = torch.cat([lp[..., None], t_end[..., :-1]], dim=-1)
     dt = torch.where(gate, t_all - t_start, torch.zeros_like(t_all))
 
     # Inclusive prefix product of the per-segment delta rotations
     # (Hillis-Steele: log2(M) batched 3x3 products).
-    prefix = exp_so3(w_seg * dt[:, None])
+    prefix = exp_so3(w_seg * dt[..., None])
     s = 1
     while s < m:
-        prefix = torch.cat([prefix[:s], prefix[:-s] @ prefix[s:]])
+        prefix = torch.cat([prefix[..., :s, :, :], prefix[..., :-s, :, :] @ prefix[..., s:, :, :]],
+                           dim=-3)
         s *= 2
-    r_end = st0.rot @ prefix
-    r_start = torch.cat([st0.rot[None], r_end[:-1]])
-    dv = dt[:, None] * ((r_start @ a_seg[:, :, None])[..., 0] + st0.grav)
-    v_end = st0.vel + torch.cumsum(dv, dim=0)
-    v_start = torch.cat([st0.vel[None], v_end[:-1]])
-    p_end = st0.pos + torch.cumsum(dt[:, None] * v_start, dim=0)
+    r_end = st0.rot[..., None, :, :] @ prefix
+    r_start = torch.cat([st0.rot[..., None, :, :], r_end[..., :-1, :, :]], dim=-3)
+    dv = dt[..., None] * ((r_start @ a_seg[..., None])[..., 0] + st0.grav[..., None, :])
+    v_end = st0.vel[..., None, :] + torch.cumsum(dv, dim=-2)
+    v_start = torch.cat([st0.vel[..., None, :], v_end[..., :-1, :]], dim=-2)
+    p_end = st0.pos[..., None, :] + torch.cumsum(dt[..., None] * v_start, dim=-2)
     sel = (torch.arange(nb, device=dev) + 1) * (kmax + 1) - 1
-    return r_end[sel], p_end[sel]
+    return r_end[..., sel, :, :], p_end[..., sel, :]
 
 
 def _predicted_bucket_poses_imu_kernel(carry: FilterCarry, packet: ScanPacket, params: FilterParams):
@@ -199,11 +223,12 @@ def _predicted_bucket_poses_imu_kernel(carry: FilterCarry, packet: ScanPacket, p
 
 
 def _predicted_bucket_poses_const_vel(carry: FilterCarry, packet: ScanPacket):
-    """Constant-velocity, constant-rate match poses per bucket."""
+    """Constant-velocity, constant-rate match poses per bucket (a fleet's
+    with a leading B)."""
     st0 = carry.state
     dtb = packet.bucket_time
-    rb = st0.rot @ exp_so3(dtb[:, None] * st0.imu_w[None, :])
-    pb = st0.pos[None, :] + dtb[:, None] * st0.vel[None, :]
+    rb = st0.rot[..., None, :, :] @ exp_so3(dtb[..., None] * st0.imu_w[..., None, :])
+    pb = st0.pos[..., None, :] + dtb[..., None] * st0.vel[..., None, :]
     return rb, pb
 
 
@@ -228,44 +253,61 @@ def _match_compact_stats(carry: FilterCarry, packet: ScanPacket, params: FilterP
     bidx, p_i_c [cap,3], body_cov_c [cap,3,3], mask_c, own_keys [L,cap,3]
     int32, own_slot, own_found, own_plane [L,cap]) for the insert phase:
     the JAX aux less ``pts_c`` and ``cross_c``, which no insert reads (the
-    insert off the moments kernel forms ``skew(p_i_c)`` itself)."""
+    insert off the moments kernel forms ``skew(p_i_c)`` itself).
+
+    A fleet's carry, packet and params (a leading B each) compact each
+    replica's points to ``cap`` rows and match the replicas' rows side by
+    side against the maps viewed flat; the outputs take the layout of the
+    kernel version's (``_match_compact_stats_kernel``): s40 and nmatch
+    [B, NB, ...], mask_c [B, cap], the other rows naming fleet points,
+    buckets and slots."""
     cov0 = carry.cov
-    nb, p, _ = packet.points.shape
+    lead = tuple(packet.points.shape[:-3])
+    nb, p = packet.points.shape[-3:-1]
+    b = math.prod(lead)
+    rows = lead + (cap,)
     rb, pb = poses if poses is not None else _predicted_bucket_poses(carry, packet, params, scfg)
 
-    mask_f = (packet.point_mask & packet.bucket_mask[:, None]).reshape(-1)
-    order = compact_order(mask_f, cap)
-    mask_c = _gather_fill(mask_f, order, False)
-    bidx = order // p                                       # nb for padding rows
-    bidx_c = torch.clamp(bidx, max=nb - 1)
+    mask_f = (packet.point_mask & packet.bucket_mask[..., None]).reshape(lead + (nb * p,))
+    order = compact_order(mask_f, cap).reshape(-1)          # b*nb*p for unfilled slots
+    mask_c = _gather_fill(mask_f.reshape(-1), order, False).reshape(rows)
+    bidx = order // p                                       # b*nb for padding rows
+    bidx_c = torch.clamp(bidx, max=b * nb - 1)
 
-    pts_c = _gather_fill(packet.points.reshape(-1, 3), order, 0.0)
-    p_i_c = pts_c @ params.ext_r.T + params.ext_t
+    pts_c = _gather_fill(packet.points.reshape(-1, 3), order, 0.0).reshape(rows + (3,))
+    p_i_c = _fold_mm(pts_c, params.ext_r.transpose(-1, -2)) + params.ext_t[..., None, :]
     cross_c = skew(p_i_c)
     body_cov_c = calc_body_cov(pts_c, scfg.dept_err, scfg.beam_err)
-    rb_c = rb[bidx_c]
-    p_w_c = torch.einsum("cij,cj->ci", rb_c, p_i_c) + pb[bidx_c]
-    rot_ext_c = rb_c @ params.ext_r
+    rb_c = rb.reshape(-1, 3, 3)[bidx_c].reshape(rows + (3, 3))
+    p_w_c = (torch.einsum("...cij,...cj->...ci", rb_c, p_i_c)
+             + pb.reshape(-1, 3)[bidx_c].reshape(rows + (3,)))
+    rot_ext_c = _fold_mm(rb_c, params.ext_r)
     rot_cross_c = rb_c @ cross_c
-    var_bw = torch.einsum("cij,cjk,clk->cil", rot_ext_c, body_cov_c, rot_ext_c)
+    var_bw = torch.einsum("...cij,...cjk,...clk->...cil", rot_ext_c, body_cov_c, rot_ext_c)
     var_c = (
         var_bw
-        + torch.einsum("cij,jk,clk->cil", rot_cross_c, cov0[0:3, 0:3], rot_cross_c)
-        + cov0[3:6, 3:6]
+        + torch.einsum("...cij,...jk,...clk->...cil", rot_cross_c, cov0[..., 0:3, 0:3], rot_cross_c)
+        + cov0[..., None, 3:6, 3:6]
     )
     m = match_points(carry.vm, scfg.map_cfg, p_w_c, var_c, mask_c)
 
     j_nq = torch.cat([p_w_c - m.center, -m.normal], dim=-1)
-    single_l = torch.clamp(torch.einsum("ci,cij,cj->c", j_nq, m.plane_var, j_nq), min=0.0)
-    r_c = params.noise.lidar_point_meas_ratio * (
-        single_l + torch.einsum("ci,cij,cj->c", m.normal, var_bw, m.normal)
+    single_l = torch.clamp(torch.einsum("...ci,...cij,...cj->...c", j_nq, m.plane_var, j_nq), min=0.0)
+    r_c = params.noise.lidar_point_meas_ratio[..., None] * (
+        single_l + torch.einsum("...ci,...cij,...cj->...c", m.normal, var_bw, m.normal)
     )
-    matched_c = m.matched & mask_c
-    s40 = point_suffstats_compact(p_i_c, m.normal, m.center, r_c, matched_c, bidx, nb)
+    matched_c = (m.matched & mask_c).reshape(-1)
+
+    def flat(x):  # the replicas' rows side by side
+        return x.reshape((b * cap,) + tuple(x.shape[len(rows):]))
+
+    s40 = point_suffstats_compact(flat(p_i_c), flat(m.normal), flat(m.center), flat(r_c), matched_c,
+                                  bidx, b * nb).reshape(lead + (nb, 40, 40))
     # Integer counts: their sum does not depend on the order of the adds.
-    nmatch_b = torch.zeros((nb + 1,), dtype=torch.int32, device=bidx.device).index_add_(
-        0, bidx, matched_c.to(torch.int32))[:nb]
-    aux = (order, bidx, p_i_c, body_cov_c, mask_c, m.own_keys, m.own_slot, m.own_found, m.own_plane)
+    nmatch_b = torch.zeros((b * nb + 1,), dtype=torch.int32, device=bidx.device).index_add_(
+        0, bidx, matched_c.to(torch.int32))[: b * nb].reshape(lead + (nb,))
+    aux = (order, bidx, flat(p_i_c), flat(body_cov_c), mask_c, m.own_keys, m.own_slot, m.own_found,
+           m.own_plane)
     return s40, nmatch_b, aux
 
 
@@ -360,81 +402,89 @@ def _batched_match(carry: FilterCarry, packet: ScanPacket, params: FilterParams,
     variances, ``match_points``, and the measurement variance
     (KILO.cc:201-209) at the match poses.  Returns (p_i [NB,P,3], normal,
     center [NB,P,3], r_meas [NB,P], matched [NB,P] bool, crossmat
-    [NB,P,3,3]) in bucket layout.
+    [NB,P,3,3]) in bucket layout; a fleet's (a leading B on the carry,
+    packet and params) with a leading B.
 
     With ``match_cap`` under NB*P the valid rows are compacted to the front
-    so the variance products and the map probe run over ``match_cap`` rows;
-    the results are scattered back, rows left behind (invalid, or valid
-    beyond the cap) reading zeros and unmatched."""
+    so the variance products and the map probe run over ``match_cap`` rows
+    (a fleet's: each replica's to the front of its own ``match_cap``); the
+    results are scattered back, rows left behind (invalid, or valid beyond
+    the cap) reading zeros and unmatched."""
     cov0 = carry.cov
-    nb, p, _ = packet.points.shape
+    lead = tuple(packet.points.shape[:-3])
+    nb, p = packet.points.shape[-3:-1]
+    b = math.prod(lead)
     dtype, dev = cov0.dtype, cov0.device
     rb, pb = poses if poses is not None else _predicted_bucket_poses(carry, packet, params, scfg)
 
     pts = packet.points                                    # [NB,P,3] body
-    p_i = pts @ params.ext_r.T + params.ext_t              # [NB,P,3]
+    p_i = _fold_mm(pts, params.ext_r.transpose(-1, -2)) + params.ext_t[..., None, None, :]
     crossmat = skew(p_i)                                   # [NB,P,3,3]
-    rot_ext = rb @ params.ext_r                            # [NB,3,3]
-    mask = packet.point_mask & packet.bucket_mask[:, None]
+    rot_ext = _fold_mm(rb, params.ext_r)                   # [NB,3,3]
+    mask = packet.point_mask & packet.bucket_mask[..., None]
     ratio = params.noise.lidar_point_meas_ratio
 
     if scfg.match_cap and scfg.match_cap < nb * p:
-        mask_f = mask.reshape(-1)
-        order = compact_order(mask_f, scfg.match_cap)      # [C]; nb*p for unfilled slots
-        bidx = torch.clamp(order // p, max=nb - 1)
+        rows = lead + (scfg.match_cap,)
+        mask_f = mask.reshape(lead + (nb * p,))
+        order = compact_order(mask_f, scfg.match_cap).reshape(-1)  # b*nb*p for unfilled slots
+        bidx = torch.clamp(order // p, max=b * nb - 1)
         pts_c = _gather_fill(pts.reshape(-1, 3), order, 0.0)
         p_i_c = _gather_fill(p_i.reshape(-1, 3), order, 0.0)
-        rb_c = rb[bidx]
-        p_w_c = torch.einsum("cij,cj->ci", rb_c, p_i_c) + pb[bidx]
+        rb_c = rb.reshape(-1, 3, 3)[bidx]
+        p_w_c = torch.einsum("cij,cj->ci", rb_c, p_i_c) + pb.reshape(-1, 3)[bidx]
         body_cov_c = calc_body_cov(pts_c, scfg.dept_err, scfg.beam_err)
         cross_c = _gather_fill(crossmat.reshape(-1, 3, 3), order, 0.0)
-        rot_ext_c = rot_ext[bidx]
-        rot_cross_c = rb_c @ cross_c
-        var_bw = torch.einsum("cij,cjk,clk->cil", rot_ext_c, body_cov_c, rot_ext_c)
+        rot_ext_c = rot_ext.reshape(-1, 3, 3)[bidx]
+        rot_cross_c = (rb_c @ cross_c).reshape(rows + (3, 3))
+        var_bw = torch.einsum("cij,cjk,clk->cil", rot_ext_c, body_cov_c, rot_ext_c).reshape(rows + (3, 3))
         var_c = (
             var_bw
-            + torch.einsum("cij,jk,clk->cil", rot_cross_c, cov0[0:3, 0:3], rot_cross_c)
-            + cov0[3:6, 3:6]
+            + torch.einsum("...cij,...jk,...clk->...cil", rot_cross_c, cov0[..., 0:3, 0:3], rot_cross_c)
+            + cov0[..., None, 3:6, 3:6]
         )
-        mask_c = _gather_fill(mask_f, order, False)
-        m = match_points(carry.vm, scfg.map_cfg, p_w_c, var_c, mask_c)
+        mask_c = _gather_fill(mask_f.reshape(-1), order, False).reshape(rows)
+        m = match_points(carry.vm, scfg.map_cfg, p_w_c.reshape(rows + (3,)), var_c, mask_c)
 
-        j_nq = torch.cat([p_w_c - m.center, -m.normal], dim=-1)
-        single_l = torch.clamp(torch.einsum("ci,cij,cj->c", j_nq, m.plane_var, j_nq), min=0.0)
-        r_c = ratio * (single_l + torch.einsum("ci,cij,cj->c", m.normal, var_bw, m.normal))
+        j_nq = torch.cat([p_w_c.reshape(rows + (3,)) - m.center, -m.normal], dim=-1)
+        single_l = torch.clamp(torch.einsum("...ci,...cij,...cj->...c", j_nq, m.plane_var, j_nq),
+                               min=0.0)
+        r_c = ratio[..., None] * (
+            single_l + torch.einsum("...ci,...cij,...cj->...c", m.normal, var_bw, m.normal))
 
-        # Scatter back through a sentinel row at nb*p, which takes every
+        # Scatter back through a sentinel row at b*nb*p, which takes every
         # unfilled slot's write and is cut off again.
-        def back(rows, fill_dtype):
-            out = torch.zeros((nb * p + 1,) + tuple(rows.shape[1:]), dtype=fill_dtype, device=dev)
-            out[order] = rows
-            return out[: nb * p]
+        def back(x, fill_dtype):
+            x = x.reshape((-1,) + tuple(x.shape[len(rows):]))
+            out = torch.zeros((b * nb * p + 1,) + tuple(x.shape[1:]), dtype=fill_dtype, device=dev)
+            out[order] = x
+            return out[: b * nb * p].reshape(lead + (nb, p) + tuple(x.shape[1:]))
 
-        normal = back(m.normal, dtype).reshape(nb, p, 3)
-        center = back(m.center, dtype).reshape(nb, p, 3)
-        r_meas = back(r_c, dtype).reshape(nb, p)
-        matched = back(m.matched & mask_c, torch.bool).reshape(nb, p)
+        normal = back(m.normal, dtype)
+        center = back(m.center, dtype)
+        r_meas = back(r_c, dtype)
+        matched = back(m.matched & mask_c, torch.bool)
         return p_i, normal, center, r_meas, matched, crossmat
 
-    p_w = torch.einsum("bij,bpj->bpi", rb, p_i) + pb[:, None, :]
+    p_w = torch.einsum("...bij,...bpj->...bpi", rb, p_i) + pb[..., :, None, :]
     body_cov = calc_body_cov(pts, scfg.dept_err, scfg.beam_err)   # [NB,P,3,3]
-    rot_cross = rb[:, None] @ crossmat
-    var_bw = torch.einsum("bij,bpjk,blk->bpil", rot_ext, body_cov, rot_ext)
+    rot_cross = rb[..., :, None, :, :] @ crossmat
+    var_bw = torch.einsum("...bij,...bpjk,...blk->...bpil", rot_ext, body_cov, rot_ext)
     var = (
         var_bw
-        + torch.einsum("bpij,jk,bplk->bpil", rot_cross, cov0[0:3, 0:3], rot_cross)
-        + cov0[3:6, 3:6]
+        + torch.einsum("...bpij,...jk,...bplk->...bpil", rot_cross, cov0[..., 0:3, 0:3], rot_cross)
+        + cov0[..., None, None, 3:6, 3:6]
     )
-    m = match_points(carry.vm, scfg.map_cfg, p_w.reshape(nb * p, 3), var.reshape(nb * p, 3, 3),
-                     mask.reshape(-1))
-    normal = m.normal.reshape(nb, p, 3)
-    center = m.center.reshape(nb, p, 3)
+    m = match_points(carry.vm, scfg.map_cfg, p_w.reshape(lead + (nb * p, 3)),
+                     var.reshape(lead + (nb * p, 3, 3)), mask.reshape(lead + (nb * p,)))
+    normal = m.normal.reshape(lead + (nb, p, 3))
+    center = m.center.reshape(lead + (nb, p, 3))
     j_nq = torch.cat([p_w - center, -normal], dim=-1)
-    single_l = torch.clamp(
-        torch.einsum("bpi,bpij,bpj->bp", j_nq, m.plane_var.reshape(nb, p, 6, 6), j_nq), min=0.0
-    )
-    r_meas = ratio * (single_l + torch.einsum("bpi,bpij,bpj->bp", normal, var_bw, normal))
-    matched = m.matched.reshape(nb, p) & mask
+    single_l = torch.clamp(torch.einsum(
+        "...bpi,...bpij,...bpj->...bp", j_nq, m.plane_var.reshape(lead + (nb, p, 6, 6)), j_nq), min=0.0)
+    r_meas = ratio[..., None, None] * (
+        single_l + torch.einsum("...bpi,...bpij,...bpj->...bp", normal, var_bw, normal))
+    matched = m.matched.reshape(lead + (nb, p)) & mask
     return p_i, normal, center, r_meas, matched, crossmat
 
 
@@ -450,8 +500,12 @@ def _process_scan_points(carry: FilterCarry, packet: ScanPacket, params: FilterP
                          scfg: StaticConfig) -> Tuple[FilterCarry, ScanOutput]:
     """The per-point scan step (``chain_impl="jax"``): match rows in bucket
     layout, the per-point chain, then one batched insert at the chain's
-    post-update bucket poses (KILO.cc:216-231 recompute + UpdateVoxelMap)."""
-    nb, p, _ = packet.points.shape
+    post-update bucket poses (KILO.cc:216-231 recompute + UpdateVoxelMap).
+    A fleet (a leading B on the carry, packet and params) takes one launch
+    of the chain a match pass and one insert over the maps viewed flat,
+    each replica's valid points compacted to the insert cap on their own."""
+    lead = tuple(packet.points.shape[:-3])
+    nb, p = packet.points.shape[-3:-1]
     ocnt0 = carry.vm.ocnt
 
     carry0, poses = carry, None
@@ -462,35 +516,38 @@ def _process_scan_points(carry: FilterCarry, packet: ScanPacket, params: FilterP
             carry0, packet, params, scfg, p_i, normal, center, r_meas, matched)
         poses = (rots, poss)
 
-    p_w = torch.einsum("bij,bpj->bpi", rots, p_i) + poss[:, None, :]
+    p_w = torch.einsum("...bij,...bpj->...bpi", rots, p_i) + poss[..., :, None, :]
     body_cov = calc_body_cov(packet.points, scfg.dept_err, scfg.beam_err)
-    rot_ext = rots @ params.ext_r
-    rot_cross = rots[:, None] @ crossmat
+    rot_ext = _fold_mm(rots, params.ext_r)
+    rot_cross = rots[..., :, None, :, :] @ crossmat
     var = (
-        torch.einsum("bij,bpjk,blk->bpil", rot_ext, body_cov, rot_ext)
-        + torch.einsum("bpij,bjk,bplk->bpil", rot_cross, rot_covs, rot_cross)
-        + pos_covs[:, None]
+        torch.einsum("...bij,...bpjk,...blk->...bpil", rot_ext, body_cov, rot_ext)
+        + torch.einsum("...bpij,...bjk,...bplk->...bpil", rot_cross, rot_covs, rot_cross)
+        + pos_covs[..., :, None, :, :]
     )
-    mask = packet.point_mask & packet.bucket_mask[:, None]
-    p_w_f, var_f, mask_f = p_w.reshape(nb * p, 3), var.reshape(nb * p, 3, 3), mask.reshape(-1)
+    mask = packet.point_mask & packet.bucket_mask[..., None]
+    p_w_f = p_w.reshape(lead + (nb * p, 3))
+    var_f = var.reshape(lead + (nb * p, 3, 3))
+    mask_f = mask.reshape(lead + (nb * p,))
     if scfg.insert_cap and scfg.insert_cap < nb * p:
         # Valid points to the front: the insert works on insert_cap rows.
-        order = compact_order(mask_f, scfg.insert_cap)
-        p_w_f = _gather_fill(p_w_f, order, 0.0)
-        var_f = _gather_fill(var_f, order, 0.0)
-        mask_f = _gather_fill(mask_f, order, False)
+        rows = lead + (scfg.insert_cap,)
+        order = compact_order(mask_f, scfg.insert_cap).reshape(-1)
+        p_w_f = _gather_fill(p_w_f.reshape(-1, 3), order, 0.0).reshape(rows + (3,))
+        var_f = _gather_fill(var_f.reshape(-1, 3, 3), order, 0.0).reshape(rows + (3, 3))
+        mask_f = _gather_fill(mask_f.reshape(-1), order, False).reshape(rows)
     carry = carry._replace(vm=insert_points(carry.vm, scfg.map_cfg, p_w_f, var_f, mask_f))
 
     if scfg.map_sliding_en:
         carry = _slide_if_moved(carry, scfg)
 
-    n_valid = mask.sum().to(torch.int32)
+    n_valid = mask.sum((-2, -1)).to(torch.int32)
     caps = [c for c in (scfg.match_cap, scfg.insert_cap) if c and c < nb * p]
     cap_dropped = torch.clamp(n_valid - min(caps), min=0) if caps else torch.zeros_like(n_valid)
     out = ScanOutput(
         rot=carry.state.rot,
         pos=carry.state.pos,
-        n_matched=nmatch.sum(),
+        n_matched=nmatch.sum(-1),
         n_points=n_valid,
         n_cap_dropped=cap_dropped,
         map_overflow=carry.vm.ocnt - ocnt0,
@@ -516,8 +573,7 @@ def insert_phase(vm, mcfg, params: FilterParams, bidx, p_i_c, body_cov_c, mask_c
         rots.reshape(-1, 3, 3), poss.reshape(-1, 3), rot_covs.reshape(-1, 3, 3),
         pos_covs.reshape(-1, 3, 3), p_i_c, body_cov_c, rows.pidx, bidx, rows.keys, rows.lvl,
     )
-    flat = insert_packed_rows_hinted(fleet_flat(vm), mcfg, rows, mom_rows, moms_rows)
-    return VoxelMap(*(t.reshape(u.shape) for t, u in zip(flat[:5], vm[:5])), ocnt=flat.ocnt)
+    return _unflat(insert_packed_rows_hinted(fleet_flat(vm), mcfg, rows, mom_rows, moms_rows), vm)
 
 
 def _chain_fused_core(carry: FilterCarry, packet: ScanPacket, params: FilterParams,
@@ -525,11 +581,11 @@ def _chain_fused_core(carry: FilterCarry, packet: ScanPacket, params: FilterPara
     """The chain off its kernel (the JAX ``_chain_fused_core``, a lax.scan
     in XLA): the same bucket recursion in eskf_fused ops as a Python loop
     over the buckets in eager torch (``ops.chain_stats.chain_plain``, the
-    chain kernel's plain version).  The gates are ``torch.where`` selects,
-    so nothing is read back to the host inside the loop.  Returns what
-    ``run_chain_stats`` returns."""
+    chain kernel's plain version; a fleet's on [B, ...] tensors).  The
+    gates are ``torch.where`` selects, so nothing is read back to the host
+    inside the loop.  Returns what ``run_chain_stats`` returns."""
     head, events = pack_state_and_events(carry, packet, params, scfg.use_kin)
-    brow = torch.stack([packet.bucket_time, packet.bucket_mask.to(F32), nmatch_b.to(F32)], dim=1)
+    brow = torch.stack([packet.bucket_time, packet.bucket_mask.to(F32), nmatch_b.to(F32)], dim=-1)
     return unpack_chain_outputs(carry, chain_plain(*head, brow, *events, s40, use_kin=scfg.use_kin))
 
 
@@ -539,18 +595,21 @@ def _insert_at_bucket_poses(vm, scfg: StaticConfig, params: FilterParams, bidx, 
     :815-835): the compacted points' world positions and variances at the
     chain's post-update bucket poses, then ``insert_points_hinted`` (the
     match phase's probe reused) or, with ``insert_reuse_probe`` off, the
-    claiming ``insert_points``."""
-    nb = rots.shape[0]
-    bidx_c = torch.clamp(bidx, max=nb - 1)
-    rb2 = rots[bidx_c]
-    p_w_c = torch.einsum("cij,cj->ci", rb2, p_i_c) + poss[bidx_c]
-    rot_ext2 = rb2 @ params.ext_r
+    claiming ``insert_points``.  A fleet's (the match phase's fleet rows,
+    mask_c [B, cap], the chain's outputs with a leading B) inserts each
+    replica's rows into its own map."""
+    rows = tuple(mask_c.shape)
+    bidx_c = torch.clamp(bidx, max=math.prod(rots.shape[:-2]) - 1)
+    rb2 = rots.reshape(-1, 3, 3)[bidx_c]
+    p_w_c = torch.einsum("cij,cj->ci", rb2, p_i_c) + poss.reshape(-1, 3)[bidx_c]
+    rot_ext2 = _fold_mm(rb2.reshape(rows + (3, 3)), params.ext_r).reshape(-1, 3, 3)
     rot_cross2 = rb2 @ skew(p_i_c)
     var_c = (
         torch.einsum("cij,cjk,clk->cil", rot_ext2, body_cov_c, rot_ext2)
-        + torch.einsum("cij,cjk,clk->cil", rot_cross2, rot_covs[bidx_c], rot_cross2)
-        + pos_covs[bidx_c]
+        + torch.einsum("cij,cjk,clk->cil", rot_cross2, rot_covs.reshape(-1, 3, 3)[bidx_c], rot_cross2)
+        + pos_covs.reshape(-1, 3, 3)[bidx_c]
     )
+    p_w_c, var_c = p_w_c.reshape(rows + (3,)), var_c.reshape(rows + (3, 3))
     if scfg.insert_reuse_probe:
         return insert_points_hinted(vm, scfg.map_cfg, p_w_c, var_c, mask_c, *own)
     return insert_points(vm, scfg.map_cfg, p_w_c, var_c, mask_c)
@@ -558,9 +617,9 @@ def _insert_at_bucket_poses(vm, scfg: StaticConfig, params: FilterParams, bidx, 
 
 def _cloud(packet: ScanPacket, params: FilterParams, rots, poss):
     """The scan's points in the world frame at the post-update bucket poses
-    [NB, P, 3] (``return_cloud``)."""
-    p_i = packet.points @ params.ext_r.T + params.ext_t
-    return torch.einsum("bij,bpj->bpi", rots, p_i) + poss[:, None, :]
+    [NB, P, 3] (``return_cloud``; a fleet's [B, NB, P, 3])."""
+    p_i = _fold_mm(packet.points, params.ext_r.transpose(-1, -2)) + params.ext_t[..., None, None, :]
+    return torch.einsum("...bij,...bpj->...bpi", rots, p_i) + poss[..., :, None, :]
 
 
 def kernel_routes(scfg: StaticConfig) -> Tuple[bool, bool]:
@@ -574,8 +633,8 @@ def kernel_routes(scfg: StaticConfig) -> Tuple[bool, bool]:
 def _process_scan_fused(carry: FilterCarry, packet: ScanPacket, params: FilterParams,
                         scfg: StaticConfig) -> Tuple[FilterCarry, ScanOutput]:
     """The fused scan step, each phase routed as the JAX package routes it
-    (module doc).  With all five kernel switches on it also steps a fleet
-    (core/filter_fleet.py), each phase once for all its replicas."""
+    (module doc).  It also steps a fleet (core/filter_fleet.py) on any
+    switches, each phase once for all its replicas."""
     nb, p = packet.points.shape[-3:-1]
     ocnt0 = carry.vm.ocnt
     cap = _row_cap(scfg, nb, p)
@@ -624,9 +683,9 @@ def _process_scan_fused(carry: FilterCarry, packet: ScanPacket, params: FilterPa
 def process_scan_deferred(carry: FilterCarry, packet: ScanPacket, params: FilterParams,
                           scfg: StaticConfig) -> Tuple[FilterCarry, ScanOutput]:
     """One scan through the deferred pipeline: rebase the clocks, run the
-    fused or the per-point path, re-symmetrise the covariance.  The fused
-    path on all five kernels also steps a fleet (a leading B on the carry,
-    packet and params; core/filter_fleet.py)."""
+    fused or the per-point path, re-symmetrise the covariance.  Either path
+    also steps a fleet (a leading B on the carry, packet and params;
+    core/filter_fleet.py)."""
     check_supported(scfg, *packet.points.shape[-3:-1])
     carry = carry._replace(
         last_predict_t=carry.last_predict_t - packet.rebase,

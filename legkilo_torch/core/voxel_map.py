@@ -340,16 +340,24 @@ def _ocnt_inc(device, rowcap=0, refit=0, claim=0, lead=()) -> torch.Tensor:
 def insert_points(vm: VoxelMap, cfg: MapConfig, p_w, var, mask) -> VoxelMap:
     """Insert points at every level and refit touched planes (UpdateVoxelMap
     + init_octo_tree, voxel_map.cc:119-241 / 287-361); the first-frame map
-    build goes through here."""
-    L, N = cfg.levels, p_w.shape[0]
-    keys = torch.cat([voxel_key(p_w, level_size(cfg, l)) for l in range(L)], dim=0)
-    lvl_ids = torch.arange(L, dtype=torch.int64, device=p_w.device).repeat_interleave(N)
-    mask_f = mask.repeat(L)
-    ptab_x, slot, ok = _find_or_insert_flat(_with_sentinel(vm.ptab), keys, lvl_ids, mask_f, cfg)
-    return _insert_finish(
-        vm, cfg, ptab_x, p_w.repeat(L, 1), var.repeat(L, 1, 1), keys, lvl_ids, slot, ok,
-        ocnt_inc=_ocnt_inc(vm.ocnt.device, claim=(mask_f & ~ok).sum()),
-    )
+    build goes through here.  A fleet's maps ([B, L*C, W] tables) take
+    p_w [B, N, 3], var [B, N, 3, 3] and mask [B, N]: one claim series over
+    the flat view, each replica's (point, level) rows in the order a single
+    map takes them, the replicas one after another (module doc)."""
+    lead = tuple(vm.ocnt.shape[:-1])
+    b, L, N = math.prod(lead), cfg.levels, p_w.shape[-2]
+    p_w = p_w.reshape(b, N, 3)
+    keys = torch.stack([voxel_key(p_w, level_size(cfg, l)) for l in range(L)], dim=1).reshape(-1, 3)
+    seg = torch.arange(b * L, dtype=torch.int64, device=p_w.device).repeat_interleave(N)
+    mask_f = mask.reshape(b, 1, N).expand(b, L, N).reshape(-1)
+    flat = fleet_flat(vm)
+    ptab_x, slot, ok = _find_or_insert_flat(_with_sentinel(flat.ptab), keys, seg, mask_f, cfg)
+    return _unflat(_insert_finish(
+        flat, cfg, ptab_x, p_w[:, None].expand(b, L, N, 3).reshape(-1, 3),
+        var.reshape(b, 1, N, 3, 3).expand(b, L, N, 3, 3).reshape(-1, 3, 3), keys, seg % L, slot, ok,
+        ocnt_inc=_ocnt_inc(vm.ocnt.device, claim=(mask_f & ~ok).reshape(b, -1).sum(-1).reshape(lead),
+                           lead=lead),
+    ), vm)
 
 
 class GatedRows(NamedTuple):
@@ -464,39 +472,56 @@ def insert_points_hinted(vm: VoxelMap, cfg: MapConfig, p_w, var, mask, own_keys,
     claim (module doc).  With ``insert_row_cap`` > 0 and ``own_plane``
     given, the rows are ancestor-gated and compacted (``gated_insert_rows``)
     and their moments come from ``p_w``/``var`` [N,3]/[N,3,3]; otherwise
-    every (point, level) row inserts, as ``insert_points`` does."""
-    L, C, N = cfg.levels, cfg.capacity, p_w.shape[0]
-    miss = L * C
+    every (point, level) row inserts, as ``insert_points`` does.  A fleet's
+    maps take p_w [B,N,3], var and mask [B,N] and the probe [L, B*N] in
+    fleet slots, as ``match_points`` returns a fleet's."""
+    lead = tuple(vm.ocnt.shape[:-1])
+    b, L, C, N = math.prod(lead), cfg.levels, cfg.capacity, p_w.shape[-2]
+    miss = b * L * C
     dev = p_w.device
+    flat = fleet_flat(vm)
+    p_w, var = p_w.reshape(b * N, 3), var.reshape(b * N, 3, 3)
     if cfg.insert_row_cap and own_plane is not None:
         rows = gated_insert_rows(cfg, mask, own_keys, own_slot, own_found, own_plane)
-        ptab_x, slot, ok = resolve_insert_rows(vm.ptab, cfg, rows)
-        return _insert_finish(
-            vm, cfg, ptab_x, p_w[rows.pidx], var[rows.pidx], rows.keys, rows.lvl, slot, ok,
+        ptab_x, slot, ok = resolve_insert_rows(flat.ptab, cfg, rows)
+        return _unflat(_insert_finish(
+            flat, cfg, ptab_x, p_w[rows.pidx], var[rows.pidx], rows.keys, rows.lvl, slot, ok,
             ocnt_inc=_ocnt_inc(
-                vm.ocnt.device,
+                dev,
                 rowcap=torch.clamp(rows.n_gated - cfg.insert_row_cap, min=0),
-                claim=(rows.mask & ~ok).sum(),
+                claim=(rows.mask & ~ok).reshape(lead + (-1,)).sum(-1),
+                lead=lead,
             ),
-        )
-    keys = own_keys.reshape(L * N, 3)
-    lvl_ids = torch.arange(L, dtype=torch.int64, device=dev).repeat_interleave(N)
-    mask_f = mask.repeat(L)
-    found_f = own_found.reshape(L * N) & mask_f
+        ), vm)
+
+    def by_replica(x):  # the probe's [L, B*N, ...] rows -> replica-major [B*L*N, ...]
+        return x.reshape((L, b, N) + tuple(x.shape[2:])).transpose(0, 1).reshape(
+            (b * L * N,) + tuple(x.shape[2:]))
+
+    keys = by_replica(own_keys)
+    seg = torch.arange(b * L, dtype=torch.int64, device=dev).repeat_interleave(N)
+    mask_f = mask.reshape(b, 1, N).expand(b, L, N).reshape(-1)
+    found_f = by_replica(own_found) & mask_f
     need = mask_f & ~found_f
-    ptab_x, slot_c, ok_c = _find_or_insert_flat(_with_sentinel(vm.ptab), keys, lvl_ids, need, cfg)
-    slot = torch.where(ok_c, slot_c, torch.where(found_f, own_slot.reshape(L * N).to(torch.int64), miss))
+    ptab_x, slot_c, ok_c = _find_or_insert_flat(_with_sentinel(flat.ptab), keys, seg, need, cfg)
+    slot = torch.where(ok_c, slot_c, torch.where(found_f, by_replica(own_slot).to(torch.int64), miss))
     ok = slot < miss
-    return _insert_finish(
-        vm, cfg, ptab_x, p_w.repeat(L, 1), var.repeat(L, 1, 1), keys, lvl_ids, slot, ok,
-        ocnt_inc=_ocnt_inc(vm.ocnt.device, claim=(mask_f & ~ok).sum()),
-    )
+    return _unflat(_insert_finish(
+        flat, cfg, ptab_x, p_w.reshape(b, 1, N, 3).expand(b, L, N, 3).reshape(-1, 3),
+        var.reshape(b, 1, N, 3, 3).expand(b, L, N, 3, 3).reshape(-1, 3, 3), keys, seg % L, slot, ok,
+        ocnt_inc=_ocnt_inc(dev, claim=(mask_f & ~ok).reshape(b, -1).sum(-1).reshape(lead), lead=lead),
+    ), vm)
 
 
 def fleet_flat(vm: VoxelMap) -> VoxelMap:
     """A fleet's maps ([B, L*C, W] tables) as one flat map of B*L*C slots
     (views; ``ocnt`` stays [B, 3]); one map as it is."""
     return VoxelMap(*(t.reshape(-1, t.shape[-1]) for t in vm[:5]), ocnt=vm.ocnt)
+
+
+def _unflat(flat: VoxelMap, like: VoxelMap) -> VoxelMap:
+    """A flat map (``fleet_flat``) back in the shapes of ``like``'s tables."""
+    return VoxelMap(*(t.reshape(u.shape) for t, u in zip(flat[:5], like[:5])), ocnt=flat.ocnt)
 
 
 def _insert_finish(vm: VoxelMap, cfg: MapConfig, ptab_x, p_w_rows, var_rows, keys, lvl_ids,
@@ -623,10 +648,22 @@ def match_points(vm: VoxelMap, cfg: MapConfig, p_w: torch.Tensor, var: torch.Ten
     level is reachable only while every ancestor exists and is not a plane
     (build_single_residual, voxel_map.cc:371-427); the passing candidate of
     highest probability wins, and the neighbour chain is used only when the
-    own chain matched nothing.  A missed slot reads zeros."""
+    own chain matched nothing.  A missed slot reads zeros.
+
+    A fleet's maps ([B, L*C, W] tables) take p_w [B,N,3], var [B,N,3,3]
+    and mask [B,N]: the replicas' points side by side probe the maps
+    viewed flat, point i of replica r in level l's segment r*L + l, and
+    each point's result is what a single map gives it.  The per-point
+    fields come back [B, N, ...]; the ``own_*`` fields [L, B*N, ...] with
+    fleet slots (B*L*C = miss), the layout ``gated_insert_rows`` and
+    ``insert_points_hinted`` take."""
     dtype = vm.meta.dtype
     dev = p_w.device
-    L, N = cfg.levels, p_w.shape[0]
+    lead = tuple(p_w.shape[:-2])
+    L, b = cfg.levels, math.prod(lead)
+    N = b * p_w.shape[-2]                                  # the fleet's points side by side
+    p_w, var, mask = p_w.reshape(N, 3), var.reshape(N, 3, 3), mask.reshape(N)
+    ptab, plane = vm.ptab.reshape(-1, PTAB_DIM), vm.plane.reshape(-1, PLANE_DIM)
 
     keys_all = []
     for chain in range(2):
@@ -640,9 +677,11 @@ def match_points(vm: VoxelMap, cfg: MapConfig, p_w: torch.Tensor, var: torch.Ten
             keys_all.append(keys)
     keys_f = torch.cat(keys_all, dim=0)                    # [2L*N, 3]
     lvl_f = torch.arange(L, dtype=torch.int64, device=dev).repeat_interleave(N).repeat(2)
+    rep = torch.arange(b, dtype=torch.int64, device=dev).repeat_interleave(N // b)
+    seg_f = (rep[None, :] * L + torch.arange(L, dtype=torch.int64, device=dev)[:, None]).reshape(-1)
 
-    slot, found, _, _, is_plane = _probe_find_flat(vm.ptab, keys_f, lvl_f, cfg)
-    plane_at = _gather_fill(vm.plane, slot, 0.0).to(dtype)
+    slot, found, _, _, is_plane = _probe_find_flat(ptab, keys_f, seg_f.repeat(2), cfg, b * L * cfg.capacity)
+    plane_at = _gather_fill(plane, slot, 0.0).to(dtype)
 
     sizes = torch.tensor([level_size(cfg, l) for l in range(L)], dtype=dtype, device=dev)[lvl_f]
     center = (keys_f.to(dtype) + 0.5) * sizes[:, None] + plane_at[:, 0:3]
@@ -689,12 +728,13 @@ def match_points(vm: VoxelMap, cfg: MapConfig, p_w: torch.Tensor, var: torch.Ten
     (m_own, i_own), (m_nbr, i_nbr) = results
     use_nbr = ~m_own & m_nbr
     idx = torch.where(use_nbr, i_nbr, i_own)
+    per_point = lead + (N // b,)
     return MatchResult(
-        matched=(m_own | m_nbr) & mask,
-        normal=normal[idx],
-        center=center[idx],
-        plane_var=plane_var[idx],
-        signed_dist=signed_dist[idx],
+        matched=((m_own | m_nbr) & mask).reshape(per_point),
+        normal=normal[idx].reshape(per_point + (3,)),
+        center=center[idx].reshape(per_point + (3,)),
+        plane_var=plane_var[idx].reshape(per_point + (6, 6)),
+        signed_dist=signed_dist[idx].reshape(per_point),
         own_keys=keys_f[: L * N].reshape(L, N, 3),
         own_slot=slot[: L * N].reshape(L, N),
         own_found=found[: L * N].reshape(L, N),

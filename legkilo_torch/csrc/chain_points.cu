@@ -37,6 +37,10 @@
 // every lane takes the same branch on sum m > 0.5 and runs the information
 // update, shared with the fused chain, on equal copies.  No block barrier, no atomics: a
 // run repeats bit for bit.
+//
+// A fleet of B replicas (every input and output with a leading B) is one
+// launch of B such warps, a block each, block r walking replica r as a
+// launch of that replica alone does.
 
 #include "lk_chain_warp.cuh"
 
@@ -59,6 +63,28 @@ chain_points_warp_kernel(const float* __restrict__ params, const float* __restri
                          float* oposcov, float* onm, float* frot, float* flin, float* fcov,
                          float* fclocks, int nb, int kmax, int P, int bulk) {
   namespace w = lk_warp;
+  // Replica blockIdx.x of a fleet: every input and output at its stride.
+  // The inputs staged or read before the walk are shifted here; the point
+  // rows and the outputs are indexed from rb, the replica's first bucket,
+  // at each use (a shifted pointer would hold registers through the walk).
+  const int rep = blockIdx.x, rb = rep * nb;
+  {
+    const size_t q = rep, ev = static_cast<size_t>(nb) * kmax;
+    params += q * 40;
+    clocks += q * 2;
+    rot0 += q * 9;
+    lin0 += q * 27;
+    cov0 += q * 900;
+    btime += q * nb;
+    bgate += q * nb;
+    etime += q * ev;
+    egate += q * ev;
+    eacc += q * 3 * ev;
+    egyr += q * 3 * ev;
+    efp += q * 12 * ev;
+    efv += q * 12 * ev;
+    ect += q * 4 * ev;
+  }
   __shared__ w::SmemOf<KIN> sm;
   __shared__ __align__(8) unsigned long long bar[2];  // with bulk: slot s's copies
   // the ring's two slots of 9 P floats | btime | bgate | etime | egate | eacc
@@ -96,7 +122,11 @@ chain_points_warp_kernel(const float* __restrict__ params, const float* __restri
   }
   w::stage(sm.prm, params, 40, lane);
   w::cp_commit();
-  if (nb > 0) w::stage_points(ring, pi, n, nd, r, m, P, bulk, &bar[0], lane);
+  if (nb > 0) {
+    const size_t row = static_cast<size_t>(rb) * P;
+    w::stage_points(ring, pi + 3 * row, n + 3 * row, nd + row, r + row, m + row, P, bulk, &bar[0],
+                    lane);
+  }
   w::cp_commit();
   float p[30], rot[9], lin[27];
 #pragma unroll
@@ -113,7 +143,7 @@ chain_points_warp_kernel(const float* __restrict__ params, const float* __restri
   for (int b = 0; b < nb; ++b) {
     __syncwarp();  // every lane is done with the slot that bucket b + 1 refills
     if (b + 1 < nb) {
-      const size_t row = static_cast<size_t>(b + 1) * P;
+      const size_t row = static_cast<size_t>(rb + b + 1) * P;
       w::stage_points(ring + ((b + 1) & 1) * slot, pi + 3 * row, n + 3 * row, nd + row, r + row,
                       m + row, P, bulk, &bar[(b + 1) & 1], lane);
     }
@@ -155,30 +185,30 @@ chain_points_warp_kernel(const float* __restrict__ params, const float* __restri
     }
     if (lane == 0) {
 #pragma unroll
-      for (int k = 0; k < 9; ++k) orot[9 * b + k] = rot[k];
+      for (int k = 0; k < 9; ++k) orot[9 * (rb + b) + k] = rot[k];
 #pragma unroll
-      for (int k = 0; k < 3; ++k) opos[3 * b + k] = lin[k];
-      onm[b] = nm;
+      for (int k = 0; k < 3; ++k) opos[3 * (rb + b) + k] = lin[k];
+      onm[rb + b] = nm;
     }
     if (lane < 3) {
 #pragma unroll
-      for (int i = 0; i < 3; ++i) orotcov[9 * b + 3 * i + lane] = p[i];
+      for (int i = 0; i < 3; ++i) orotcov[9 * (rb + b) + 3 * i + lane] = p[i];
     } else if (lane < 6) {
 #pragma unroll
-      for (int i = 0; i < 3; ++i) oposcov[9 * b + 3 * i + lane - 3] = p[3 + i];
+      for (int i = 0; i < 3; ++i) oposcov[9 * (rb + b) + 3 * i + lane - 3] = p[3 + i];
     }
   }
   if (lane < 30) {
 #pragma unroll
-    for (int i = 0; i < 30; ++i) fcov[i * 30 + lane] = p[i];
+    for (int i = 0; i < 30; ++i) fcov[900 * rep + i * 30 + lane] = p[i];
   }
   if (lane == 0) {
 #pragma unroll
-    for (int k = 0; k < 9; ++k) frot[k] = rot[k];
+    for (int k = 0; k < 9; ++k) frot[9 * rep + k] = rot[k];
 #pragma unroll
-    for (int k = 0; k < 27; ++k) flin[k] = lin[k];
-    fclocks[0] = lp;
-    fclocks[1] = lu;
+    for (int k = 0; k < 27; ++k) flin[27 * rep + k] = lin[k];
+    fclocks[2 * rep] = lp;
+    fclocks[2 * rep + 1] = lu;
   }
 }
 
@@ -192,7 +222,12 @@ bool aligned16(const void* q) { return reinterpret_cast<uintptr_t>(q) % 16 == 0;
 
 // The ring (2 x 9 P floats) and the staged event rows, nb (2 + 8 kmax)
 // floats, nb (2 + 36 kmax) with the feet's rows: dynamic shared memory, with
-// the opt-in above 48 KB in all.
+// the opt-in above 48 KB in all; the same for every replica, so a fleet of
+// up to 132 replicas is one wave, a block an SM.  The bulk copies need
+// every replica's row bases 16-byte aligned: replica r's rows start
+// 4 (r nb + b) P bytes (x3 for pi and n) past the bases, so P % 4 == 0 and
+// aligned bases give it for the whole launch; else every block takes the
+// 4-byte copies.
 template <bool KIN>
 int launch_points_warp(const float* params, const float* clocks, const float* rot0,
                        const float* lin0, const float* cov0, const float* btime,
@@ -201,7 +236,8 @@ int launch_points_warp(const float* params, const float* clocks, const float* ro
                        const float* ect, const float* pi, const float* n, const float* nd,
                        const float* r, const float* m, float* orot, float* opos, float* orotcov,
                        float* oposcov, float* onm, float* frot, float* flin, float* fcov,
-                       float* fclocks, int nb, int kmax, int P, cudaStream_t st) {
+                       float* fclocks, int nb, int kmax, int P, int batch, cudaStream_t st) {
+  if (batch <= 0) return 0;
   const size_t dyn =
       (static_cast<size_t>(2) * ROW_FLOATS * P + static_cast<size_t>(nb) * (2 + (KIN ? 36 : 8) * kmax)) *
       sizeof(float);
@@ -214,7 +250,7 @@ int launch_points_warp(const float* params, const float* clocks, const float* ro
   }
   const int bulk = P > 0 && P % 4 == 0 && aligned16(pi) && aligned16(n) && aligned16(nd) &&
                    aligned16(r) && aligned16(m);
-  chain_points_warp_kernel<KIN><<<1, lk_warp::NW, dyn, st>>>(
+  chain_points_warp_kernel<KIN><<<batch, lk_warp::NW, dyn, st>>>(
       params, clocks, rot0, lin0, cov0, btime, bgate, etime, egate, eacc, egyr, efp, efv, ect, pi,
       n, nd, r, m, orot, opos, orotcov, oposcov, onm, frot, flin, fcov, fclocks, nb, kmax, P, bulk);
   return static_cast<int>(cudaGetLastError());
@@ -230,14 +266,14 @@ LK_API int chain_points_launch(const float* params, const float* clocks, const f
                                const float* nd, const float* r, const float* m, float* orot,
                                float* opos, float* orotcov, float* oposcov, float* onm,
                                float* frot, float* flin, float* fcov, float* fclocks, int nb,
-                               int kmax, int P, int use_kin, void* stream) {
+                               int kmax, int P, int use_kin, int batch, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (use_kin)
     return launch_points_warp<true>(params, clocks, rot0, lin0, cov0, btime, bgate, etime, egate,
                                     eacc, egyr, efp, efv, ect, pi, n, nd, r, m, orot, opos,
                                     orotcov, oposcov, onm, frot, flin, fcov, fclocks, nb, kmax, P,
-                                    st);
+                                    batch, st);
   return launch_points_warp<false>(params, clocks, rot0, lin0, cov0, btime, bgate, etime, egate,
                                    eacc, egyr, efp, efv, ect, pi, n, nd, r, m, orot, opos, orotcov,
-                                   oposcov, onm, frot, flin, fcov, fclocks, nb, kmax, P, st);
+                                   oposcov, onm, frot, flin, fcov, fclocks, nb, kmax, P, batch, st);
 }

@@ -21,7 +21,11 @@ package's ``filter_deferred._chain_fused_core``).
 
 A fleet of B replicas gives every argument and output a leading B: one
 launch of B warps, a replica each (the kernel's design is per replica);
-``chain_plain`` runs the replicas one after another.
+``chain_plain`` runs the bucket recursion once on [B, ...] tensors.  It
+runs one replica as a fleet of one: a batched product of small matrices
+rounds apart from the unbatched one on the CPU (a loop of products
+against a BLAS call), and so a fleet's replica equals the replica's own
+call bit for bit.
 """
 
 from __future__ import annotations
@@ -38,42 +42,47 @@ F32 = torch.float32
 
 def chain_plain(params, clocks, rot0, lin0, cov0, brow, etime, egate, eacc, egyr,
                 efp, efv, ect, s40, use_kin: bool):
-    """Plain PyTorch version of the chain kernel (same contract)."""
-    if params.dim() == 2:  # a fleet: the replicas one after another
+    """Plain PyTorch version of the chain kernel (same contract).  A fleet
+    (a leading B on every argument) runs the recursion once for all its
+    replicas; one replica runs it as a fleet of one, so that a fleet's
+    replica r equals the call on replica r alone, bit for bit (module doc)."""
+    if params.dim() == 1:
         args = (params, clocks, rot0, lin0, cov0, brow, etime, egate, eacc, egyr, efp, efv, ect, s40)
-        outs = [chain_plain(*(a[r] for a in args), use_kin=use_kin) for r in range(params.shape[0])]
-        return tuple(torch.stack(xs) for xs in zip(*outs))
-    nb, kmax = etime.shape
-    q, r6 = params[0:30], params[30:36]
-    g_an, kin_noise = params[36], params[37]
+        outs = chain_plain(*(a[None] for a in args), use_kin=use_kin)
+        return tuple(x[0] for x in outs)
+    lead = tuple(params.shape[:-1])
+    nb, kmax = etime.shape[-2:]
+    q, r6 = params[..., 0:30], params[..., 30:36]
+    g_an, kin_noise = params[..., 36], params[..., 37]
     noise = NoiseParams(q_diag=q, imu_meas_r=r6, kin_meas_noise=kin_noise,
                         lidar_point_meas_ratio=None)
     st, cov = State(rot=rot0, lin=lin0), cov0
-    lp, lu = clocks[0], clocks[1]
+    lp, lu = clocks[..., 0], clocks[..., 1]
     outs = []
     for b in range(nb):
         for k in range(kmax):
-            t, g = etime[b, k], egate[b, k]
+            t, g = etime[..., b, k], egate[..., b, k]
             st, cov = ef.predict(st, cov, q, (t - lp) * g, (t - lu) * g)
             if use_kin:
                 h, z, r, _ = ef.build_kin_obs(
-                    st, eacc[b, k], egyr[b, k], efp[b, k].reshape(4, 3),
-                    efv[b, k].reshape(4, 3), ect[b, k] > 0.5, noise, g_an,
+                    st, eacc[..., b, k, :], egyr[..., b, k, :],
+                    efp[..., b, k, :].reshape(lead + (4, 3)),
+                    efv[..., b, k, :].reshape(lead + (4, 3)), ect[..., b, k, :] > 0.5, noise, g_an,
                 )
                 st, cov = ef.update_by_kin_imu(st, cov, h, z, r, gate=g)
             else:
-                z6 = imu_innovation(st, eacc[b, k], egyr[b, k], g_an)
+                z6 = imu_innovation(st, eacc[..., b, k, :], egyr[..., b, k, :], g_an)
                 st, cov = ef.update_by_imu(st, cov, z6, r6, gate=g)
             lp = torch.where(g > 0.5, t, lp)
             lu = torch.where(g > 0.5, t, lu)
-        t, g, nm = brow[b, 0], brow[b, 1], brow[b, 2]
+        t, g, nm = brow[..., b, 0], brow[..., b, 1], brow[..., b, 2]
         st, cov = ef.predict(st, cov, q, (t - lp) * g, (t - lu) * g)
         lp = torch.where(g > 0.5, t, lp)
-        st, cov = ef.point_update_from_stats(st, cov, s40[b])
+        st, cov = ef.point_update_from_stats(st, cov, s40[..., b, :, :])
         lu = torch.where((g > 0.5) & (nm > 0.5), t, lu)
-        outs.append((st.rot, st.pos, cov[0:3, 0:3], cov[3:6, 3:6], nm))
-    orot, opos, orotcov, oposcov, onm = (torch.stack(x) for x in zip(*outs))
-    return orot, opos, orotcov, oposcov, onm, st.rot, st.lin, cov, torch.stack([lp, lu])
+        outs.append((st.rot, st.pos, cov[..., 0:3, 0:3], cov[..., 3:6, 3:6], nm))
+    orot, opos, orotcov, oposcov, onm = (torch.stack(x, dim=len(lead)) for x in zip(*outs))
+    return orot, opos, orotcov, oposcov, onm, st.rot, st.lin, cov, torch.stack([lp, lu], dim=-1)
 
 
 def chain_call(params, clocks, rot0, lin0, cov0, brow, etime, egate, eacc, egyr,

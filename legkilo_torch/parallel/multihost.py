@@ -11,10 +11,11 @@ of a world of n holds the replicas that JAX places on device r.
 :func:`initialize` brings the process group up from the command line's
 ``--coordinator`` / ``--num_processes`` / ``--process_id`` (or, without a
 coordinator, from the ``env://`` variables ``torchrun`` sets) and binds
-the rank to its card before anything touches CUDA.  The backend follows
-one rule (:func:`backend_for`): gloo on the CPU, NCCL when every rank of a
-host has a card of its own, gloo when the host's ranks outnumber its cards
-(NCCL refuses two ranks on one device).
+the rank to its card before anything touches CUDA; rank 0 logs the port
+its coordinator listens on (``HOST:0`` lets it take a free one).  The
+backend follows one rule (:func:`backend_for`): gloo on the CPU, NCCL when
+every rank of a host has a card of its own, gloo when the host's ranks
+outnumber its cards (NCCL refuses two ranks on one device).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
+from torch.distributed.constants import default_pg_timeout
 
 log = logging.getLogger(__name__)
 
@@ -83,7 +85,18 @@ def initialize(
     init = "tcp://" + coordinator_address if coordinator_address else "env://"
     log.warning("rank %d of %d: backend %s (%s, %d rank(s) a host, %d card(s) a host), %s",
                 rank, world, backend, device_type, per_host, cards, init)
-    dist.init_process_group(backend, init_method=init, world_size=world, rank=rank)
+    if not coordinator_address:
+        dist.init_process_group(backend, init_method=init, world_size=world, rank=rank)
+        return
+    # The coordinator's store, made here rather than by init_method so that
+    # rank 0 can log the port it listens on before the others join: given
+    # port 0, rank 0 binds a free port itself and the log names it.
+    host, port = coordinator_address.rsplit(":", 1)
+    store = dist.TCPStore(host, int(port), world, is_master=rank == 0, wait_for_workers=False,
+                          timeout=default_pg_timeout)
+    if rank == 0:
+        log.warning("rank 0: coordinator listening on %s:%d", host, store.port)
+    dist.init_process_group(backend, store=store, world_size=world, rank=rank)
 
 
 def process_count() -> int:

@@ -6,10 +6,10 @@ map).  The fleet carry is ``FilterCarry`` with a leading replica axis on
 each of its 12 tensors, as the JAX ``batched_carry`` makes it, so
 convert.py and the .npz checkpoints carry a JAX fleet across leaf for leaf;
 ``FilterParams`` is batched in full (``perturb_params`` varies
-``noise.q_diag``, ``fleet_init`` ``g_over_acc_norm``).  The step is
-core/filter_fleet.py's ``process_scan_fleet``: on the five-kernel
-configuration one launch of each kernel serves every replica; any other
-configuration runs the replicas one after another.
+``noise.q_diag``, ``fleet_init`` ``g_over_acc_norm``).  The step is the
+single step, ``process_scan_any``, given the leading replica axis
+(core/filter_fleet.py): one batched step for every replica on every
+configuration (each kernel one launch a match pass for all of them).
 
 With a ``mesh`` (parallel/mesh.py: one rank a card), each rank steps its
 own shard of the replicas, ``mesh.size()`` shards of B/n, and the
@@ -34,13 +34,9 @@ from ..core.filter import (
     first_frame_map,
     init_carry,
     init_state_from_imu,
+    process_scan_any,
 )
-from ..core.filter_fleet import (
-    process_scan_chunk_fleet,
-    process_scan_fleet,
-    stack_replicas,
-    tree_map,
-)
+from ..core.filter_fleet import process_scan_chunk_fleet, stack_replicas, tree_map
 from .mesh import gather_rows
 
 
@@ -84,7 +80,7 @@ def make_fleet_step(scfg: StaticConfig, mesh=None, with_stats: bool = True):
     fleet's."""
 
     def step(carry, packet, params):
-        carry, out = process_scan_fleet(carry, packet, params, scfg)
+        carry, out = process_scan_any(carry, packet, params, scfg)
         return carry, out, (_stats(out.pos, out.n_matched, mesh) if with_stats else None)
 
     return step

@@ -1,9 +1,11 @@
 """The port's fleet (``legkilo_torch/parallel/sweep.py``, ``sweep``) on the CPU.
 
-The six kernels of the fleet path take a replica axis: each plain version
-at B = 3 equals three B = 1 calls.  The fleet step equals the single steps
-replica by replica (bit for bit on the batched five-kernel route and on the
-replica loop of the sequential pipeline), chunked equals per-scan stepping,
+The seven kernels take a replica axis: each plain version at B = 3 equals
+three B = 1 calls.  The fleet step equals the single steps replica by
+replica (bit for bit on the five-kernel route; the sequential pipeline's
+one batched step within the tolerances of its batched ESKF products; the
+other routes in tests/test_torch_fleet_routes.py), chunked equals per-scan
+stepping,
 and the fleet tracks the JAX package's ``make_fleet_step`` (its XLA arm,
 the bounds of tests/test_fleet_pallas.py).  The CLI's ``sweep`` runs
 ``--distinct``, ``--bags`` and ``--traj_out`` with ``--device cpu``, and its
@@ -30,8 +32,10 @@ from legkilo_torch import cli as t_cli
 from legkilo_torch import config as t_config
 from legkilo_torch import convert
 from legkilo_torch.core import eskf as t_eskf
+from legkilo_torch.core import filter as t_filter
+from legkilo_torch.core import filter_deferred as t_fd
 from legkilo_torch.core.filter import FilterParams, ScanPacket, process_scan_any
-from legkilo_torch.core.filter_fleet import fleet_batched, replica
+from legkilo_torch.core.filter_fleet import replica
 from legkilo_torch.io.dataset import decimate_blind, to_device_packet
 from legkilo_torch.io.tum import read_tum
 from legkilo_torch.models import sim as t_sim
@@ -83,13 +87,16 @@ def params_of(cfg):
 
 def distinct_start(cfg, n, duration=0.6, scan_points=3000):
     """n distinct sims through fleet_init, as ``sweep --distinct`` starts:
-    (scfg, carry, params, the replicas' device packets after the first)."""
+    (scfg, carry, params, the replicas' device packets after the first);
+    with ``only_imu_use`` off the packets carry the sims' kinematic events."""
     scfg = make_static_config(cfg)
+    use_kin = not cfg.only_imu_use
     seqs, clouds, accs, gyrs, offs = [], [], [], [], []
     for r in range(n):
         data = t_sim.simulate(t_sim.SimConfig(duration=duration, scan_points=scan_points, seed=10 + r),
                               traj=t_sim.Trajectory(speed=0.5 + 0.2 * r, radius=2.0 + 0.3 * r))
-        pk = t_cli._packets_from_streams(cfg, data.scans, data.imu, use_kin=False)
+        pk = t_cli._packets_from_streams(cfg, data.scans, data.kin if use_kin else data.imu,
+                                         use_kin=use_kin)
         m = pk[0].imu_mask
         accs.append(pk[0].imu_acc[m].mean(axis=0))
         gyrs.append(pk[0].imu_gyr[m].mean(axis=0))
@@ -102,6 +109,18 @@ def distinct_start(cfg, n, duration=0.6, scan_points=3000):
     return scfg, carry, params, seqs
 
 
+def count_calls(monkeypatch, module, name):
+    """A list that gains an entry at each call of ``module.name``."""
+    calls, fn = [], getattr(module, name)
+
+    def wrapped(*args, **kwargs):
+        calls.append(1)
+        return fn(*args, **kwargs)
+
+    monkeypatch.setattr(module, name, wrapped)
+    return calls
+
+
 def assert_trees_equal(a, b):
     la, lb = [], []
     t_sw.tree_map(lambda x: la.append(x), a)
@@ -111,11 +130,13 @@ def assert_trees_equal(a, b):
         assert torch.equal(x, y), f"leaf {i}"
 
 
-@pytest.mark.parametrize("kernel", ["pose", "chain_stats", "keys", "select", "moments", "fit"])
+@pytest.mark.parametrize("kernel", ["pose", "chain_stats", "keys", "select", "moments", "fit",
+                                    "chain_points", "chain_points_kin"])
 def test_plain_version_of_a_fleet_equals_its_replicas(kernel):
     """Each kernel's plain version at B = 3 distinct replicas (the fleet
     layout: par a row a replica, rows and buckets side by side, indices
-    global) equals three B = 1 calls, bit for bit."""
+    global; the chains' every argument with a leading B) equals three B = 1
+    calls, bit for bit."""
     cases = chip_smoke._fleet_kernel_cases(torch, "cpu", np.random.default_rng(13), 3, small=True)
     fargs, singles, call, fleet_of, _, _ = cases[kernel]
     got = call(fargs)
@@ -126,22 +147,25 @@ def test_plain_version_of_a_fleet_equals_its_replicas(kernel):
         assert torch.equal(x, y), f"{kernel}: output {i}"
 
 
-def test_fleet_step_on_distinct_streams_equals_single_steps():
+def test_fleet_step_on_distinct_streams_equals_single_steps(monkeypatch):
     """The port of tests/test_sharding.py's test_vmap_deferred_matches_loop
-    on the batched five-kernel route: three distinct sims, perturbed q_diag,
-    four fleet steps; every replica's outputs and final carry are those of
-    its own single steps, bit for bit."""
+    on the five-kernel route: three distinct sims, perturbed q_diag, four
+    fleet steps, each one fused step for the three replicas; every
+    replica's outputs and final carry are those of its own single steps,
+    bit for bit."""
     cfg = small_cfg()
     scfg, carry0, params, seqs = distinct_start(cfg, 3)
-    assert fleet_batched(scfg)
     params = t_sw.perturb_params(replica(params, 0), 3, scale=0.2, seed=1)._replace(
         g_over_acc_norm=params.g_over_acc_norm)
     steps = t_sw.stack_packets(seqs)[:4]
     step = t_sw.make_fleet_step(scfg)
+    fused = count_calls(monkeypatch, t_fd, "_process_scan_fused")
     carry, outs = carry0, []
     for pk in steps:
         carry, out, stats = step(carry, pk, params)
         outs.append(out)
+    monkeypatch.undo()
+    assert len(fused) == len(steps)
     assert float(stats.mean_matched) > 50
     for r in range(3):
         c = replica(carry0, r)
@@ -151,25 +175,33 @@ def test_fleet_step_on_distinct_streams_equals_single_steps():
         assert_trees_equal(c, replica(carry, r))
 
 
-def test_sequential_fleet_takes_the_replica_loop():
-    """A sequential-pipeline fleet of 2 over 2 scans steps the replicas one
-    after another and equals their single runs."""
-    cfg = small_cfg(five=False, pipeline="sequential")
+def test_sequential_fleet_takes_the_replica_loop(monkeypatch):
+    """The sequential pipeline's fleet takes no replica loop any more: a
+    fleet of 2 over 2 scans runs each bucket once for both replicas (NB
+    bucket steps a fleet step, not B x NB) and equals their single runs:
+    counts and map keys and occupancy equal, and every float within the
+    tolerances of the batched ESKF products (pos and rot 1e-5, covariance
+    1e-6; tests/test_torch_fleet_routes.py)."""
+    from test_torch_fleet_routes import assert_replica_matches, route_cfg
+
+    cfg = route_cfg("sequential")  # small_cfg, the sequential pipeline, buckets spanning the scan
     scfg, carry0, params, seqs = distinct_start(cfg, 2, duration=0.4)
-    assert not fleet_batched(scfg)
     steps = t_sw.stack_packets(seqs)[:2]
     step = t_sw.make_fleet_step(scfg, with_stats=False)
+    buckets = count_calls(monkeypatch, t_filter, "_point_bucket")
     carry = carry0
     outs = []
     for pk in steps:
         carry, out, _ = step(carry, pk, params)
         outs.append(out)
+    monkeypatch.undo()
+    assert len(buckets) == len(steps) * steps[0].points.shape[1]
     for r in range(2):
         c = replica(carry0, r)
         for k, pk in enumerate(steps):
             c, o = process_scan_any(c, replica(pk, r), replica(params, r), scfg)
-            assert_trees_equal(o, replica(outs[k], r))
-        assert_trees_equal(c, replica(carry, r))
+            assert_replica_matches(o, replica(outs[k], r), exact=False)
+        assert_replica_matches(c, replica(carry, r), exact=False)
 
 
 def test_fleet_chunk_equals_per_scan_stepping():
@@ -195,7 +227,7 @@ def test_fleet_chunk_equals_per_scan_stepping():
     assert torch.equal(stats.mean_pos, per_scan[-1].pos.mean(dim=0))
 
 
-def test_fleet_tracks_jax_make_fleet_step():
+def test_fleet_tracks_jax_make_fleet_step(monkeypatch):
     """The port's fleet (five kernel switches, plain versions) against the
     JAX package's ``make_fleet_step`` on its XLA arm, as
     tests/test_fleet_pallas.py holds the two JAX lowerings: one map boot
@@ -231,7 +263,7 @@ def test_fleet_tracks_jax_make_fleet_step():
 
     cfg = small_cfg()
     scfg = make_static_config(cfg)
-    assert fleet_batched(scfg)
+    fused = count_calls(monkeypatch, t_fd, "_process_scan_fused")
     params = convert.params_from_numpy([np.asarray(x) for x in jax.tree.leaves(jparams)], "cpu")
     from legkilo_torch.core.filter import first_frame_map, init_carry
 
@@ -245,6 +277,7 @@ def test_fleet_tracks_jax_make_fleet_step():
     for jp, tp in zip(jdev[1:5], tdev[1:5]):
         jcarry, _, jstats = jstep(jcarry, j_sw.broadcast_packets(jp, b), jparams)
         carry, _, tstats = tstep(carry, t_sw.broadcast_packets(tp, b), params)
+    assert len(fused) == 4  # one fused step a fleet step
     assert float(jstats.mean_matched) > 0 and float(tstats.mean_matched) > 0
     np.testing.assert_allclose(float(tstats.mean_matched), float(jstats.mean_matched), atol=3.0)
     np.testing.assert_allclose(N(carry.state.pos), np.asarray(jcarry.state.pos), rtol=2e-3, atol=2e-3)

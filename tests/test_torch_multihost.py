@@ -22,9 +22,11 @@ and over NCCL (two cards).
 
 import json
 import os
-import socket
+import re
 import subprocess
 import sys
+import tempfile
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -42,10 +44,7 @@ WORKER = os.path.join(ROOT, "tests", "torch_multihost_worker.py")
 TIMEOUT_S = 120
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+COORDINATOR_LINE = re.compile(r"coordinator listening on [^\s:]+:(\d+)")
 
 
 def _env(cwd):
@@ -57,24 +56,56 @@ def _env(cwd):
     return env
 
 
+def _coordinator_port(proc, err_file) -> int:
+    """The port rank 0's coordinator binds (``127.0.0.1:0`` lets it take a
+    free one, and ``multihost.initialize`` logs it), read from its stderr."""
+    deadline = time.monotonic() + TIMEOUT_S
+    while time.monotonic() < deadline:
+        err_file.seek(0)
+        m = COORDINATOR_LINE.search(err_file.read())
+        if m:
+            return int(m.group(1))
+        if proc.poll() is not None:
+            break
+        time.sleep(0.05)
+    err_file.seek(0)
+    raise AssertionError(f"rank 0 logged no coordinator port:\n{err_file.read()[-3000:]}")
+
+
 def run_ranks(argv_of, cwd, n=2):
-    """Start ``argv_of(rank, coordinator)`` for every rank, wait for all
-    (killing all on a timeout or a failure); returns their stdouts."""
-    coord = f"127.0.0.1:{_free_port()}"
-    procs = [subprocess.Popen(argv_of(i, coord), env=_env(cwd), cwd=cwd, stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True) for i in range(n)]
-    outs = []
+    """Start rank 0 with ``argv_of(0, "127.0.0.1:0")``: its coordinator binds
+    a free port of its own and logs it, so no other process can take a port
+    picked for it before it listens.  Then start ``argv_of(rank,
+    coordinator)`` for the other ranks on that port, wait for all (killing
+    all on a timeout or a failure) and return their stdouts; a failure
+    shows every rank's stderr."""
+    errs = [tempfile.TemporaryFile("w+") for _ in range(n)]
+
+    def start(i, coord):
+        return subprocess.Popen(argv_of(i, coord), env=_env(cwd), cwd=cwd, stdout=subprocess.PIPE,
+                                stderr=errs[i], text=True)
+
+    procs = []
     try:
-        for p in procs:
-            out, err = p.communicate(timeout=TIMEOUT_S)
-            assert p.returncode == 0, f"rank failed:\n{err[-3000:]}"
-            outs.append(out)
+        procs.append(start(0, "127.0.0.1:0"))
+        if n > 1:
+            coord = f"127.0.0.1:{_coordinator_port(procs[0], errs[0])}"
+            procs += [start(i, coord) for i in range(1, n)]
+        outs = [p.communicate(timeout=TIMEOUT_S)[0] for p in procs]
+        if any(p.returncode for p in procs):
+            text = []
+            for i, (p, e) in enumerate(zip(procs, errs)):
+                e.seek(0)
+                text.append(f"rank {i} (exit code {p.returncode}):\n{e.read()[-3000:]}")
+            raise AssertionError("rank failed:\n" + "\n".join(text))
+        return outs
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.communicate()
-    return outs
+        for e in errs:
+            e.close()
 
 
 def cli_ranks(args, cwd, n=2):

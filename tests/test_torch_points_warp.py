@@ -164,15 +164,16 @@ def test_unmatched_or_gated_off_bucket_leaves_the_state_bit_equal(hole):
 
 def test_chain_points_kernel_is_one_warp():
     """chain_points.cu holds one kernel, the KIN template, launched with 32
-    threads for either branch, ordered by __syncwarp() only, with no atomic;
-    the block chain's header is gone and nothing includes it."""
+    threads a block, a block a replica, for either branch, ordered by
+    __syncwarp() only, with no atomic; the block chain's header is gone and
+    nothing includes it."""
     with open(os.path.join(CSRC, "chain_points.cu")) as fh:
         src = fh.read()
     code = "\n".join(line.split("//")[0] for line in src.splitlines())   # comments out
     assert len(re.findall(r"__global__", code)) == 1
     assert re.search(r"template <bool KIN>\s*__global__ void __launch_bounds__\(lk_warp::NW\)\s*"
                      r"chain_points_warp_kernel\(", code)
-    assert re.search(r"chain_points_warp_kernel<KIN><<<1, lk_warp::NW,", code)
+    assert re.search(r"chain_points_warp_kernel<KIN><<<batch, lk_warp::NW,", code)
     assert "launch_points_warp<true>(" in code and "launch_points_warp<false>(" in code
     assert "__syncthreads" not in code and "atomic" not in code and "__syncwarp()" in code
     assert '#include "lk_chain_warp.cuh"' in code

@@ -343,9 +343,12 @@ def build_points(tag, d, stamped):
 def main_points(dirs, tags, use_kin):
     """The per-point chain: each version against chain_points_plain, its
     bits against the first version's, times in turns, warp phases."""
-    procs = []
+    procs, batched = [], {}
     for tag, d in zip(tags, dirs):
-        warp = "int P, int bulk) {" in open(os.path.join(d, "chain_points.cu")).read()   # stampable
+        text = open(os.path.join(d, "chain_points.cu")).read()
+        warp = "int P, int bulk) {" in text   # stampable
+        batched[tag] = "int use_kin, int batch, void* stream" in text   # the launcher takes a replica count
+
         for stamped in (False, True) if warp else (False,):
             procs.append((tag, stamped, *build_points(tag, d, stamped)))
     libs = {}
@@ -361,7 +364,8 @@ def main_points(dirs, tags, use_kin):
         if stamped:
             lib.probe_launch.argtypes = [ctypes.c_void_p] * 29 + [ctypes.c_int] * 4
         else:
-            lib.chain_points_launch.argtypes = [ctypes.c_void_p] * 28 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            lib.chain_points_launch.argtypes = ([ctypes.c_void_p] * 28 + [ctypes.c_int] * (4 + batched[tag])
+                                                + [ctypes.c_void_p])
             with open(os.path.join(OUT, f"sass_points_{tag}.txt"), "w") as fh:
                 subprocess.run([os.path.join(os.path.dirname(NVCC), "cuobjdump"), "-sass", so], stdout=fh,
                                stderr=subprocess.STDOUT)
@@ -380,7 +384,8 @@ def main_points(dirs, tags, use_kin):
             if stamped:
                 rc = libs[(tag, True)].probe_launch(*ptrs, *optrs, stamps.data_ptr(), nb, k, p, int(use_kin))
             else:
-                rc = libs[(tag, False)].chain_points_launch(*ptrs, *optrs, nb, k, p, int(use_kin), None)
+                rc = libs[(tag, False)].chain_points_launch(*ptrs, *optrs, nb, k, p, int(use_kin),
+                                                             *([1] if batched[tag] else []), None)
             assert rc == 0, rc
             return outs
         res, outs = {}, {}
