@@ -28,6 +28,7 @@ from .eskf import NoiseParams
 from .plane_fit import calc_body_cov
 from .so3 import skew
 from .state import BV, DIM_STATE, IMU_A, IMU_W, VEL, State, make_state
+from ..utils.timing import span
 from .voxel_map import MapConfig, VoxelMap, insert_points, make_map, match_points, slide_map
 
 
@@ -201,13 +202,14 @@ def _slide_if_moved(carry: FilterCarry, scfg: StaticConfig) -> FilterCarry:
     """The map slide once the pose has moved ``sliding_thresh`` from the
     last slide.  Both maps are formed and one is selected on the card: no
     host read.  A fleet's carry slides each replica on its own trigger."""
-    moved = torch.linalg.norm(carry.state.pos - carry.last_slide_pos, dim=-1)
-    trigger = moved >= scfg.sliding_thresh
-    vm_slid = slide_map(carry.vm, scfg.map_cfg, carry.state.pos, scfg.half_map_size)
-    return carry._replace(
-        vm=VoxelMap(*(_where(trigger, a, b) for a, b in zip(vm_slid, carry.vm))),
-        last_slide_pos=_where(trigger, carry.state.pos, carry.last_slide_pos),
-    )
+    with span("lk.slide"):
+        moved = torch.linalg.norm(carry.state.pos - carry.last_slide_pos, dim=-1)
+        trigger = moved >= scfg.sliding_thresh
+        vm_slid = slide_map(carry.vm, scfg.map_cfg, carry.state.pos, scfg.half_map_size)
+        return carry._replace(
+            vm=VoxelMap(*(_where(trigger, a, b) for a, b in zip(vm_slid, carry.vm))),
+            last_slide_pos=_where(trigger, carry.state.pos, carry.last_slide_pos),
+        )
 
 
 def _point_vars(st: State, cov, params: FilterParams, scfg: StaticConfig, p_b):

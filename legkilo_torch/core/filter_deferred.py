@@ -60,6 +60,13 @@ and each plain phase runs once on [B, ...] tensors, the maps viewed flat
 its single run gives them (``_fold_mm``) where the single run's product
 is a matrix product with more than a few hundred multiply-adds; the
 chains' plain versions run a single replica as a fleet of one.
+
+The step's phases are spans (utils/timing.py, off unless recorded):
+``lk.step`` a scan (the clocks' rebase and the covariance's
+re-symmetrisation its own), and inside it ``lk.pose`` (the match poses,
+once a scan, before the match), ``lk.match``, ``lk.chain``, ``lk.insert``
+(the per-point path's world points and variances at the updated poses
+too; its children in core/voxel_map.py) and ``lk.slide``.
 """
 
 from __future__ import annotations
@@ -74,6 +81,7 @@ from ..ops import match_geom as mg
 from ..ops import pose_prop as pp
 from ..ops.chain_points import run_chain
 from ..ops.chain_stats import chain_plain, pack_state_and_events, run_chain_stats, unpack_chain_outputs
+from ..utils.timing import span
 from .filter import (
     FilterCarry,
     FilterParams,
@@ -235,11 +243,12 @@ def _predicted_bucket_poses_const_vel(carry: FilterCarry, packet: ScanPacket):
 def _predicted_bucket_poses(carry: FilterCarry, packet: ScanPacket, params: FilterParams,
                             scfg: StaticConfig):
     """Match poses per bucket, dispatched on scfg.match_pose."""
-    if scfg.match_pose == "imu":
-        if scfg.use_pallas_pose:
-            return _predicted_bucket_poses_imu_kernel(carry, packet, params)
-        return _predicted_bucket_poses_imu(carry, packet, params)
-    return _predicted_bucket_poses_const_vel(carry, packet)
+    with span("lk.pose"):
+        if scfg.match_pose == "imu":
+            if scfg.use_pallas_pose:
+                return _predicted_bucket_poses_imu_kernel(carry, packet, params)
+            return _predicted_bucket_poses_imu(carry, packet, params)
+        return _predicted_bucket_poses_const_vel(carry, packet)
 
 
 def _match_compact_stats(carry: FilterCarry, packet: ScanPacket, params: FilterParams,
@@ -508,35 +517,39 @@ def _process_scan_points(carry: FilterCarry, packet: ScanPacket, params: FilterP
     nb, p = packet.points.shape[-3:-1]
     ocnt0 = carry.vm.ocnt
 
-    carry0, poses = carry, None
+    carry0 = carry
+    poses = _predicted_bucket_poses(carry0, packet, params, scfg)
     for _ in range(max(1, scfg.match_iters)):
-        p_i, normal, center, r_meas, matched, crossmat = _batched_match(
-            carry0, packet, params, scfg, poses)
-        carry, rots, poss, rot_covs, pos_covs, nmatch = _chain_jax(
-            carry0, packet, params, scfg, p_i, normal, center, r_meas, matched)
+        with span("lk.match"):
+            p_i, normal, center, r_meas, matched, crossmat = _batched_match(
+                carry0, packet, params, scfg, poses)
+        with span("lk.chain"):
+            carry, rots, poss, rot_covs, pos_covs, nmatch = _chain_jax(
+                carry0, packet, params, scfg, p_i, normal, center, r_meas, matched)
         poses = (rots, poss)
 
-    p_w = torch.einsum("...bij,...bpj->...bpi", rots, p_i) + poss[..., :, None, :]
-    body_cov = calc_body_cov(packet.points, scfg.dept_err, scfg.beam_err)
-    rot_ext = _fold_mm(rots, params.ext_r)
-    rot_cross = rots[..., :, None, :, :] @ crossmat
-    var = (
-        torch.einsum("...bij,...bpjk,...blk->...bpil", rot_ext, body_cov, rot_ext)
-        + torch.einsum("...bpij,...bjk,...bplk->...bpil", rot_cross, rot_covs, rot_cross)
-        + pos_covs[..., :, None, :, :]
-    )
     mask = packet.point_mask & packet.bucket_mask[..., None]
-    p_w_f = p_w.reshape(lead + (nb * p, 3))
-    var_f = var.reshape(lead + (nb * p, 3, 3))
-    mask_f = mask.reshape(lead + (nb * p,))
-    if scfg.insert_cap and scfg.insert_cap < nb * p:
-        # Valid points to the front: the insert works on insert_cap rows.
-        rows = lead + (scfg.insert_cap,)
-        order = compact_order(mask_f, scfg.insert_cap).reshape(-1)
-        p_w_f = _gather_fill(p_w_f.reshape(-1, 3), order, 0.0).reshape(rows + (3,))
-        var_f = _gather_fill(var_f.reshape(-1, 3, 3), order, 0.0).reshape(rows + (3, 3))
-        mask_f = _gather_fill(mask_f.reshape(-1), order, False).reshape(rows)
-    carry = carry._replace(vm=insert_points(carry.vm, scfg.map_cfg, p_w_f, var_f, mask_f))
+    with span("lk.insert"):
+        p_w = torch.einsum("...bij,...bpj->...bpi", rots, p_i) + poss[..., :, None, :]
+        body_cov = calc_body_cov(packet.points, scfg.dept_err, scfg.beam_err)
+        rot_ext = _fold_mm(rots, params.ext_r)
+        rot_cross = rots[..., :, None, :, :] @ crossmat
+        var = (
+            torch.einsum("...bij,...bpjk,...blk->...bpil", rot_ext, body_cov, rot_ext)
+            + torch.einsum("...bpij,...bjk,...bplk->...bpil", rot_cross, rot_covs, rot_cross)
+            + pos_covs[..., :, None, :, :]
+        )
+        p_w_f = p_w.reshape(lead + (nb * p, 3))
+        var_f = var.reshape(lead + (nb * p, 3, 3))
+        mask_f = mask.reshape(lead + (nb * p,))
+        if scfg.insert_cap and scfg.insert_cap < nb * p:
+            # Valid points to the front: the insert works on insert_cap rows.
+            rows = lead + (scfg.insert_cap,)
+            order = compact_order(mask_f, scfg.insert_cap).reshape(-1)
+            p_w_f = _gather_fill(p_w_f.reshape(-1, 3), order, 0.0).reshape(rows + (3,))
+            var_f = _gather_fill(var_f.reshape(-1, 3, 3), order, 0.0).reshape(rows + (3, 3))
+            mask_f = _gather_fill(mask_f.reshape(-1), order, False).reshape(rows)
+        carry = carry._replace(vm=insert_points(carry.vm, scfg.map_cfg, p_w_f, var_f, mask_f))
 
     if scfg.map_sliding_en:
         carry = _slide_if_moved(carry, scfg)
@@ -564,15 +577,16 @@ def insert_phase(vm, mcfg, params: FilterParams, bidx, p_i_c, body_cov_c, mask_c
     update.  A fleet's (the kernel match's aux of a fleet, the chain's
     outputs and the maps with a leading B) is one moments and one fit
     launch over the maps viewed flat."""
-    rows = gated_insert_rows(mcfg, mask_c, own_keys, own_slot, own_found, own_plane)
-    # rows.pidx names points of p_i_c, rows.lvl levels of the map, and bidx
-    # (order // P) is never negative: the kernel reads them unchecked but
-    # for a trap.
-    mom_rows, moms_rows = ir.moments_rows_call(
-        params.ext_r, ir.level_sizes(mcfg.voxel_size, mcfg.levels, p_i_c.device),
-        rots.reshape(-1, 3, 3), poss.reshape(-1, 3), rot_covs.reshape(-1, 3, 3),
-        pos_covs.reshape(-1, 3, 3), p_i_c, body_cov_c, rows.pidx, bidx, rows.keys, rows.lvl,
-    )
+    with span("lk.insert.rows"):
+        rows = gated_insert_rows(mcfg, mask_c, own_keys, own_slot, own_found, own_plane)
+        # rows.pidx names points of p_i_c, rows.lvl levels of the map, and
+        # bidx (order // P) is never negative: the kernel reads them
+        # unchecked but for a trap.
+        mom_rows, moms_rows = ir.moments_rows_call(
+            params.ext_r, ir.level_sizes(mcfg.voxel_size, mcfg.levels, p_i_c.device),
+            rots.reshape(-1, 3, 3), poss.reshape(-1, 3), rot_covs.reshape(-1, 3, 3),
+            pos_covs.reshape(-1, 3, 3), p_i_c, body_cov_c, rows.pidx, bidx, rows.keys, rows.lvl,
+        )
     return _unflat(insert_packed_rows_hinted(fleet_flat(vm), mcfg, rows, mom_rows, moms_rows), vm)
 
 
@@ -650,19 +664,23 @@ def _process_scan_fused(carry: FilterCarry, packet: ScanPacket, params: FilterPa
             return run_chain_stats(c, packet, params, s40, nmatch_b, use_kin=scfg.use_kin)
         return _chain_fused_core(c, packet, params, scfg, s40, nmatch_b)
 
-    carry0, poses = carry, None
+    carry0 = carry
+    poses = _predicted_bucket_poses(carry0, packet, params, scfg)
     for _ in range(max(1, scfg.match_iters)):
-        s40, nmatch_b, aux = match_fn(carry0, packet, params, scfg, cap, poses)
-        carry, rots, poss, rot_covs, pos_covs, nmatch = chain_fn(carry0, s40, nmatch_b)
+        with span("lk.match"):
+            s40, nmatch_b, aux = match_fn(carry0, packet, params, scfg, cap, poses)
+        with span("lk.chain"):
+            carry, rots, poss, rot_covs, pos_covs, nmatch = chain_fn(carry0, s40, nmatch_b)
         poses = (rots, poss)
     (order, bidx, p_i_c, body_cov_c, mask_c, *own) = aux
 
-    if insert_kernel:
-        vm = insert_phase(carry.vm, mcfg, params, bidx, p_i_c, body_cov_c, mask_c, *own,
-                          rots, poss, rot_covs, pos_covs)
-    else:
-        vm = _insert_at_bucket_poses(carry.vm, scfg, params, bidx, p_i_c, body_cov_c, mask_c, own,
-                                     rots, poss, rot_covs, pos_covs)
+    with span("lk.insert"):
+        if insert_kernel:
+            vm = insert_phase(carry.vm, mcfg, params, bidx, p_i_c, body_cov_c, mask_c, *own,
+                              rots, poss, rot_covs, pos_covs)
+        else:
+            vm = _insert_at_bucket_poses(carry.vm, scfg, params, bidx, p_i_c, body_cov_c, mask_c,
+                                         own, rots, poss, rot_covs, pos_covs)
     carry = carry._replace(vm=vm)
 
     if scfg.map_sliding_en:
@@ -687,10 +705,11 @@ def process_scan_deferred(carry: FilterCarry, packet: ScanPacket, params: Filter
     also steps a fleet (a leading B on the carry, packet and params;
     core/filter_fleet.py)."""
     check_supported(scfg, *packet.points.shape[-3:-1])
-    carry = carry._replace(
-        last_predict_t=carry.last_predict_t - packet.rebase,
-        last_update_t=carry.last_update_t - packet.rebase,
-    )
-    step = _process_scan_fused if scfg.chain_impl == "fused" else _process_scan_points
-    carry, out = step(carry, packet, params, scfg)
-    return maybe_symmetrize_cov(carry, scfg), out
+    with span("lk.step"):
+        carry = carry._replace(
+            last_predict_t=carry.last_predict_t - packet.rebase,
+            last_update_t=carry.last_update_t - packet.rebase,
+        )
+        step = _process_scan_fused if scfg.chain_impl == "fused" else _process_scan_points
+        carry, out = step(carry, packet, params, scfg)
+        return maybe_symmetrize_cov(carry, scfg), out

@@ -43,6 +43,14 @@ Differences from the JAX module, none of which changes a result:
 * Summation order.  The moment scatter-adds run in row order on both
   devices (core/ordered_sum.py), so two runs on the card give equal maps.
 
+An insert's phases are spans (utils/timing.py) inside the step's
+``lk.insert``: ``lk.insert.rows`` (the gated rows and their moments),
+``lk.insert.tables`` (the sentinel copies: the probe table's before the
+claims, the other four's after; counter ``map.table_bytes``),
+``lk.insert.claim`` (every claim round; counter ``map.claim_rows``, the
+rows times the rounds), ``lk.insert.accumulate`` (the scatter-adds through
+the thresholds) and ``lk.insert.refit`` (the budget, the fit, the writes).
+
 A fleet of B maps (core/filter_fleet.py) keeps every table with a leading
 replica axis, [B, L*C, W], and its batched step views them flat, [B*L*C, W]:
 replica r's level l is segment r*L + l of capacity C, the miss slot is
@@ -68,6 +76,7 @@ import torch
 
 from ..ops.match_geom import hash_keys
 from ..ops.plane_fit_rows import fit_par, fit_slots_call
+from ..utils.timing import span, tally
 from .ordered_sum import index_add_rows
 from .plane_fit import PlaneMoments, fit_planes, point_moments
 
@@ -219,6 +228,15 @@ def _with_sentinel(t: torch.Tensor) -> torch.Tensor:
     return torch.cat([t, t.new_zeros((1,) + tuple(t.shape[1:]))])
 
 
+def _sentinel_tables(*tables):
+    """``_with_sentinel`` of each table: the copies an insert makes (span
+    ``lk.insert.tables``; their bytes are the counter ``map.table_bytes``)."""
+    with span("lk.insert.tables"):
+        out = tuple(_with_sentinel(t) for t in tables)
+    tally("map.table_bytes", sum(t.nbytes for t in out))
+    return out
+
+
 def _gather_fill(x: torch.Tensor, idx: torch.Tensor, fill=0) -> torch.Tensor:
     """x[idx] with out-of-range idx (== len(x)) reading ``fill``."""
     n = x.shape[0]
@@ -286,30 +304,32 @@ def _find_or_insert_flat(ptab_x, keys, lvl, active, cfg: MapConfig):
     miss = ptab_x.shape[0] - 1
     M = keys.shape[0]
     dev = keys.device
-    slot = torch.full((M,), miss, dtype=torch.int64, device=dev)
-    resolved = torch.zeros((M,), dtype=torch.bool, device=dev)
-    claim = torch.cat(
-        [keys, torch.ones((M, 1), dtype=torch.int32, device=dev),
-         torch.zeros((M, 1), dtype=torch.int32, device=dev)], dim=1
-    )
-    rowid = torch.arange(M, dtype=torch.int64, device=dev)
-    for _ in range(cfg.insert_rounds):
-        s, found, empty, has_empty, _ = _probe_find_flat(ptab_x, keys, lvl, cfg, miss)
+    tally("map.claim_rows", M * cfg.insert_rounds)
+    with span("lk.insert.claim"):
+        slot = torch.full((M,), miss, dtype=torch.int64, device=dev)
+        resolved = torch.zeros((M,), dtype=torch.bool, device=dev)
+        claim = torch.cat(
+            [keys, torch.ones((M, 1), dtype=torch.int32, device=dev),
+             torch.zeros((M, 1), dtype=torch.int32, device=dev)], dim=1
+        )
+        rowid = torch.arange(M, dtype=torch.int64, device=dev)
+        for _ in range(cfg.insert_rounds):
+            s, found, empty, has_empty, _ = _probe_find_flat(ptab_x, keys, lvl, cfg, miss)
+            newly = active & ~resolved & found
+            slot = torch.where(newly, s, slot)
+            resolved = resolved | newly
+            want = active & ~resolved & has_empty
+            claim_idx = torch.where(want, empty, miss)
+            # The last writer of each slot wins, as XLA applies duplicates.
+            winner = torch.full((miss + 1,), -1, dtype=torch.int64, device=dev)
+            winner.scatter_reduce_(0, claim_idx, rowid, reduce="amax")
+            won = want & (winner[claim_idx] == rowid)
+            ptab_x.index_copy_(0, torch.where(won, claim_idx, miss), claim)
+        s, found, _, _, _ = _probe_find_flat(ptab_x, keys, lvl, cfg, miss)
         newly = active & ~resolved & found
         slot = torch.where(newly, s, slot)
         resolved = resolved | newly
-        want = active & ~resolved & has_empty
-        claim_idx = torch.where(want, empty, miss)
-        # The last writer of each slot wins, as XLA applies duplicates.
-        winner = torch.full((miss + 1,), -1, dtype=torch.int64, device=dev)
-        winner.scatter_reduce_(0, claim_idx, rowid, reduce="amax")
-        won = want & (winner[claim_idx] == rowid)
-        ptab_x.index_copy_(0, torch.where(won, claim_idx, miss), claim)
-    s, found, _, _, _ = _probe_find_flat(ptab_x, keys, lvl, cfg, miss)
-    newly = active & ~resolved & found
-    slot = torch.where(newly, s, slot)
-    resolved = resolved | newly
-    return ptab_x, slot, resolved & active
+        return ptab_x, slot, resolved & active
 
 
 def compact_order(mask_f: torch.Tensor, cap: int) -> torch.Tensor:
@@ -351,7 +371,7 @@ def insert_points(vm: VoxelMap, cfg: MapConfig, p_w, var, mask) -> VoxelMap:
     seg = torch.arange(b * L, dtype=torch.int64, device=p_w.device).repeat_interleave(N)
     mask_f = mask.reshape(b, 1, N).expand(b, L, N).reshape(-1)
     flat = fleet_flat(vm)
-    ptab_x, slot, ok = _find_or_insert_flat(_with_sentinel(flat.ptab), keys, seg, mask_f, cfg)
+    ptab_x, slot, ok = _find_or_insert_flat(*_sentinel_tables(flat.ptab), keys, seg, mask_f, cfg)
     return _unflat(_insert_finish(
         flat, cfg, ptab_x, p_w[:, None].expand(b, L, N, 3).reshape(-1, 3),
         var.reshape(b, 1, N, 3, 3).expand(b, L, N, 3, 3).reshape(-1, 3, 3), keys, seg % L, slot, ok,
@@ -439,7 +459,7 @@ def resolve_insert_rows(ptab, cfg: MapConfig, rows: GatedRows):
     """Slot resolution: probe-hit rows keep their match-phase slot, new keys
     claim (module doc).  Returns (ptab with sentinel row, slot, ok)."""
     ptab_x, slot_c, ok_c = _find_or_insert_flat(
-        _with_sentinel(ptab), rows.keys, rows.seg, rows.need, cfg
+        *_sentinel_tables(ptab), rows.keys, rows.seg, rows.need, cfg
     )
     slot = torch.where(ok_c, slot_c, rows.slot0)
     return ptab_x, slot, slot < ptab.shape[0]
@@ -482,7 +502,8 @@ def insert_points_hinted(vm: VoxelMap, cfg: MapConfig, p_w, var, mask, own_keys,
     flat = fleet_flat(vm)
     p_w, var = p_w.reshape(b * N, 3), var.reshape(b * N, 3, 3)
     if cfg.insert_row_cap and own_plane is not None:
-        rows = gated_insert_rows(cfg, mask, own_keys, own_slot, own_found, own_plane)
+        with span("lk.insert.rows"):
+            rows = gated_insert_rows(cfg, mask, own_keys, own_slot, own_found, own_plane)
         ptab_x, slot, ok = resolve_insert_rows(flat.ptab, cfg, rows)
         return _unflat(_insert_finish(
             flat, cfg, ptab_x, p_w[rows.pidx], var[rows.pidx], rows.keys, rows.lvl, slot, ok,
@@ -503,7 +524,7 @@ def insert_points_hinted(vm: VoxelMap, cfg: MapConfig, p_w, var, mask, own_keys,
     mask_f = mask.reshape(b, 1, N).expand(b, L, N).reshape(-1)
     found_f = by_replica(own_found) & mask_f
     need = mask_f & ~found_f
-    ptab_x, slot_c, ok_c = _find_or_insert_flat(_with_sentinel(flat.ptab), keys, seg, need, cfg)
+    ptab_x, slot_c, ok_c = _find_or_insert_flat(*_sentinel_tables(flat.ptab), keys, seg, need, cfg)
     slot = torch.where(ok_c, slot_c, torch.where(found_f, by_replica(own_slot).to(torch.int64), miss))
     ok = slot < miss
     return _unflat(_insert_finish(
@@ -546,88 +567,91 @@ def _insert_finish(vm: VoxelMap, cfg: MapConfig, ptab_x, p_w_rows, var_rows, key
     batch = math.prod(lead)
     miss = ptab_x.shape[0] - 1
     budget = cfg.refit_budget
-    meta_x, mom_x = _with_sentinel(vm.meta), _with_sentinel(vm.mom)
-    moms_x, plane_x = _with_sentinel(vm.moms), _with_sentinel(vm.plane)
-
-    meta_at = meta_x[slot]
-    contrib = ok & (meta_at[:, _M_N] < float(cfg.max_points_num))
-    tgt = torch.where(contrib, slot, miss)
 
     if packed_rows is not None:
         mom_rows, moms_rows = packed_rows
     else:
-        sizes = torch.tensor([level_size(cfg, l) for l in range(L)], dtype=dtype, device=dev)
-        vc = (keys.to(dtype) + 0.5) * sizes[lvl_ids][:, None]
-        mom_rows, moms_rows = _pack_moments(point_moments(p_w_rows - vc, var_rows))
+        with span("lk.insert.rows"):
+            sizes = torch.tensor([level_size(cfg, l) for l in range(L)], dtype=dtype, device=dev)
+            vc = (keys.to(dtype) + 0.5) * sizes[lvl_ids][:, None]
+            mom_rows, moms_rows = _pack_moments(point_moments(p_w_rows - vc, var_rows))
+    meta_x, mom_x, moms_x, plane_x = _sentinel_tables(vm.meta, vm.mom, vm.moms, vm.plane)
 
-    counts = torch.zeros((keys.shape[0], META_DIM), dtype=dtype, device=dev)
-    counts[:, _M_N] = 1.0
-    counts[:, _M_NEW] = 1.0
-    index_add_rows((meta_x, mom_x, moms_x), tgt, (counts, mom_rows, moms_rows), drop=miss)
-    for t in (meta_x, mom_x, moms_x):
-        t[miss] = 0
+    with span("lk.insert.accumulate"):
+        meta_at = meta_x[slot]
+        contrib = ok & (meta_at[:, _M_N] < float(cfg.max_points_num))
+        tgt = torch.where(contrib, slot, miss)
+        counts = torch.zeros((keys.shape[0], META_DIM), dtype=dtype, device=dev)
+        counts[:, _M_N] = 1.0
+        counts[:, _M_NEW] = 1.0
+        index_add_rows((meta_x, mom_x, moms_x), tgt, (counts, mom_rows, moms_rows), drop=miss)
+        for t in (meta_x, mom_x, moms_x):
+            t[miss] = 0
 
-    meta_t = meta_x[tgt]
-    init_thresh = torch.tensor(cfg.init_num, dtype=dtype, device=dev)[lvl_ids]
-    refit = (
-        contrib
-        & (meta_t[:, _M_N] > init_thresh)
-        & ((meta_t[:, _M_INIT] <= 0.5) | (meta_t[:, _M_NEW] > float(cfg.update_size_threshold)))
-    )
-
-    # Up to refit_budget unique slots a replica: one sort groups
-    # duplicates, a prefix sum packs the unique ids to the front.
-    srt = torch.sort(torch.where(refit, tgt, miss).reshape(batch, -1)).values
-    first = torch.cat([torch.ones((batch, 1), dtype=torch.bool, device=dev),
-                       srt[:, 1:] != srt[:, :-1]], dim=1)
-    first = first & (srt < miss)
-    pos = torch.cumsum(first.to(torch.int64), 1) - 1
-    pos_t = torch.where(first & (pos < budget), pos, budget)
-    fs = torch.full((batch, budget + 1), miss, dtype=torch.int64, device=dev)
-    fs.scatter_(1, pos_t, srt)
-    fs = fs[:, :budget].reshape(-1)
-
-    if cfg.use_pallas_refit:
-        # The refit kernel, reading each slot's rows from the tables
-        # (ops/plane_fit_rows.py), at any budget (the JAX package needs a
-        # multiple of 128 for its Pallas block; the kernel here does not).
-        # Every fs entry names a row of the sentinel-extended tables: a
-        # voxel slot or the sentinel.
-        out = fit_slots_call(fit_par(cfg.planer_threshold, dev), meta_x, mom_x, moms_x, fs)
-        plane_rows = out[:, 0:PLANE_DIM]
-        meta_fit = out[:, PLANE_DIM : PLANE_DIM + META_DIM]
-    else:
-        meta_r = meta_x[fs]
-        n_r = torch.clamp(meta_r[:, _M_N], min=1.0)
-        fit = fit_planes(_unpack_moments(mom_x[fs], moms_x[fs].to(dtype), n_r), cfg.planer_threshold)
-        plane_rows = torch.cat(
-            [fit.center_rel, fit.normal, fit.evals, fit.radius[:, None],
-             fit.plane_var.reshape(-1, 36)[:, list(_TRIU36)]],
-            dim=-1,
+        meta_t = meta_x[tgt]
+        init_thresh = torch.tensor(cfg.init_num, dtype=dtype, device=dev)[lvl_ids]
+        refit = (
+            contrib
+            & (meta_t[:, _M_N] > init_thresh)
+            & ((meta_t[:, _M_INIT] <= 0.5) | (meta_t[:, _M_NEW] > float(cfg.update_size_threshold)))
         )
-        meta_fit = torch.stack(
-            [meta_r[:, _M_N], torch.zeros_like(n_r), torch.ones_like(n_r), fit.is_plane.to(dtype)],
-            dim=-1,
-        )
-    if plane_x.dtype != plane_rows.dtype:
-        # A degenerate scatter gives plane_var ~1/(n eps)^2: finite in f32
-        # but inf after a narrow downcast; saturate instead (voxel_map.py:889-896).
-        fmax = float(torch.finfo(plane_x.dtype).max)
-        plane_rows = torch.clamp(plane_rows, -fmax, fmax)
-    # fs repeats only the sentinel (miss) slot, whose row is dropped, so the
-    # order in which duplicate writes land there does not matter.
-    plane_x.index_copy_(0, fs, plane_rows.to(plane_x.dtype))
-    meta_x.index_copy_(0, fs, meta_fit)
-    ptab_x.index_put_(
-        (fs, torch.full_like(fs, _T_PLANE)), (meta_fit[:, _M_PLANE] > 0.5).to(torch.int32)
-    )
 
-    n_over = torch.clamp(first.sum(1) - budget, min=0).reshape(lead)
-    inc = _ocnt_inc(dev, refit=n_over, lead=lead) + ocnt_inc
-    return VoxelMap(
-        ptab=ptab_x[:miss], meta=meta_x[:miss], mom=mom_x[:miss], moms=moms_x[:miss],
-        plane=plane_x[:miss], ocnt=vm.ocnt + inc,
-    )
+    with span("lk.insert.refit"):
+        # Up to refit_budget unique slots a replica: one sort groups
+        # duplicates, a prefix sum packs the unique ids to the front.
+        srt = torch.sort(torch.where(refit, tgt, miss).reshape(batch, -1)).values
+        first = torch.cat([torch.ones((batch, 1), dtype=torch.bool, device=dev),
+                           srt[:, 1:] != srt[:, :-1]], dim=1)
+        first = first & (srt < miss)
+        pos = torch.cumsum(first.to(torch.int64), 1) - 1
+        pos_t = torch.where(first & (pos < budget), pos, budget)
+        fs = torch.full((batch, budget + 1), miss, dtype=torch.int64, device=dev)
+        fs.scatter_(1, pos_t, srt)
+        fs = fs[:, :budget].reshape(-1)
+
+        if cfg.use_pallas_refit:
+            # The refit kernel, reading each slot's rows from the tables
+            # (ops/plane_fit_rows.py), at any budget (the JAX package needs a
+            # multiple of 128 for its Pallas block; the kernel here does not).
+            # Every fs entry names a row of the sentinel-extended tables: a
+            # voxel slot or the sentinel.
+            out = fit_slots_call(fit_par(cfg.planer_threshold, dev), meta_x, mom_x, moms_x, fs)
+            plane_rows = out[:, 0:PLANE_DIM]
+            meta_fit = out[:, PLANE_DIM : PLANE_DIM + META_DIM]
+        else:
+            meta_r = meta_x[fs]
+            n_r = torch.clamp(meta_r[:, _M_N], min=1.0)
+            fit = fit_planes(_unpack_moments(mom_x[fs], moms_x[fs].to(dtype), n_r),
+                             cfg.planer_threshold)
+            plane_rows = torch.cat(
+                [fit.center_rel, fit.normal, fit.evals, fit.radius[:, None],
+                 fit.plane_var.reshape(-1, 36)[:, list(_TRIU36)]],
+                dim=-1,
+            )
+            meta_fit = torch.stack(
+                [meta_r[:, _M_N], torch.zeros_like(n_r), torch.ones_like(n_r),
+                 fit.is_plane.to(dtype)],
+                dim=-1,
+            )
+        if plane_x.dtype != plane_rows.dtype:
+            # A degenerate scatter gives plane_var ~1/(n eps)^2: finite in f32
+            # but inf after a narrow downcast; saturate instead (voxel_map.py:889-896).
+            fmax = float(torch.finfo(plane_x.dtype).max)
+            plane_rows = torch.clamp(plane_rows, -fmax, fmax)
+        # fs repeats only the sentinel (miss) slot, whose row is dropped, so
+        # the order in which duplicate writes land there does not matter.
+        plane_x.index_copy_(0, fs, plane_rows.to(plane_x.dtype))
+        meta_x.index_copy_(0, fs, meta_fit)
+        ptab_x.index_put_(
+            (fs, torch.full_like(fs, _T_PLANE)), (meta_fit[:, _M_PLANE] > 0.5).to(torch.int32)
+        )
+
+        n_over = torch.clamp(first.sum(1) - budget, min=0).reshape(lead)
+        inc = _ocnt_inc(dev, refit=n_over, lead=lead) + ocnt_inc
+        return VoxelMap(
+            ptab=ptab_x[:miss], meta=meta_x[:miss], mom=mom_x[:miss], moms=moms_x[:miss],
+            plane=plane_x[:miss], ocnt=vm.ocnt + inc,
+        )
 
 
 def match_points(vm: VoxelMap, cfg: MapConfig, p_w: torch.Tensor, var: torch.Tensor,

@@ -17,6 +17,9 @@ own shard of the replicas, ``mesh.size()`` shards of B/n, and the
 replicas' poses and match counts in rank order (``gather_rows``) and runs
 the same reduction on the same [B, ...] tensors, so each rank holds the
 statistics of a one-process fleet of B, bit for bit.
+
+A fleet call is the span ``lk.fleet`` (utils/timing.py): its scans'
+``lk.step`` spans and the statistics, ``lk.fleet.stats``, inside it.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from ..core.filter import (
     process_scan_any,
 )
 from ..core.filter_fleet import process_scan_chunk_fleet, stack_replicas, tree_map
+from ..utils.timing import span
 from .mesh import gather_rows
 
 
@@ -52,15 +56,16 @@ class FleetStats(NamedTuple):
 def _stats(pos, n_matched, mesh=None) -> FleetStats:
     """The statistics of the whole fleet: this rank's [b, 3] poses and [b]
     match counts gathered over the mesh into [B, ...] first."""
-    if mesh is not None:
-        pos, n_matched = gather_rows(mesh, [pos, n_matched])
-    mean = pos.mean(dim=0)
-    return FleetStats(
-        mean_pos=mean,
-        pos_spread=torch.linalg.norm(pos - mean, dim=-1).max(),
-        mean_matched=n_matched.to(torch.float32).mean(),
-        min_matched=n_matched.min(),
-    )
+    with span("lk.fleet.stats"):
+        if mesh is not None:
+            pos, n_matched = gather_rows(mesh, [pos, n_matched])
+        mean = pos.mean(dim=0)
+        return FleetStats(
+            mean_pos=mean,
+            pos_spread=torch.linalg.norm(pos - mean, dim=-1).max(),
+            mean_matched=n_matched.to(torch.float32).mean(),
+            min_matched=n_matched.min(),
+        )
 
 
 def _broadcast(tree, batch: int):
@@ -80,8 +85,9 @@ def make_fleet_step(scfg: StaticConfig, mesh=None, with_stats: bool = True):
     fleet's."""
 
     def step(carry, packet, params):
-        carry, out = process_scan_any(carry, packet, params, scfg)
-        return carry, out, (_stats(out.pos, out.n_matched, mesh) if with_stats else None)
+        with span("lk.fleet"):
+            carry, out = process_scan_any(carry, packet, params, scfg)
+            return carry, out, (_stats(out.pos, out.n_matched, mesh) if with_stats else None)
 
     return step
 
@@ -94,9 +100,10 @@ def make_fleet_chunk_step(scfg: StaticConfig, mesh=None, with_stats: bool = True
     with a ``mesh``, as ``make_fleet_step``)."""
 
     def step(carry, packets, params):
-        carry, outs = process_scan_chunk_fleet(carry, packets, params, scfg)
-        stats = _stats(outs.pos[:, -1], outs.n_matched[:, -1], mesh) if with_stats else None
-        return carry, outs, stats
+        with span("lk.fleet"):
+            carry, outs = process_scan_chunk_fleet(carry, packets, params, scfg)
+            stats = _stats(outs.pos[:, -1], outs.n_matched[:, -1], mesh) if with_stats else None
+            return carry, outs, stats
 
     return step
 

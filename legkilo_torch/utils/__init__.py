@@ -1,1 +1,1 @@
-"""Host utilities: per-stage timing, logging setup, profiling."""
+"""Host utilities: per-stage timing and the step's phase spans, logging setup, scan counters."""

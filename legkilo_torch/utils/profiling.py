@@ -1,58 +1,17 @@
-"""Device profiling helpers.
+"""Per-scan counters (ScanStats).
 
-The port's own copy of ``legkilo_tpu/utils/profiling.py``.  The reference's
-observability is wall-clock running averages (timer_utils.hpp) plus
-per-scan match-rate log lines (ros_interface.cc:391-394).  On the card we
-add torch.profiler traces (a Chrome trace file) and a device-time report by
-CUDA events.
+The port's own copy of ``legkilo_tpu/utils/profiling.py``'s ScanStats: the
+reference's observability is wall-clock running averages (timer_utils.hpp,
+here ``utils/timing.py``, which also records the step's phase spans) plus
+per-scan match-rate log lines (ros_interface.cc:391-394).  A trace of the
+card is torch.profiler's own, with ``timing.record_spans`` beside it
+(README, "Tracing the port").
 """
 
 from __future__ import annotations
 
-import contextlib
 import json
-import os
-from typing import Callable, Dict
-
-import torch
-
-
-@contextlib.contextmanager
-def trace(log_dir: str = "result/trace"):
-    """Trace the host and the card around a block with torch.profiler and
-    write ``<log_dir>/trace.json`` (open it in chrome://tracing or Perfetto).
-    Yields the profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
-        yield prof
-    os.makedirs(log_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
-def device_time(fn: Callable, *args, iters: int = 10, warmup: int = 2) -> float:
-    """Median seconds of the card's work for one ``fn(*args)``, by CUDA
-    events around each call after ``warmup`` calls.  Needs a card: there
-    is no host-clock fallback."""
-    if not torch.cuda.is_available():
-        raise RuntimeError("device_time needs CUDA (torch.cuda.is_available() is False)")
-    for _ in range(warmup):
-        fn(*args)
-    torch.cuda.synchronize()
-    pairs = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn(*args)
-        end.record()
-        pairs.append((start, end))
-    torch.cuda.synchronize()
-    times = sorted(s.elapsed_time(e) * 1e-3 for s, e in pairs)
-    return times[len(times) // 2]
+from typing import Dict
 
 
 class ScanStats:
