@@ -37,7 +37,11 @@ Phases, each printing its own lines:
    two pose instantiations this phase launches print their ptxas lines
    too (no spills allowed), two keys launches must be bit-equal, and an
    empty kernel from the library is timed the same way as the launch
-   floor (a line of its own, not in the kernels list).
+   floor (a line of its own, not in the kernels list).  The insert's claim
+   series ("claim", no switch: every path's inserts launch it) runs on the
+   calls a fleet of 64 replicas makes at 2^16 slots a level (its first
+   frame, two steps), each ``torch.equal`` to claim_plain, with its two
+   kernels' ptxas lines (no spills) and its ms at B = 1, 8 and 64.
 3. The main path end to end: runner.run_offline on the bench.py workload
    (24 s sim, 8000 points a scan, seed 7) on the card with all five kernel
    switches on, streaming ("main"), with every launch counter set to 0
@@ -72,8 +76,10 @@ Phases, each printing its own lines:
    feeding the chain, moments, pose and refit kernels (8 s, "mixed"); the
    default Config(), the sequential pipeline (2 s, "seq"); and
    configs/diter.yaml, sequential with leg kinematics (2 s, "seq_kin").
-   leg_fusion, seq and seq_kin launch none of the kernels; mixed exactly
-   its four.  The leg_fusion and seq runs each trace 2 of their scans
+   leg_fusion, seq and seq_kin launch none of the switched kernels, only
+   the claim kernel, which every path's inserts launch; mixed exactly its
+   four and the claim kernel.  The leg_fusion and seq runs each trace 2 of
+   their scans
    after 2 (the card's activity only; "profile_leg_fusion",
    "profile_seq"), and leave those scans out of their ms/scan.
 10. ``python -m legkilo_torch run`` itself, in this process: the first
@@ -189,6 +195,7 @@ REPLACES = {
     "pose": "legkilo_tpu/ops/pallas/pose_prop.py:57",
     "chain_points": "tools/experiments/eskf_chain_pallas.py:376",
     "chain_points_kin": "tools/experiments/eskf_chain_pallas.py:376",
+    "claim": "legkilo_tpu/core/voxel_map.py:415",  # XLA scatter rounds, no Pallas kernel
 }
 SOURCES = {
     "chain_stats": "legkilo_torch/csrc/chain_stats.cu",
@@ -201,8 +208,12 @@ SOURCES = {
     "pose": "legkilo_torch/csrc/pose_prop.cu",
     "chain_points": "legkilo_torch/csrc/chain_points.cu",
     "chain_points_kin": "legkilo_torch/csrc/chain_points.cu",
+    "claim": "legkilo_torch/csrc/claim_slots.cu",
 }
 # The wrappers whose kernels each path launches (counter names of wrappers()).
+# The claim kernel has no switch: every path that builds a map on the card
+# (the first frame, every insert) launches it.
+ALWAYS_KERNELS = {"claim"}
 FUSED_KERNELS = {"chain_stats", "keys", "select", "moments", "fit", "pose"}
 FOUR_KERNELS = FUSED_KERNELS - {"fit", "pose"}
 MIXED_KERNELS = FUSED_KERNELS - {"keys", "select"}
@@ -1109,6 +1120,7 @@ def phase_kernels(torch, dev):
         )
         log(f"[kernel] {name}: MP = {mp}, bit-equal")
         recs[name] = rec
+    recs["claim"] = claim_record(torch)
     floor_ms = launch_floor_ms(torch)
     log(f"[floor] an empty kernel from the library: {floor_ms:.4f} ms a launch "
         f"(CUDA events, 200 launches queued behind the spin; the floor under every kernel ms above)")
@@ -1119,13 +1131,167 @@ def phase_kernels(torch, dev):
     return recs
 
 
+CLAIM_B = 64              # the claim record's fleet (the fleet kernels' B = 64)
+CLAIM_CAPACITY_LOG2 = 16  # the fused cells' map: 2^16 slots a level, probe 8, 6 rounds
+CLAIM_PROBE, CLAIM_ROUNDS = 8, 6
+CLAIM_DURATION_S = 1.0    # the sim the claim fleets step through
+
+
+def claim_config(capacity_log2=CLAIM_CAPACITY_LOG2, points=False):
+    """bench.py's configuration (``points``: on the per-point path) with the
+    benchmark cells' claims: probe 8, 6 rounds, 2^capacity_log2 slots a
+    level."""
+    from legkilo_torch.runner import bench_config, bench_config_points
+
+    cfg = bench_config_points() if points else bench_config()
+    cfg.voxel_map.capacity_log2 = capacity_log2
+    cfg.voxel_map.probe_length = CLAIM_PROBE
+    cfg.voxel_map.insert_rounds = CLAIM_ROUNDS
+    return cfg
+
+
+def claim_captures(torch, cfg, data, b, n_steps=2):
+    """The claim series' inputs in a broadcast fleet of ``b`` replicas of
+    ``data`` on the card (q_diag jittered), each copied before its call:
+    the first frame (fleet_init's insert_points for its first replica; it
+    builds each replica's map on its own), then each of ``n_steps`` fleet
+    steps' insert.  Returns a list of (tag, (ptab_x, keys, seg, active,
+    capacity, probe, rounds)), tags "first_frame", "step1", ..."""
+    from legkilo_torch.core import voxel_map
+    from legkilo_torch.core.filter_fleet import replica
+    from legkilo_torch.io.dataset import to_device_packet
+    from legkilo_torch.parallel.sweep import broadcast_packets, make_fleet_step, perturb_params
+
+    caps, real, tag = [], voxel_map.claim_call, ["first_frame"]
+
+    def record(ptab_x, keys, seg, active, capacity, probe, rounds):
+        if not caps or tag[0] != caps[-1][0]:
+            caps.append((tag[0], (ptab_x.clone(), keys.clone(), seg.clone(), active.clone(),
+                                  capacity, probe, rounds)))
+        return real(ptab_x, keys, seg, active, capacity, probe, rounds)
+
+    voxel_map.claim_call = record
+    try:
+        scfg, carry, params1, seqs = fleet_start(torch, cfg, [data] * b)
+        params = perturb_params(replica(params1, 0), b, scale=FLEET_NOISE, seed=0)
+        step = make_fleet_step(scfg)
+        for k, p in enumerate(seqs[0][:n_steps], start=1):
+            tag[0] = f"step{k}"
+            carry, _, _ = step(carry, broadcast_packets(to_device_packet(p, "cuda"), b), params)
+        torch.cuda.synchronize()
+    finally:
+        voxel_map.claim_call = real
+    return caps
+
+
+def claim_check(torch, cap):
+    """The claim kernel and claim_plain on copies of one captured call:
+    (bit-equal, counts).  Bit-equal: the table but its sentinel row, the
+    slots and the flags ``torch.equal``."""
+    from legkilo_torch.ops import claim_slots as cl
+
+    ptab_x, keys, seg, active, c, p, r = cap
+    miss = ptab_x.shape[0] - 1
+    t_k, t_p = ptab_x.clone(), ptab_x.clone()
+    got = cl.claim_call(t_k, keys, seg, active, c, p, r)
+    want = cl.claim_plain(t_p, keys, seg, active, c, p, r)
+    same = torch.equal(t_k[:miss], t_p[:miss]) and all(torch.equal(a, b) for a, b in zip(got, want))
+    new = (t_p[:miss, 3] > 0) & (ptab_x[:miss, 3] <= 0)
+    return same, dict(rows=keys.shape[0], active=int(active.sum()), claimed=int(new.sum()),
+                      failed=int((active & ~want[1]).sum()))
+
+
+def claim_sub(torch, cap, b, bb):
+    """A captured call of ``b`` replicas cut to its first ``bb``: their
+    segments, a sentinel row, their rows (replica-major)."""
+    ptab_x, keys, seg, active, c, p, r = cap
+    n_slot = (ptab_x.shape[0] - 1) // b * bb
+    n_row = keys.shape[0] // b * bb
+    tab = torch.cat([ptab_x[:n_slot], ptab_x.new_zeros((1, ptab_x.shape[1]))])
+    return tab, keys[:n_row], seg[:n_row], active[:n_row], c, p, r
+
+
+def claim_bytes(cap) -> int:
+    """Bytes a claim call must move at least: the memset of the bid words
+    (4 B a slot), every launch's flags (2 B a row), one probe of each
+    active row (its key, segment and outputs, 49 B, and 16 B of each
+    window slot)."""
+    ptab_x, keys, seg, active, c, probe, rounds = cap
+    return (4 * ptab_x.shape[0] + 2 * (2 * rounds + 1) * keys.shape[0]
+            + int(active.sum()) * (49 + 16 * probe))
+
+
+def time_claim(torch, fn, cap, iters: int, spin: int) -> float:
+    """Median device ms of ``fn`` on a fresh copy of the captured table each
+    call (the copy outside the events), every call queued behind a spin of
+    ``spin`` cycles."""
+    ptab_x, *rest = cap
+    tab = ptab_x.clone()
+    fn(tab, *rest)
+    ms = []
+    for _ in range(iters):
+        tab.copy_(ptab_x)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        start.record()
+        fn(tab, *rest)
+        end.record()
+        ms.append((start, end))
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in ms]))
+
+
+def claim_record(torch):
+    """The claim kernel at a fused fleet's shapes: 64 replicas, 2^16 slots
+    a level, probe 8, 6 rounds, the first frame's and two steps' calls
+    ``torch.equal`` to claim_plain; ptxas lines (no spills); ms of the
+    second step's call at B = 1, 8 and 64 beside the bound."""
+    from legkilo_torch.ops import claim_slots as cl
+
+    for frag in ("claim_probe_kernel", "claim_award_kernel"):
+        px = ptxas_entry(frag)
+        log(f"[kernel] claim ({frag}): a thread a row, grid-stride, {px['registers']} registers, "
+            f"{px['spills']} B of spills, {px['stack']} B stack frame, {px['smem']} B static shared memory")
+        if px["spills"]:
+            raise RuntimeError(f"claim: ptxas spills {px['spills']} B in {frag}")
+    caps = claim_captures(torch, claim_config(), simulate(CLAIM_DURATION_S, "claim"), CLAIM_B)
+    for tag, cap in caps:
+        same, n = claim_check(torch, cap)
+        log(f"[kernel] claim: B = {CLAIM_B} {tag}: {n['rows']} rows, {n['active']} active, "
+            f"{n['claimed']} slots claimed, {n['failed']} failed claims; bit-equal {same}")
+        if not same:
+            raise RuntimeError(f"claim: the kernel and claim_plain differ on the {tag} call")
+    cap = caps[-1][1]
+    if not torch.equal(*[cl.claim_call(cap[0].clone(), *cap[1:])[0] for _ in range(2)]):
+        raise RuntimeError("claim: two launches on the same inputs differ")
+    by_b = {}
+    for bb in FLEET_KERNEL_BS:
+        sub = claim_sub(torch, cap, CLAIM_B, bb)
+        by_b[bb] = (time_claim(torch, cl.claim_call, sub, 20, 4_000_000),
+                    bound(claim_bytes(sub), 0.0)[0])
+    log("[kernel] claim: ms / bound ms " + ", ".join(
+        f"B = {bb}: {ms:.4f} / {bd:.6f}" for bb, (ms, bd) in by_b.items())
+        + "; two launches bit-equal")
+    return dict(max_abs_err=0.0, ms=by_b[CLAIM_B][0],
+                plain_ms=time_claim(torch, cl.claim_plain, cap, 5, 40_000_000),
+                bytes=claim_bytes(cap), flops=0.0,
+                tol="bit-equal (table but its sentinel row, slots, flags); repeat bit-equal")
+
+
 def wrappers():
-    from legkilo_torch.ops import chain_points as cp, chain_stats as cs, insert_rows as ir
-    from legkilo_torch.ops import match_geom as mg, plane_fit_rows as pfr, pose_prop as pp
+    from legkilo_torch.ops import chain_points as cp, chain_stats as cs, claim_slots as cl
+    from legkilo_torch.ops import insert_rows as ir, match_geom as mg, plane_fit_rows as pfr
+    from legkilo_torch.ops import pose_prop as pp
 
     return {"chain_stats": cs.chain_call, "keys": mg.keys_call, "select": mg.select_call,
             "moments": ir.moments_rows_call, "fit": pfr.fit_slots_call, "pose": pp.pose_call,
-            "chain_points": cp.chain_points_call}
+            "chain_points": cp.chain_points_call, "claim": cl.claim_call}
+
+
+def only_the_claims(counts) -> bool:
+    """Whether a run off the switched kernels launched only the claim kernel
+    (ALWAYS_KERNELS), and that one."""
+    return all(v > 0 if k in ALWAYS_KERNELS else v == 0 for k, v in counts.items())
 
 
 def reset_counters():
@@ -1237,6 +1403,7 @@ def run_workload(torch, data, tag: str, use_kin=False, five=True, chunk=0, latch
         raise RuntimeError(f"{tag}: {n_slides} map slides, expected at least 2")
     if not np.isfinite(ate) or ate >= ATE_BOUND_M:
         raise RuntimeError(f"{tag}: ATE {ate:.4f} m >= {ATE_BOUND_M} m")
+    on_path = set(on_path) | ALWAYS_KERNELS
     missing = sorted(k for k in on_path if counts[k] <= 0)
     stray = sorted(k for k, v in counts.items() if v > 0 and k not in on_path)
     if missing or stray:
@@ -1442,6 +1609,7 @@ def phase_bag(torch, data, tag: str, use_kin: bool, bound: float, kernels):
         raise RuntimeError(f"{tag}: ATE {ate:.4f} m (eval {ev}) >= {bound} m")
     if len(ia) < n_scans:
         raise RuntimeError(f"{tag}: {len(ia)} poses associated with the ground truth")
+    kernels = set(kernels) | ALWAYS_KERNELS
     missing = sorted(k for k in kernels if counts[k] < n_scans)
     stray = sorted(k for k, v in counts.items() if v > 0 and k not in kernels)
     if missing or stray:
@@ -2381,6 +2549,7 @@ def run_route(torch, tag, cfg, data, use_kin, b, n_steps, n_compare, on_path):
         raise RuntimeError(f"{tag}: {l8} launches a fleet step at B = 8 against {l1} at B = 1")
     if not np.isfinite(pos).all():
         raise RuntimeError(f"{tag}: non-finite poses")
+    on_path = set(on_path) | ALWAYS_KERNELS
     missing = sorted(k for k in on_path if counts[k] <= 0)
     stray = sorted(k for k, v in counts.items() if v > 0 and k not in on_path)
     if missing or stray:
@@ -2393,7 +2562,8 @@ def phase_fleet_seq(torch, data):
     """The JAX ``sweep`` command's defaults: ``python -m legkilo_torch sweep
     --replicas 8 --duration 1`` in this process (``Config()``, the
     sequential pipeline), then the same configuration's fleet of 8 on the
-    bench sim (``run_route``); no kernel launches."""
+    bench sim (``run_route``); no switched kernel launches, only the claim
+    kernel."""
     from legkilo_torch import cli
 
     t_phase = time.perf_counter()
@@ -2402,8 +2572,8 @@ def phase_fleet_seq(torch, data):
     counts = read_counters()
     log(f"[fleet_seq] sweep --replicas {ROUTE_B} --duration 1: {json.dumps(cli_rec)}; launches "
         f"{json.dumps(counts)}; {time.perf_counter() - t_phase:.1f} s")
-    if cli_rec["replicas"] != ROUTE_B or not np.isfinite(cli_rec["final_spread_m"]) or any(
-            counts.values()):
+    if cli_rec["replicas"] != ROUTE_B or not np.isfinite(cli_rec["final_spread_m"]) or not (
+            only_the_claims(counts)):
         raise RuntimeError(f"fleet_seq: sweep gave {cli_rec}, launches {counts}")
     cfg, on_path = seq_config()
     rec = run_route(torch, "fleet_seq", cfg, cut(data, 0.1 * (ROUTE_SLOW_SCANS + 2)), False,
@@ -2414,7 +2584,8 @@ def phase_fleet_seq(torch, data):
 
 def phase_fleet_leg_fusion(torch, data):
     """configs/leg_fusion.yaml (the fused path with every kernel switch off,
-    leg kinematics) as a fleet of 4 (``run_route``); no kernel launches."""
+    leg kinematics) as a fleet of 4 (``run_route``); no switched kernel
+    launches, only the claim kernel."""
     cfg, on_path = leg_fusion_config()
     return run_route(torch, "fleet_leg_fusion", cfg, cut(data, 0.1 * (ROUTE_SLOW_SCANS + 2)),
                      True, ROUTE_LEG_FUSION_B, ROUTE_SLOW_SCANS, ROUTE_SLOW_SCANS, on_path)
@@ -2669,8 +2840,8 @@ def phase_mesh(torch):
 
 def phase_scale(torch):
     """``scale --devices 1 --duration 1.0`` in this process: the sequential
-    pipeline of a default StaticConfig (no kernel launches), one record of
-    efficiency 1.0."""
+    pipeline of a default StaticConfig (no switched kernel launches, only the
+    claim kernel), one record of efficiency 1.0."""
     from legkilo_torch import cli
 
     t_phase = time.perf_counter()
@@ -2681,7 +2852,7 @@ def phase_scale(torch):
         f"{time.perf_counter() - t_phase:.1f} s")
     if len(recs) != 1 or recs[0]["devices"] != 1 or recs[0]["efficiency"] != 1.0:
         raise RuntimeError(f"scale: {recs}")
-    if not recs[0]["replica_scans_per_s"] > 0 or any(counts.values()):
+    if not recs[0]["replica_scans_per_s"] > 0 or not only_the_claims(counts):
         raise RuntimeError(f"scale: {recs}, launches {counts}")
     return recs
 

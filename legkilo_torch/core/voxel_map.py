@@ -23,9 +23,14 @@ Differences from the JAX module, none of which changes a result:
   input untouched.
 * Duplicate claims.  Several new keys can claim one empty slot in the same
   round.  XLA on the CPU applies a scatter's duplicate updates in order, so
-  the last writer wins; here the winner is picked first
-  (``scatter_reduce(amax)`` over the row index) and only whole winning rows
-  are written, which gives the same table on the CPU and on the card.
+  the last writer wins; here the winner is picked first and only whole
+  winning rows are written.  On the CPU it is picked by
+  ``scatter_reduce(amax)`` over the row index; on the card the claim kernel
+  (ops/claim_slots.py) runs each round as two launches, probe-and-bid then
+  award: every row still unresolved bids for its window's first empty slot
+  with an ``atomicMax`` of its round-tagged row index on a per-call word a
+  slot, and the bidder whose bid stands writes its key.  Both give the same
+  table, slots and failed claims, bit for bit.
 * The hash.  Keys are cast to uint32 and the products wrap (eigen_types.hpp
   :74-82); torch has no full uint32 arithmetic, so it runs in int64 with
   ``& 0xFFFFFFFF``.
@@ -74,6 +79,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ..ops.claim_slots import PTAB_DIM, T_OCC, T_PLANE, claim_call, probe_plain
 from ..ops.match_geom import hash_keys
 from ..ops.plane_fit_rows import fit_par, fit_slots_call
 from ..utils.timing import span, tally
@@ -85,8 +91,6 @@ META_DIM = 4
 MOM12_DIM = 9
 MOMS_DIM = 60
 PLANE_DIM = 31
-_T_OCC, _T_PLANE = 3, 4
-PTAB_DIM = 5
 OCNT_ROWCAP, OCNT_REFIT, OCNT_CLAIM = 0, 1, 2
 
 _SYM6 = (0, 1, 2, 4, 5, 8)
@@ -154,7 +158,7 @@ class VoxelMap(NamedTuple):
 
     @property
     def occ(self):
-        return self.ptab[..., _T_OCC] > 0
+        return self.ptab[..., T_OCC] > 0
 
     def is_plane(self):
         return self.meta[..., _M_PLANE] > 0.5
@@ -272,64 +276,20 @@ def _probe_find_flat(ptab, keys, lvl, cfg: MapConfig, miss=None):
     """Linear-probe lookup of each key in its level's subtable (``lvl``:
     a fleet's segment r*L + level); returns (slot, found, empty,
     has_empty, is_plane), misses = ``miss`` (L*C by default; int64)."""
-    C = cfg.capacity
-    miss = cfg.levels * C if miss is None else miss
-    base = lvl.to(torch.int64) * C
-    h0 = _hash(keys, C).to(torch.int64)
-    offs = torch.arange(cfg.probe, dtype=torch.int64, device=keys.device)
-    idx = base[:, None] + ((h0[:, None] + offs[None, :]) & (C - 1))
-    rows = ptab[idx]                                       # [M, probe, 5]
-    occ_at = rows[..., _T_OCC] > 0
-    match = occ_at & torch.all(rows[..., 0:3] == keys[:, None, :], dim=-1)
-    # First match via min over (offset << 1 | is_plane).
-    big = 2 * cfg.probe
-    isp_at = (rows[..., _T_PLANE] > 0).to(torch.int64)
-    score = torch.where(match, 2 * offs[None, :] + isp_at, big)
-    m = torch.min(score, dim=-1).values
-    found = m < big
-    slot = torch.where(found, base + ((h0 + (m >> 1)) & (C - 1)), miss)
-    isp = ((m & 1) == 1) & found
-    escore = torch.where(~occ_at, offs[None, :], cfg.probe)
-    em = torch.min(escore, dim=-1).values
-    has_empty = em < cfg.probe
-    empty = torch.where(has_empty, base + ((h0 + em) & (C - 1)), miss)
-    return slot, found, empty, has_empty, isp
+    miss = cfg.levels * cfg.capacity if miss is None else miss
+    return probe_plain(ptab, keys, lvl, cfg.capacity, cfg.probe, miss)
 
 
 def _find_or_insert_flat(ptab_x, keys, lvl, active, cfg: MapConfig):
     """Find each key's slot, claiming empty slots for new keys in
-    ``insert_rounds`` claim rounds; ``ptab_x`` carries the sentinel row
+    ``insert_rounds`` claim rounds (ops/claim_slots.py: the kernel on the
+    card, the plain rounds on the CPU); ``ptab_x`` carries the sentinel row
     (the miss slot, its last) and is updated in place.  Returns (ptab_x,
     slot, resolved & active)."""
-    miss = ptab_x.shape[0] - 1
-    M = keys.shape[0]
-    dev = keys.device
-    tally("map.claim_rows", M * cfg.insert_rounds)
+    tally("map.claim_rows", keys.shape[0] * cfg.insert_rounds)
     with span("lk.insert.claim"):
-        slot = torch.full((M,), miss, dtype=torch.int64, device=dev)
-        resolved = torch.zeros((M,), dtype=torch.bool, device=dev)
-        claim = torch.cat(
-            [keys, torch.ones((M, 1), dtype=torch.int32, device=dev),
-             torch.zeros((M, 1), dtype=torch.int32, device=dev)], dim=1
-        )
-        rowid = torch.arange(M, dtype=torch.int64, device=dev)
-        for _ in range(cfg.insert_rounds):
-            s, found, empty, has_empty, _ = _probe_find_flat(ptab_x, keys, lvl, cfg, miss)
-            newly = active & ~resolved & found
-            slot = torch.where(newly, s, slot)
-            resolved = resolved | newly
-            want = active & ~resolved & has_empty
-            claim_idx = torch.where(want, empty, miss)
-            # The last writer of each slot wins, as XLA applies duplicates.
-            winner = torch.full((miss + 1,), -1, dtype=torch.int64, device=dev)
-            winner.scatter_reduce_(0, claim_idx, rowid, reduce="amax")
-            won = want & (winner[claim_idx] == rowid)
-            ptab_x.index_copy_(0, torch.where(won, claim_idx, miss), claim)
-        s, found, _, _, _ = _probe_find_flat(ptab_x, keys, lvl, cfg, miss)
-        newly = active & ~resolved & found
-        slot = torch.where(newly, s, slot)
-        resolved = resolved | newly
-        return ptab_x, slot, resolved & active
+        slot, ok = claim_call(ptab_x, keys, lvl, active, cfg.capacity, cfg.probe, cfg.insert_rounds)
+        return ptab_x, slot, ok
 
 
 def compact_order(mask_f: torch.Tensor, cap: int) -> torch.Tensor:
@@ -643,7 +603,7 @@ def _insert_finish(vm: VoxelMap, cfg: MapConfig, ptab_x, p_w_rows, var_rows, key
         plane_x.index_copy_(0, fs, plane_rows.to(plane_x.dtype))
         meta_x.index_copy_(0, fs, meta_fit)
         ptab_x.index_put_(
-            (fs, torch.full_like(fs, _T_PLANE)), (meta_fit[:, _M_PLANE] > 0.5).to(torch.int32)
+            (fs, torch.full_like(fs, T_PLANE)), (meta_fit[:, _M_PLANE] > 0.5).to(torch.int32)
         )
 
         n_over = torch.clamp(first.sum(1) - budget, min=0).reshape(lead)
@@ -782,7 +742,7 @@ def slide_map(vm: VoxelMap, cfg: MapConfig, position: torch.Tensor, half_map_siz
                           dtype=torch.int32, device=dev)
     delta = vm.ptab[..., 0:3] - center.repeat_interleave(C, dim=-2)
     inside = torch.all(torch.abs(delta) <= halves.repeat_interleave(C)[:, None], dim=-1)
-    keep = (vm.ptab[..., _T_OCC] > 0) & inside
+    keep = (vm.ptab[..., T_OCC] > 0) & inside
     kf = keep.to(vm.meta.dtype)[..., None]
     ks = keep.to(vm.moms.dtype)[..., None]
     return vm._replace(

@@ -56,7 +56,8 @@ def test_kernels_match_plain_on_card(cuda_device):
     chip_smoke.phase_build()
     recs = chip_smoke.phase_kernels(torch, cuda_device)
     assert set(recs) == {"chain_stats", "chain_stats_kin", "chain_points", "chain_points_kin",
-                         "keys", "select", "select_56", "moments", "fit", "pose", "pose_384", "pose_1280"}
+                         "keys", "select", "select_56", "moments", "fit", "pose", "pose_384", "pose_1280",
+                         "claim"}
 
 
 @pytest.mark.cuda
@@ -881,3 +882,238 @@ def test_run_replays_a_bag_on_card(cuda_device, tmp_path, capsys, use_kin, bound
     assert rec["scans"] >= len(data.scans)
     assert all(counts[k] >= len(data.scans) for k in cs.FUSED_KERNELS), counts
     assert counts["chain_points"] == 0
+
+
+# ------------------------------------------------------------ the claims --
+
+
+@pytest.fixture(scope="module", params=["fused", "points"])
+def claim_fleet_calls(request):
+    """The claim calls of a fleet of 4 replicas of the bench sim on the card
+    (3 levels of 2^12 slots, probe 8, 6 rounds), each copied before it ran:
+    a replica's first frame (insert_points), then two fleet steps' inserts
+    (fused: the gated rows; per-point: every (point, level) row)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    import chip_smoke
+
+    chip_smoke.phase_build()
+    cfg = chip_smoke.claim_config(capacity_log2=12, points=request.param == "points")
+    return request.param, chip_smoke.claim_captures(torch, cfg, chip_smoke.simulate(1.0, "claim"), 4)
+
+
+@pytest.mark.cuda
+def test_claim_kernel_matches_plain_on_fleet_calls_on_card(claim_fleet_calls):
+    """Every captured call: the kernel's table (but its sentinel row),
+    slots and flags ``torch.equal`` to claim_plain's; each call claims
+    slots, and the first frame's rows are insert_points' (point, level) rows."""
+    import chip_smoke
+
+    path, calls = claim_fleet_calls
+    assert [tag for tag, _ in calls] == ["first_frame", "step1", "step2"]
+    for tag, cap in calls:
+        same, n = chip_smoke.claim_check(torch, cap)
+        assert same, (path, tag, n)
+        assert n["claimed"] > 0 and n["active"] > 0, (path, tag, n)
+        if tag != "first_frame" and path == "fused":
+            assert n["rows"] == 4 * 4096
+    assert calls[0][1][2].shape[0] == 3 * 8192  # fleet_init's pad, at every level
+
+
+def _claim_case_on_card(name, dev):
+    import numpy as np
+    from test_torch_claim import case
+
+    ptab_x, keys, seg, active, c, p, r = case(name, np.random.default_rng(7))
+    return (ptab_x.to(dev), keys.to(dev), seg.to(dev), active.to(dev), c, p, r)
+
+
+def _kernel_equals_plain(args):
+    """chip_smoke.claim_check on ``args`` (bit-equal), one launch counted."""
+    import chip_smoke
+    from legkilo_torch.ops import claim_slots as cl
+
+    n0 = cl.claim_call.launches
+    same, n = chip_smoke.claim_check(torch, args)
+    assert same, n
+    assert cl.claim_call.launches == n0 + 1
+    return n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["one_slot_windows", "full_windows", "duplicates", "scene", "fleet"])
+def test_claim_kernel_matches_plain_on_card(cuda_device, name):
+    """tests/test_torch_claim.py's cases (duplicate keys, windows that fill
+    so claims fail, inactive rows, a fleet's segments) on the card: bit for
+    bit, the same failed claims; two launches bit-equal."""
+    import chip_smoke
+
+    from legkilo_torch.ops import claim_slots as cl
+
+    chip_smoke.phase_build()
+    args = _claim_case_on_card(name, cuda_device)
+    n = _kernel_equals_plain(args)
+    assert n["failed"] > 0 if name in ("one_slot_windows", "full_windows") else n["claimed"] > 0
+    once, again = (cl.claim_call(args[0].clone(), *args[1:]) for _ in range(2))
+    assert torch.equal(once[0], again[0]) and torch.equal(once[1], again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rounds", [0, 1, 6])
+@pytest.mark.parametrize("probe", [1, 8])
+def test_claim_kernel_each_rounds_and_probe_on_card(cuda_device, rounds, probe):
+    """A crowded fleet table (half full), inactive rows, repeated keys; the
+    keys, segments and flags handed over as strided views, as the gated
+    rows hand their segments over."""
+    import numpy as np
+
+    from test_torch_claim import table
+
+    rng = np.random.default_rng(11)
+    ptab_x = table(4, 64, rng, 0.5).to(cuda_device)
+    m = 3000
+    wide = torch.from_numpy(rng.integers(-6, 6, size=(m, 7)).astype(np.int32)).to(cuda_device)
+    keys = wide[:, 1:4]
+    seg = torch.from_numpy(rng.integers(0, 4, size=(m, 2))).to(cuda_device)[:, 1]
+    active = torch.from_numpy(rng.random((m, 3)) < 0.8).to(cuda_device)[:, 0]
+    assert not (keys.is_contiguous() or seg.is_contiguous() or active.is_contiguous())
+    _kernel_equals_plain((ptab_x, keys, seg, active, 64, probe, rounds))
+
+
+@pytest.mark.cuda
+def test_claim_kernel_takes_no_rows_on_card(cuda_device):
+    """M = 0: no launch, the table untouched, empty outputs."""
+    import chip_smoke
+
+    chip_smoke.phase_build()
+    args = _claim_case_on_card("scene", cuda_device)
+    ptab_x = args[0]
+    none = (args[1][:0], args[2][:0], args[3][:0])
+    tab = ptab_x.clone()
+    from legkilo_torch.ops import claim_slots as cl
+
+    n0 = cl.claim_call.launches
+    slot, ok = cl.claim_call(tab, *none, 256, 4, 2)
+    assert cl.claim_call.launches == n0 and slot.shape == ok.shape == (0,)
+    assert torch.equal(tab, ptab_x)
+
+
+@pytest.mark.cuda
+def test_claim_call_refuses_bad_input_on_card(cuda_device):
+    """Each refusal comes before any launch and leaves the counter as it
+    was: a wrong dtype or device, a table not [S, 5] or not contiguous,
+    slots that are not whole segments, a capacity that is not a power of
+    two, probe 0, negative rounds, round-tagged bids past int32."""
+    from legkilo_torch.ops import claim_slots as cl
+
+    ptab_x, keys, seg, active, c, p, r = _claim_case_on_card("scene", cuda_device)
+    n0 = cl.claim_call.launches
+    bad = [
+        ((ptab_x.long(), keys, seg, active, c, p, r), "dtype"),
+        ((ptab_x, keys.long(), seg, active, c, p, r), "dtype"),
+        ((ptab_x, keys, seg.int(), active, c, p, r), "dtype"),
+        ((ptab_x, keys, seg, active.to(torch.uint8), c, p, r), "dtype"),
+        ((ptab_x, keys.cpu(), seg, active, c, p, r), "cuda"),
+        ((ptab_x, keys, seg, active.cpu(), c, p, r), "cuda"),
+        ((ptab_x.T.contiguous().T, keys, seg, active, c, p, r), "contiguous"),
+        ((ptab_x[:, :4].contiguous(), keys, seg, active, c, p, r), "expected"),
+        ((ptab_x[:-2].contiguous(), keys, seg, active, c, p, r), "whole"),
+        ((ptab_x, keys, seg, active, 48, p, r), "power of two"),
+        ((ptab_x, keys[:-1], seg, active, c, p, r), "must be"),
+        ((ptab_x, keys, seg, active, c, 0, r), "probe"),
+        ((ptab_x, keys, seg, active, c, p, -1), "rounds"),
+        ((ptab_x, keys[:1].expand(2 ** 28, 3), seg[:1].expand(2 ** 28), active[:1].expand(2 ** 28),
+          c, p, 8), "2\\^31"),
+    ]
+    for args, match in bad:
+        with pytest.raises(ValueError, match=match):
+            cl.claim_call(*args)
+        assert cl.claim_call.launches == n0, match
+    cl.claim_call(ptab_x.clone(), keys, seg, active, c, p, r)
+    torch.cuda.synchronize()
+    assert cl.claim_call.launches == n0 + 1
+
+
+def _traced_calls(fn):
+    """(device operations, host runtime calls) of ``fn`` under one
+    torch.profiler window of the card's activity (portbench.phases)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from portbench import phases
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return phases.split_events(phases.events_of(prof))
+
+
+def _synchronising(calls, name="Synchronize"):
+    """The host's runtime calls of a trace whose name holds ``name``."""
+    return [c for c in calls if name in c[0]]
+
+
+@pytest.mark.cuda
+def test_claim_call_does_not_synchronise_on_card(cuda_device):
+    """A claim series queues one memset and 2 x rounds + 1 kernels and
+    waits for nothing: no synchronising runtime call between its first
+    and its last launch in a profiler trace."""
+    import chip_smoke
+
+    chip_smoke.phase_build()
+    from legkilo_torch.ops import claim_slots as cl
+
+    ptab_x, keys, seg, active, c, p, r = _claim_case_on_card("fleet", cuda_device)
+    cl.claim_call(ptab_x.clone(), keys, seg, active, c, p, r)  # the library loaded
+    for _ in range(3):  # a window that lost device events is taken again (_profiled_kernels)
+        tab = ptab_x.clone()
+        ops, calls = _traced_calls(lambda: cl.claim_call(tab, keys, seg, active, c, p, r))
+        kernels = [o for o in ops if "claim_" in o[0]]
+        if len(kernels) >= 2 * r + 1:
+            break
+    assert len(kernels) == 2 * r + 1, [o[0] for o in ops]
+    mine = {o[3] for o in kernels}
+    launch_times = [x[1] for x in calls if x[3] in mine]
+    assert len(launch_times) == len(kernels)
+    assert not [x for x in _synchronising(calls) if min(launch_times) <= x[1] <= max(launch_times)]
+
+
+@pytest.mark.cuda
+def test_fleet_map_equal_on_kernel_and_plain_claims_on_card(cuda_device, monkeypatch):
+    """A fused fleet of 4 (3 levels of 2^12 slots, probe 8, 6 rounds) from
+    its first frames through two steps, once on the claim kernel and once
+    with claim_plain in its place: every map table ``torch.equal``, and a
+    step synchronises no more often on the kernel (sync-debug warnings of
+    the second step, counted in a profiler trace)."""
+
+    import chip_smoke
+    from legkilo_torch.core import voxel_map
+    from legkilo_torch.core.filter_fleet import replica
+    from legkilo_torch.io.dataset import to_device_packet
+    from legkilo_torch.ops import claim_slots as cl
+    from legkilo_torch.parallel.sweep import broadcast_packets, make_fleet_step, perturb_params
+
+    chip_smoke.phase_build()
+    cfg = chip_smoke.claim_config(capacity_log2=12)
+    data = chip_smoke.simulate(1.0, "claim")
+
+    def fleet_maps():
+        scfg, carry, params1, seqs = chip_smoke.fleet_start(torch, cfg, [data] * 4)
+        params = perturb_params(replica(params1, 0), 4, scale=chip_smoke.FLEET_NOISE, seed=0)
+        step = make_fleet_step(scfg)
+        pks = [broadcast_packets(to_device_packet(pk, "cuda"), 4) for pk in seqs[0][:2]]
+        carry, _, _ = step(carry, pks[0], params)
+        out = []
+        _, calls = _traced_calls(lambda: out.append(step(carry, pks[1], params)))
+        return out[0][0].vm, len(_synchronising(calls, "cudaStreamSynchronize"))
+
+    n0 = cl.claim_call.launches
+    on_kernel, syncs_kernel = fleet_maps()
+    assert cl.claim_call.launches == n0 + 4 + 2  # four first frames, two steps
+    monkeypatch.setattr(voxel_map, "claim_call", cl.claim_plain)
+    on_plain, syncs_plain = fleet_maps()
+    assert cl.claim_call.launches == n0 + 6
+    for f in ("ptab", "meta", "mom", "moms", "plane", "ocnt"):
+        assert torch.equal(getattr(on_kernel, f), getattr(on_plain, f)), f
+    assert int((on_kernel.ptab[..., 3] > 0).sum()) > 0
+    assert 0 < syncs_kernel <= syncs_plain, (syncs_kernel, syncs_plain)  # the step's list copies
