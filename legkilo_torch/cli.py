@@ -35,7 +35,11 @@ replays K staged scans a call; ``--save_ckpt`` snapshots at the end and
 ``--resume`` with ``--skip_scans N`` continues such a run from scan N.
 
 ``sweep`` is the fleet, as ``python -m legkilo_tpu sweep``: B filter
-replicas on one card (parallel/sweep.py).  Without ``--distinct`` or
+replicas on one card (parallel/sweep.py), running the configuration as
+written: with ``only_imu_use: false`` a kinematic fleet (IMU and leg
+kinematics fused; the sim's kin events, or a bag's HighState messages
+through the leg kinematics, as ``run`` reads them), where the JAX command
+runs IMU only.  Without ``--distinct`` or
 ``--bags`` it replays one sim (``--duration``) through ``--replicas`` B
 replicas from the empty filter, ``q_diag`` jittered by ``--noise_scale``,
 and prints {"replicas", "devices", "processes", "scans", "wall_s",
@@ -50,7 +54,9 @@ apply; ``--traj_out DIR`` writes a TUM file a replica, ``--save_ckpt`` /
 the JAX CLI's npz).  ``--chunk K`` advances the fleet K scans a call (in
 every mode here; the JAX command reads it with ``--distinct``/``--bags``
 only).  ``--pallas`` turns on all five kernel switches, in every mode (the
-JAX command reads it without ``--distinct``/``--bags`` only).  On every
+JAX command reads it without ``--distinct``/``--bags`` only), and sets a
+``tpu_map_insert_row_cap`` of 0 to 4,096 (``runner.bench_config``'s): the
+fused path inserts on its kernel only under a row cap.  On every
 configuration (either pipeline, any kernel switches, the per-point chain)
 a fleet step is one batched step for all B replicas, as the JAX command's
 ``vmap``: it launches what one filter's step launches, whatever B is
@@ -95,6 +101,10 @@ import time
 import numpy as np
 
 log = logging.getLogger("legkilo_torch")
+
+# ``sweep --pallas``'s insert row cap where the configuration sets none
+# (runner.bench_config's).
+SWEEP_ROW_CAP = 4096
 
 
 def _load_config(path):
@@ -326,29 +336,39 @@ def _packets_from_streams(cfg, scans, events, use_kin: bool):
 
 
 def _load_bag_streams(cfg, path: str):
-    """One .bag -> (scans, Imu events), exact repeats dropped when
+    """One .bag -> (scans, events): Imu messages, or with ``only_imu_use:
+    false`` unitree HighState messages through the leg kinematics, as
+    ``run`` reads them; exact repeats of acc.z/gyr.z dropped when
     ``redundancy`` is on (ros_interface.cc:198-204)."""
     from .io import rosbag as bag_mod
     from .io.dataset import ImuEvent
     from .models import lidar as lidar_mod
+    from .models.unitree import HighState, Kinematics
 
+    kin = None if cfg.only_imu_use else Kinematics(cfg.kinematics)
+    event_topic = cfg.imu_topic if kin is None else cfg.kinematic_topic
     scans, events = [], []
     last_acc_z = last_gyr_z = None
     with bag_mod.BagReader(path) as reader:
-        for msg in reader.messages([cfg.lidar_topic, cfg.imu_topic]):
+        for msg in reader.messages([cfg.lidar_topic, event_topic]):
             if msg.topic == cfg.lidar_topic:
                 scans.append(lidar_mod.decode(bag_mod.parse_pointcloud2(msg.raw), cfg.lidar))
-            elif msg.topic == cfg.imu_topic:
+                continue
+            if kin is None:
                 imu = bag_mod.parse_imu(msg.raw)
-                if cfg.redundancy and (
-                    imu.linear_acceleration[2] == last_acc_z
-                    and imu.angular_velocity[2] == last_gyr_z
-                ):
-                    continue
-                last_acc_z = imu.linear_acceleration[2]
-                last_gyr_z = imu.angular_velocity[2]
-                events.append(ImuEvent(time=imu.stamp, acc=imu.linear_acceleration,
-                                       gyr=imu.angular_velocity))
+                acc, gyr = imu.linear_acceleration, imu.angular_velocity
+            else:
+                hs = bag_mod.parse_high_state(msg.raw)
+                acc, gyr = hs.accelerometer, hs.gyroscope
+            if cfg.redundancy and acc[2] == last_acc_z and gyr[2] == last_gyr_z:
+                continue
+            last_acc_z, last_gyr_z = acc[2], gyr[2]
+            if kin is None:
+                events.append(ImuEvent(time=imu.stamp, acc=acc, gyr=gyr))
+            else:
+                events.append(kin.processing(HighState(
+                    stamp=hs.stamp, accelerometer=acc, gyroscope=gyr, motor_q=hs.motor_q,
+                    motor_dq=hs.motor_dq, foot_force=hs.foot_force)))
     return scans, events
 
 
@@ -434,7 +454,7 @@ def _sweep_distinct(args, cfg, device, mesh) -> int:
                                       bob_freq=1.5 + 0.25 * (r % 4))
             datas.append(sim_mod.simulate(sim_mod.SimConfig(duration=args.duration, seed=100 + r),
                                           traj=traj))
-        streams = [(d.scans, d.imu) for d in datas]
+        streams = [(d.scans, d.imu if cfg.only_imu_use else d.kin) for d in datas]
         names = [f"sim{r}" for r in range(len(datas))]
 
     big_b = len(streams)
@@ -442,11 +462,13 @@ def _sweep_distinct(args, cfg, device, mesh) -> int:
         print(json.dumps({"error": f"{big_b} replicas not divisible by {mesh.size()} devices"}))
         return 1
     mine = shard_rows(mesh, big_b)  # this rank's replicas
-    scfg = make_static_config(cfg, use_kin=False)
+    scfg = make_static_config(cfg)
     params = make_params(cfg, device)  # g_over_acc_norm set a replica by fleet_init
     pkt_seqs, first_clouds, mean_accs, mean_gyrs, end_offsets = [], [], [], [], []
     for scans, events in streams:
-        pkts = _packets_from_streams(cfg, scans, events, use_kin=False)
+        # The first packet's event slots hold the stream's own events (the
+        # kin events' force and rate on a kinematic configuration).
+        pkts = _packets_from_streams(cfg, scans, events, use_kin=scfg.use_kin)
         first = pkts[0]
         m = first.imu_mask
         mean_accs.append(first.imu_acc[m].mean(axis=0))
@@ -557,7 +579,6 @@ def cmd_sweep(args: argparse.Namespace) -> int:
     # then over a host's ranks (one a card).
     mesh = hierarchical_mesh(device.type) if multihost_run else make_mesh(device_type=device.type)
     cfg = _load_config(args.config_file)
-    cfg.only_imu_use = True
     cfg.lidar.filter_num = 1
     cfg.lidar.blind = 0.3
     if args.pipeline:
@@ -565,20 +586,26 @@ def cmd_sweep(args: argparse.Namespace) -> int:
     if args.pallas:
         cfg.tpu.use_pallas = cfg.tpu.use_pallas_match = cfg.tpu.use_pallas_insert = True
         cfg.tpu.use_pallas_pose = cfg.tpu.use_pallas_refit = True
+        if not cfg.voxel_map.insert_row_cap:
+            # The fused path inserts on the moments kernel only under a row
+            # cap: bench_config's where the file sets none.
+            cfg.voxel_map.insert_row_cap = SWEEP_ROW_CAP
     if args.distinct or args.bags:
         return _sweep_distinct(args, cfg, device, mesh)
 
     data = sim_mod.simulate(sim_mod.SimConfig(duration=args.duration))
+    scfg = make_static_config(cfg)
+    events = data.kin if scfg.use_kin else data.imu
     builder = PacketBuilder(cfg)
-    for ev in data.imu:
-        builder.add_imu(ev)
+    add_event = builder.add_kin_imu if scfg.use_kin else builder.add_imu
+    for ev in events:
+        add_event(ev)
     packets = []
     for scan in data.scans:
         builder.add_scan(scan)
         while builder.ready():
             packets.append(builder.pop())
 
-    scfg = make_static_config(cfg, use_kin=False)
     params = make_params(cfg, device, float(cfg.gravity / np.linalg.norm(data.mean_acc)))
     big_b = args.replicas or mesh.size()
     carry = shard_batch(batched_carry(scfg, big_b, device), mesh)
@@ -747,7 +774,9 @@ def main(argv=None) -> int:
                    help="log-normal jitter of each replica's q_diag (broadcast mode)")
     p.add_argument("--pipeline", default=None, choices=["sequential", "deferred"])
     p.add_argument("--pallas", action="store_true",
-                   help="turn all five kernel switches on (chain, match, insert, pose, refit)")
+                   help="turn all five kernel switches on (chain, match, insert, pose, refit); "
+                        f"a tpu_map_insert_row_cap of 0 becomes {SWEEP_ROW_CAP}, which the "
+                        "insert's kernel needs")
     p.add_argument("--distinct", type=int, default=0,
                    help="fleet over N distinct synthetic worlds; reports per-replica ATE")
     p.add_argument("--bags", default=None,

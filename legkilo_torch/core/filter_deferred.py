@@ -66,7 +66,10 @@ The step's phases are spans (utils/timing.py, off unless recorded):
 re-symmetrisation its own), and inside it ``lk.pose`` (the match poses,
 once a scan, before the match), ``lk.match``, ``lk.chain``, ``lk.insert``
 (the per-point path's world points and variances at the updated poses
-too; its children in core/voxel_map.py) and ``lk.slide``.
+too; its children in core/voxel_map.py) and ``lk.slide``.  Under
+``lk.chain`` a kinematic configuration tallies ``chain.kin_slots``, the B x
+NB x K event slots handed to the fused chain a match pass, and the chain
+kernel ``chain_kin.launches`` (ops/chain_stats.py), from shapes alone.
 """
 
 from __future__ import annotations
@@ -81,7 +84,7 @@ from ..ops import match_geom as mg
 from ..ops import pose_prop as pp
 from ..ops.chain_points import run_chain
 from ..ops.chain_stats import chain_plain, pack_state_and_events, run_chain_stats, unpack_chain_outputs
-from ..utils.timing import span
+from ..utils.timing import span, tally
 from .filter import (
     FilterCarry,
     FilterParams,
@@ -660,6 +663,8 @@ def _process_scan_fused(carry: FilterCarry, packet: ScanPacket, params: FilterPa
     match_fn = _match_compact_stats_kernel if match_kernel else _match_compact_stats
 
     def chain_fn(c, s40, nmatch_b):
+        if scfg.use_kin:  # B x NB x K kinematic event slots, from the shape alone
+            tally("chain.kin_slots", packet.imu_time.numel())
         if scfg.use_pallas:
             return run_chain_stats(c, packet, params, s40, nmatch_b, use_kin=scfg.use_kin)
         return _chain_fused_core(c, packet, params, scfg, s40, nmatch_b)

@@ -7,9 +7,10 @@ time-sync packing (ros_interface.cc:271-332) and pcl::VoxelGrid downsampling
 (KILO.cc:356-360) with a NumPy pipeline that emits statically-shaped,
 padded packets.  Where the JAX package does (``tpu_use_native`` on and 2 ms
 buckets), the packetizer builds the points of a packet with the committed
-C++ library native/libscanprep.so (io/native.py); otherwise, or when the
-library cannot be loaded, with numpy.  ``PacketBuilder.packetizer`` records
-which one built the last scan packet.
+C++ library native/libscanprep.so (io/native.py); otherwise, when the
+library cannot be loaded, or when it would key a point's leaf cell apart
+from numpy (``native_keys_agree``: one scan in a hundred), with numpy.
+``PacketBuilder.packetizer`` records which one built the last scan packet.
 """
 
 from __future__ import annotations
@@ -153,6 +154,19 @@ def voxel_downsample(
         cent[:, 3].astype(np.float32),
         cent[:, 4].astype(np.float32) if intensity is not None else None,
     )
+
+
+def native_keys_agree(points: np.ndarray, time_offset: np.ndarray, filter_num: int,
+                      blind: float, leaf: float) -> bool:
+    """Whether native/libscanprep.so puts every point the scan keeps in the
+    leaf cell ``voxel_downsample`` puts it in.  The library floors the
+    float64 product with 1 / leaf, numpy the float32 quotient: a point
+    within a float32 rounding of a cell boundary (about one scan in a
+    hundred of 8,000 sim points at a 0.3 m leaf) lands in neighbouring
+    cells, and two centroids move by centimetres."""
+    pts, _, _ = decimate_blind(points, time_offset, filter_num, blind)
+    inv = 1.0 / float(np.float32(leaf))  # the library's float leaf, inverted in double
+    return np.array_equal(np.floor(pts / leaf), np.floor(pts.astype(np.float64) * inv))
 
 
 class PacketBuilder:
@@ -378,8 +392,11 @@ class PacketBuilder:
         quantum = cfg.tpu.bucket_quantum_ms * 1e-3
         native_out = None
         # The native library hardcodes the reference's 2 ms quantum; any
-        # other bucket size takes the numpy path.
-        if cfg.tpu.use_native and abs(quantum - TIME_QUANTUM) < 1e-9:
+        # other bucket size takes the numpy path, and so does a scan whose
+        # leaf cells the library would key apart from numpy.
+        if (cfg.tpu.use_native and abs(quantum - TIME_QUANTUM) < 1e-9
+                and native_keys_agree(scan.points, scan.time_offset, cfg.lidar.filter_num,
+                                      cfg.lidar.blind, cfg.lidar.voxel_grid_resolution)):
             from . import native
 
             native_out = native.process_scan(

@@ -35,6 +35,7 @@ import torch
 from ..core import eskf_fused as ef
 from ..core.eskf import NoiseParams, imu_innovation
 from ..core.state import State
+from ..utils.timing import tally
 from . import _build
 
 F32 = torch.float32
@@ -109,6 +110,8 @@ def chain_call(params, clocks, rot0, lin0, cov0, brow, etime, egate, eacc, egyr,
     _build.launch("chain_stats_launch", args + outs,
                   [nb, kmax, int(bool(use_kin)), lead[0] if lead else 1])
     chain_call.launches += 1
+    if use_kin:
+        tally("chain_kin.launches", 1)
     return outs
 
 

@@ -427,6 +427,36 @@ def test_packet_builder_native_matches_numpy(rng):
     assert b4.packetizer == "numpy"
 
 
+def test_packet_builder_takes_numpy_where_native_keys_a_leaf_cell_apart(rng):
+    """A point on a leaf boundary (x = 2.0 at a 0.4 m leaf: numpy's float32
+    quotient keys it to cell 5, the library's float64 product to cell 4)
+    would give the library's packet other centroids; the 2 ms builder then
+    takes the numpy path, and its packet is the numpy builder's.  The same
+    scan with the point off the boundary takes the library."""
+    n = 400
+    pts = rng.uniform(1, 5, size=(n, 3)).astype(np.float32)
+    pts[:3] = [(1.9, 3.1, 3.1), (2.0, 3.1, 3.1), (2.1, 3.1, 3.1)]
+    toff = np.sort(rng.uniform(0, 0.03, n)).astype(np.float32)
+    toff[:3] = toff[0]
+    for edge, want in ((2.0, "numpy"), (2.05, "native")):
+        pts[1, 0] = edge
+        scan = t_ds.RawScan(begin_time=7.0, end_time=7.03, points=pts.copy(), time_offset=toff)
+        assert t_ds.native_keys_agree(pts, toff, 1, 0.5, 0.4) == (want == "native")
+        b = t_ds.PacketBuilder(_builder_cfg(True))
+        got = b.build_packet(scan, [])
+        ref = t_ds.PacketBuilder(_builder_cfg(False)).build_packet(scan, [])
+        assert b.packetizer == want
+        rows = lambda p, m, i: np.sort(p[i][m[i]], axis=0)
+        for i in range(20):
+            np.testing.assert_allclose(rows(got.points, got.point_mask, i),
+                                       rows(ref.points, ref.point_mask, i), atol=1e-5)
+        # The three points share bucket 0: the library's centroids there
+        # are numpy's only off the boundary.
+        lib = t_native.process_scan(pts, toff, 1, 0.5, 0.4, True, 20, 192)
+        same = np.allclose(rows(lib[2], lib[3], 0), rows(ref.points, ref.point_mask, 0), atol=1e-5)
+        assert same == (want == "native")
+
+
 def test_native_unavailable_falls_back_to_numpy_and_warns_once(rng, monkeypatch, caplog):
     monkeypatch.setattr(t_native, "LIB_PATH", "/nonexistent/libscanprep.so")
     t_native._lib.cache_clear()

@@ -124,10 +124,11 @@ def test_pose_kernel_at_256_slots_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nb,k", [(28, 1), (28, 12)], ids=["mp128", "mp384"])
+@pytest.mark.parametrize("nb,k", [(28, 1), (28, 12), (64, 4)], ids=["mp128", "mp384", "nb64_k4"])
 def test_pose_kernel_each_shape_on_card(cuda_device, nb, k):
-    """The main path's MP 128 and MP 384 (12 events a bucket): one launch a
-    call, two launches bit-equal to each other and to ``pose_plain``."""
+    """The main path's MP 128, MP 384 (12 events a bucket) and the 2 ms
+    shape of leg_fusion.yaml (NB 64, K 4: MP 384): one launch a call, two
+    launches bit-equal to each other and to ``pose_plain``."""
     import numpy as np
 
     import chip_smoke as cs
@@ -377,8 +378,8 @@ def test_chain_points_routes_by_use_kin_on_card(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("use_kin", [False, True], ids=["imu", "kin"])
-@pytest.mark.parametrize("nb,k", [(28, 1), (56, 1), (8, 2), (1, 1)],
-                         ids=["nb28_k1", "nb56_k1", "nb8_k2", "nb1"])
+@pytest.mark.parametrize("nb,k", [(28, 1), (56, 1), (64, 4), (8, 2), (1, 1)],
+                         ids=["nb28_k1", "nb56_k1", "nb64_k4", "nb8_k2", "nb1"])
 def test_chain_warp_kernel_on_card(cuda_device, nb, k, use_kin):
     """The one-warp kernel of either branch against its plain version, with
     a gated-off and an empty bucket and, kin, an event without contact (at
@@ -456,7 +457,8 @@ def _select_case(case, dev):
     from legkilo_torch.ops import match_geom
 
     rng = np.random.default_rng(11)
-    c, levels, nb = (300, 2, 5) if case == "c300_nb5_l2" else (3584, 3, 56 if case == "nb56_p128" else 28)
+    nb = {"nb56_p128": 56, "nb64_p128": 64}.get(case, 28)
+    c, levels, nb = (300, 2, 5) if case == "c300_nb5_l2" else (3584, 3, nb)
     kargs = cs.keys_inputs(torch, dev, rng, c=c, levels=levels)
     sargs = cs.select_inputs(torch, dev, rng, match_geom.keys_call(*kargs, levels, 1 << 14), nb=nb, levels=levels)
     if case == "shuffled":
@@ -469,14 +471,15 @@ def _select_case(case, dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["c3584_nb28_l3", "nb56_p128", "c300_nb5_l2", "shuffled", "empty_bucket",
-                                  "bucket_over_256"])
+@pytest.mark.parametrize("case", ["c3584_nb28_l3", "nb56_p128", "nb64_p128", "c300_nb5_l2", "shuffled",
+                                  "empty_bucket", "bucket_over_256"])
 def test_select_kernel_on_card(cuda_device, case):
     """The one-launch select kernel against select_plain with chip_smoke's
     tolerances (matched on >= 99.9 % of rows, rows rel 1e-4, s40 rel 1e-5
     against float64 sums of its own rows and rel 1e-4 against the plain
     version with the flipped rows' terms out, counts exact), two launches
-    bit-equal, at the main path's shape, the 2 ms bucket shape, a small one,
+    bit-equal, at the main path's shape, the 2 ms bucket shapes (NB 56, and
+    leg_fusion.yaml's 64), a small one,
     with the bucket indices shuffled, with an empty bucket and with a bucket
     of more rows than one group holds."""
     import chip_smoke as cs
