@@ -2510,7 +2510,7 @@ def run_route(torch, tag, cfg, data, use_kin, b, n_steps, n_compare, on_path):
     steps = [tree_map(lambda x: x[:b].contiguous(), s) for s in steps]
     reset_counters()
     carry, out, _, device_ms = profiled_step(torch, scfg, carry0, steps[0], params)
-    outs, carry_at = [out], carry
+    outs, carry_at = [out], tree_map(torch.clone, carry)  # kept: the next step consumes carry
     step = make_fleet_step(scfg, with_stats=False)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2518,7 +2518,7 @@ def run_route(torch, tag, cfg, data, use_kin, b, n_steps, n_compare, on_path):
         carry, out, _ = step(carry, dev, params)
         outs.append(out)
         if k < n_compare:
-            carry_at = carry
+            carry_at = tree_map(torch.clone, carry)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counters()

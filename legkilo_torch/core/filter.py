@@ -352,7 +352,10 @@ def process_scan_any(carry: FilterCarry, packet: ScanPacket, params: FilterParam
                      scfg: StaticConfig) -> Tuple[FilterCarry, ScanOutput]:
     """The one entry point a caller steps a scan with: the deferred
     pipeline for ``pipeline == "deferred"``, the sequential one otherwise
-    (as the JAX module dispatches)."""
+    (as the JAX module dispatches).  The step consumes ``carry``, as the
+    JAX step donated it: its map's tables, once an insert made them, are
+    written in place (core/voxel_map.py's module doc), so clone a carry
+    to keep it."""
     from .filter_deferred import check_supported, process_scan_deferred
 
     if scfg.pipeline == "deferred":
@@ -372,7 +375,8 @@ def process_scan_chunk(carry: FilterCarry, packets: ScanPacket, params: FilterPa
     """Offline replay: K pre-staged scans of a stacked chunk in one call,
     the same as K ``process_scan_any`` calls; outputs come back stacked
     [K, ...].  Nothing here reads a result back to the host, so a caller
-    syncs once per chunk."""
+    syncs once per chunk.  It consumes ``carry``, as ``process_scan_any``
+    does."""
     outs = []
     for k in range(packets.points.shape[0]):
         carry, out = process_scan_any(carry, ScanPacket(*(x[k] for x in packets)), params, scfg)

@@ -27,6 +27,11 @@ path off its kernels and the per-point path on the CPU); where a product
 of small matrices becomes a batched product (the sequential pipeline's
 ESKF steps), the replica's result rounds apart from its single run's.
 
+A step consumes the carry it is given, as the JAX step donated its carry
+(``jax.jit(..., donate_argnums=0)``): the insert writes the map's tables
+in place once an earlier insert made them (core/voxel_map.py's module
+doc), so a caller that wants to keep a carry clones it before the step.
+
 The fleet has no escalation latch: that belongs to the runner.
 """
 
@@ -62,7 +67,7 @@ def process_scan_chunk_fleet(carry: FilterCarry, packets: ScanPacket, params: Fi
                              scfg: StaticConfig):
     """K staged scans of every replica (packets [B, K, ...]) in one call,
     the same as K fleet steps; outputs come back [B, K, ...] (the JAX
-    ``vmap(process_scan_chunk)``)."""
+    ``vmap(process_scan_chunk)``).  It consumes ``carry`` (module doc)."""
     outs = []
     for k in range(packets.points.shape[1]):
         carry, out = process_scan_any(carry, tree_map(lambda x: x[:, k], packets), params, scfg)

@@ -16,11 +16,16 @@ Differences from the JAX module, none of which changes a result:
 
 * Out-of-range indices.  JAX drops or fills an index of L*C ("miss").
   Torch raises on the CPU and asserts on the card, so every insert works on
-  copies of the tables with one extra sentinel row at L*C: writes aimed at
-  a miss land there and are discarded, and the row is zeroed before it is
-  read so a gather of a miss reads the JAX fill value 0.  The copies also
-  keep the JAX semantics that an insert returns a new map and leaves its
-  input untouched.
+  tables with one extra sentinel row at L*C: writes aimed at a miss land
+  there and are discarded, and the row is zeroed on entry and before it is
+  read so a gather of a miss reads the JAX fill value 0.  The tables an
+  insert returns are the leading rows of those sentinel-bearing buffers, so
+  the next insert on them writes them in place, its sentinel rows zeroed;
+  a map that no insert made (``make_map``, a checkpoint, a ``.clone()``, a
+  replica ``x[r]`` of a fleet of B > 1) is copied into new buffers once.
+  An insert therefore consumes a map that an earlier insert returned, as
+  ``jax.jit(..., donate_argnums=0)`` would: a caller that wants to keep
+  such a map clones it first.
 * Duplicate claims.  Several new keys can claim one empty slot in the same
   round.  XLA on the CPU applies a scatter's duplicate updates in order, so
   the last writer wins; here the winner is picked first and only whole
@@ -50,8 +55,10 @@ Differences from the JAX module, none of which changes a result:
 
 An insert's phases are spans (utils/timing.py) inside the step's
 ``lk.insert``: ``lk.insert.rows`` (the gated rows and their moments),
-``lk.insert.tables`` (the sentinel copies: the probe table's before the
-claims, the other four's after; counter ``map.table_bytes``),
+``lk.insert.tables`` (the sentinel rows: the probe table's before the
+claims, the other four's after; counter ``map.table_bytes``, the bytes of
+the tables copied, 0 on an insert in place, and ``map.tables_in_place``,
+the inserts that wrote all five tables in place),
 ``lk.insert.claim`` (every claim round; counter ``map.claim_rows``, the
 rows times the rounds), ``lk.insert.accumulate`` (the scatter-adds through
 the thresholds) and ``lk.insert.refit`` (the budget, the fit, the writes).
@@ -227,17 +234,35 @@ def _hash(keys: torch.Tensor, capacity: int) -> torch.Tensor:
     return hash_keys(keys[..., 0], keys[..., 1], keys[..., 2], capacity)
 
 
+def _spare_row_buffer(t: torch.Tensor):
+    """The [n + 1, W] buffer whose leading rows t [n, W] are, when t is
+    exactly that (contiguous, at the buffer's start, one spare row after
+    it: what ``_insert_finish``'s ``x[:miss]`` returns, reshaped by
+    ``_unflat`` / ``fleet_flat``); None otherwise."""
+    n, w = t.shape
+    if (t.is_contiguous() and t.storage_offset() == 0
+            and t.untyped_storage().nbytes() == (n + 1) * w * t.element_size()):
+        return torch.as_strided(t, (n + 1, w), (w, 1))
+    return None
+
+
 def _with_sentinel(t: torch.Tensor) -> torch.Tensor:
-    """A copy of t with one zero row appended (index L*C = the miss slot)."""
-    return torch.cat([t, t.new_zeros((1,) + tuple(t.shape[1:]))])
+    """t with one zero row after it (index L*C = the miss slot): t's own
+    buffer when an earlier insert made it (``_spare_row_buffer``), its
+    spare row zeroed, so the insert writes t in place; a copy otherwise."""
+    x = _spare_row_buffer(t)
+    if x is None:
+        return torch.cat([t, t.new_zeros((1,) + tuple(t.shape[1:]))])
+    x[-1] = 0
+    return x
 
 
 def _sentinel_tables(*tables):
-    """``_with_sentinel`` of each table: the copies an insert makes (span
-    ``lk.insert.tables``; their bytes are the counter ``map.table_bytes``)."""
+    """``_with_sentinel`` of each table (span ``lk.insert.tables``; the
+    bytes of the tables copied are the counter ``map.table_bytes``)."""
     with span("lk.insert.tables"):
         out = tuple(_with_sentinel(t) for t in tables)
-    tally("map.table_bytes", sum(t.nbytes for t in out))
+    tally("map.table_bytes", sum(x.nbytes for x, t in zip(out, tables) if x.data_ptr() != t.data_ptr()))
     return out
 
 
@@ -536,6 +561,8 @@ def _insert_finish(vm: VoxelMap, cfg: MapConfig, ptab_x, p_w_rows, var_rows, key
             vc = (keys.to(dtype) + 0.5) * sizes[lvl_ids][:, None]
             mom_rows, moms_rows = _pack_moments(point_moments(p_w_rows - vc, var_rows))
     meta_x, mom_x, moms_x, plane_x = _sentinel_tables(vm.meta, vm.mom, vm.moms, vm.plane)
+    tally("map.tables_in_place", all(x.data_ptr() == t.data_ptr() for x, t in
+                                     zip((ptab_x, meta_x, mom_x, moms_x, plane_x), vm[:5])))
 
     with span("lk.insert.accumulate"):
         meta_at = meta_x[slot]
@@ -567,7 +594,7 @@ def _insert_finish(vm: VoxelMap, cfg: MapConfig, ptab_x, p_w_rows, var_rows, key
         pos_t = torch.where(first & (pos < budget), pos, budget)
         fs = torch.full((batch, budget + 1), miss, dtype=torch.int64, device=dev)
         fs.scatter_(1, pos_t, srt)
-        fs = fs[:, :budget].reshape(-1)
+        fs = fs[:, :budget].reshape(-1).contiguous()  # a view at budget 1: the fit kernel takes it dense
 
         if cfg.use_pallas_refit:
             # The refit kernel, reading each slot's rows from the tables

@@ -82,7 +82,9 @@ def make_fleet_step(scfg: StaticConfig, mesh=None, with_stats: bool = True):
     (carry, out, stats)``; ``params`` is batched too, so noise-parameter
     sweeps need nothing more.  With a ``mesh`` the tensors are this rank's
     shard ([B/n, ...], ``shard_batch``) and the stats the whole
-    fleet's."""
+    fleet's.  The step consumes ``carry``: once an earlier step made the
+    map's tables it writes them in place (core/filter_fleet.py), so clone
+    a carry to keep it."""
 
     def step(carry, packet, params):
         with span("lk.fleet"):
@@ -97,7 +99,8 @@ def make_fleet_chunk_step(scfg: StaticConfig, mesh=None, with_stats: bool = True
     ``(carry [B,...], packets [B,K,...], params [B,...]) -> (carry, outs
     [B,K,...], stats)``, equal to K calls of the per-scan step; stats
     reduce over the replicas' last scan of the chunk (over the whole fleet
-    with a ``mesh``, as ``make_fleet_step``)."""
+    with a ``mesh``, as ``make_fleet_step``).  It consumes ``carry``, as
+    ``make_fleet_step``'s step does."""
 
     def step(carry, packets, params):
         with span("lk.fleet"):

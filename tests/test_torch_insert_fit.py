@@ -24,7 +24,7 @@ from legkilo_torch.core import voxel_map as tv
 from legkilo_torch.core.filter import FilterParams
 from legkilo_torch.ops import insert_rows as t_ir
 from legkilo_torch.ops import plane_fit_rows as t_pfr
-from torch_util import N, T, one_thread  # noqa: F401
+from torch_util import N, T, cloned, one_thread  # noqa: F401
 
 VOXEL = 0.5
 LEVELS = 3
@@ -255,7 +255,7 @@ def test_insert_phase_matches_the_gather_and_plain_route(rng, storage, monkeypat
     rots, poss, rot_covs, pos_covs = bucket_outputs(rng, nb)
     ext_r = rotations(rng, 1, 0.3)[0]
     params = FilterParams(noise=None, ext_r=T(ext_r), ext_t=torch.zeros(3), g_over_acc_norm=torch.tensor(1.0))
-    new = ref = vm
+    new, ref = vm, cloned(vm)
     for lo in (400, 800):
         q, qv, qm = p[lo:lo + 400], var[lo:lo + 400], mask[lo:lo + 400]
         bidx = np.minimum(np.arange(400) * nb // 380, nb).astype(np.int64)

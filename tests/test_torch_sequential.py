@@ -26,7 +26,7 @@ from legkilo_torch.core import filter as t_filter
 from legkilo_torch.io import dataset as t_ds
 from legkilo_torch.models import sim as t_sim
 from test_torch_slice import CAPACITY_LOG2, build_packets, make_cfg
-from torch_util import N, assert_maps_match, one_thread  # noqa: F401
+from torch_util import N, assert_maps_match, cloned, one_thread  # noqa: F401
 
 N_SCANS = 5
 _JAX_SCAN = jax.jit(j_filter.process_scan, static_argnums=3)
@@ -51,7 +51,7 @@ def run_both(use_kin):
     jr, tr = j_runner.OdometryRunner(jcfg), t_runner.OdometryRunner(tcfg, device="cpu")
     jr._initialize(jraw[0], jp[0])
     tr._initialize(traw[0], tp[0])
-    jc, tc = jr.carry, tr.carry
+    jc, tc = jr.carry, cloned(tr.carry)
     out = dict(jp=jp, tp=tp, jr=jr, tr=tr, steps=[])
     for i in range(1, N_SCANS + 1):
         jc, jo = _JAX_SCAN(jc, j_ds.to_device_packet(jp[i]), jr.params, jr.scfg)
@@ -121,8 +121,8 @@ def test_process_scan_chunk_is_process_scan_any(imu_run):
     tr = imu_run["tr"]
     pkts = [t_ds.to_device_packet(p, "cpu") for p in imu_run["tp"][1:4]]
     carry0 = tr.carry
-    c_chunk, o_chunk = t_filter.process_scan_chunk(carry0, t_filter.stack_scan_packets(pkts), tr.params,
-                                                   tr.scfg)
+    c_chunk, o_chunk = t_filter.process_scan_chunk(cloned(carry0), t_filter.stack_scan_packets(pkts),
+                                                   tr.params, tr.scfg)
     c, outs = carry0, []
     for pk in pkts:
         c, o = t_filter.process_scan_any(c, pk, tr.params, tr.scfg)

@@ -33,7 +33,7 @@ from legkilo_torch import runner as t_runner
 from legkilo_torch.core import filter as t_filter
 from legkilo_torch.core import filter_deferred as t_fd
 from legkilo_torch.io import dataset as t_ds
-from torch_util import N, assert_maps_match, one_thread  # noqa: F401
+from torch_util import N, assert_maps_match, cloned, one_thread  # noqa: F401
 
 CAPACITY_LOG2 = 11
 N_SCANS = 8
@@ -87,7 +87,7 @@ def run_both(use_kin, n_scans, keep=(), with_spread=False, match_iters=1, five=F
     tr = t_runner.OdometryRunner(tcfg, device="cpu")
     jr._initialize(jraw[0], jp[0])
     tr._initialize(traw[0], tp[0])
-    out = dict(jp=jp, tp=tp, jr=jr, tr=tr, init=(jr.carry, tr.carry), steps=[], kept={},
+    out = dict(jp=jp, tp=tp, jr=jr, tr=tr, init=(jr.carry, cloned(tr.carry)), steps=[], kept={},
                spread=[], data=data)
     jc, tc, xc = jr.carry, tr.carry, jr.carry
     # The JAX package's own spread: its XLA path (kernels off) from the same
@@ -104,7 +104,7 @@ def run_both(use_kin, n_scans, keep=(), with_spread=False, match_iters=1, five=F
             xc, xo = _JAX_STEP(xc, jpk, jr.params, xla)
             out["spread"].append(float(np.abs(np.asarray(xo.pos) - np.asarray(jo.pos)).max()))
         if i in keep:
-            out["kept"][i] = (jc, tc)
+            out["kept"][i] = (jc, cloned(tc))
     out["final"] = (jc, tc)
     return out
 

@@ -14,6 +14,14 @@ def one_thread():
     torch.set_num_threads(n)
 
 
+def cloned(tree):
+    """A copy of every tensor of a NamedTuple tree (a carry, a map): what a
+    test keeps of one that a step or an insert then consumes."""
+    from legkilo_torch.core.filter_fleet import tree_map
+
+    return tree_map(torch.clone, tree)
+
+
 def T(x):
     """numpy (or JAX) array -> C-contiguous CPU tensor (a copy)."""
     return torch.from_numpy(np.array(x, order="C"))

@@ -40,8 +40,14 @@ from legkilo_torch.core import voxel_map as vm  # noqa: E402
 NEW_CAP = 512
 
 
+def with_sentinel(ptab):
+    """A copy of ptab with a zero sentinel row (each way claims on its own
+    copy: ``vm._with_sentinel`` would hand an insert's table back in place)."""
+    return torch.cat([ptab, torch.zeros_like(ptab[:1])])
+
+
 def claim_series(ptab, cfg, keys, lvl, need, slot0):
-    ptab_x, slot_c, ok_c = vm._find_or_insert_flat(vm._with_sentinel(ptab), keys, lvl, need, cfg)
+    ptab_x, slot_c, ok_c = vm._find_or_insert_flat(with_sentinel(ptab), keys, lvl, need, cfg)
     return ptab_x, torch.where(ok_c, slot_c, slot0)
 
 
@@ -51,7 +57,7 @@ def claim_compact(ptab, cfg, keys, lvl, need, slot0):
     k_c = vm._gather_fill(keys, order, 0)
     l_c = vm._gather_fill(lvl, order, 0)
     a_c = vm._gather_fill(need, order, False)
-    ptab_x, slot_c, ok_c = vm._find_or_insert_flat(vm._with_sentinel(ptab), k_c, l_c, a_c, cfg)
+    ptab_x, slot_c, ok_c = vm._find_or_insert_flat(with_sentinel(ptab), k_c, l_c, a_c, cfg)
     slot = torch.cat([slot0, slot0.new_full((1,), miss)])
     slot[order] = torch.where(ok_c, slot_c, miss)
     return ptab_x, slot[:-1]
