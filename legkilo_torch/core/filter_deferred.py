@@ -21,12 +21,11 @@ kernel when its switch is on and on the configuration's own torch path
    a Python loop over the buckets in eager torch; with ``match_iters`` > 1,
    re-match at the chain's post-update bucket poses and re-run the chain
    from the scan-start state.
-4. Insert: with ``use_pallas_insert``, ``insert_reuse_probe`` and a
-   positive ``insert_row_cap``, the ancestor-gated rows, the moments
-   kernel, then the scatter-adds, thresholds and refit (the refit kernel,
-   ops/plane_fit_rows.py, or plain ``fit_planes``) of
-   core/voxel_map.py (``insert_phase``); otherwise the world points and
-   variances at the post-update bucket poses and
+4. Insert (``insert_phase``): the rows, their moments and
+   ``voxel_map.insert_rows``.  With ``use_pallas_insert``,
+   ``insert_reuse_probe`` and a positive ``insert_row_cap``, the
+   ancestor-gated rows and the moments kernel; otherwise the world points
+   and variances at the post-update bucket poses and
    ``voxel_map.insert_points_hinted`` (or, with ``insert_reuse_probe``
    off, the claiming ``insert_points``).
 5. With ``map_sliding_en``, the map slide once the pose has moved
@@ -99,13 +98,11 @@ from .eskf_fused import point_suffstats_compact
 from .so3 import exp_so3, skew
 from .voxel_map import (
     _gather_fill,
-    _unflat,
     compact_order,
-    fleet_flat,
     gated_insert_rows,
-    insert_packed_rows_hinted,
     insert_points,
     insert_points_hinted,
+    insert_rows,
     match_points,
 )
 
@@ -572,27 +569,6 @@ def _process_scan_points(carry: FilterCarry, packet: ScanPacket, params: FilterP
     return carry, out
 
 
-def insert_phase(vm, mcfg, params: FilterParams, bidx, p_i_c, body_cov_c, mask_c,
-                 own_keys, own_slot, own_found, own_plane, rots, poss, rot_covs, pos_covs):
-    """Insert on the moments kernel (the JAX ``insert_phase_pallas``):
-    gated rows, the kernel's moment rows read by index from the chain's
-    per-bucket outputs and the match phase's per-point rows, then the map
-    update.  A fleet's (the kernel match's aux of a fleet, the chain's
-    outputs and the maps with a leading B) is one moments and one fit
-    launch over the maps viewed flat."""
-    with span("lk.insert.rows"):
-        rows = gated_insert_rows(mcfg, mask_c, own_keys, own_slot, own_found, own_plane)
-        # rows.pidx names points of p_i_c, rows.lvl levels of the map, and
-        # bidx (order // P) is never negative: the kernel reads them
-        # unchecked but for a trap.
-        mom_rows, moms_rows = ir.moments_rows_call(
-            params.ext_r, ir.level_sizes(mcfg.voxel_size, mcfg.levels, p_i_c.device),
-            rots.reshape(-1, 3, 3), poss.reshape(-1, 3), rot_covs.reshape(-1, 3, 3),
-            pos_covs.reshape(-1, 3, 3), p_i_c, body_cov_c, rows.pidx, bidx, rows.keys, rows.lvl,
-        )
-    return _unflat(insert_packed_rows_hinted(fleet_flat(vm), mcfg, rows, mom_rows, moms_rows), vm)
-
-
 def _chain_fused_core(carry: FilterCarry, packet: ScanPacket, params: FilterParams,
                       scfg: StaticConfig, s40, nmatch_b):
     """The chain off its kernel (the JAX ``_chain_fused_core``, a lax.scan
@@ -606,30 +582,46 @@ def _chain_fused_core(carry: FilterCarry, packet: ScanPacket, params: FilterPara
     return unpack_chain_outputs(carry, chain_plain(*head, brow, *events, s40, use_kin=scfg.use_kin))
 
 
-def _insert_at_bucket_poses(vm, scfg: StaticConfig, params: FilterParams, bidx, p_i_c,
-                            body_cov_c, mask_c, own, rots, poss, rot_covs, pos_covs):
-    """The insert off the moments kernel (the JAX ``_process_scan_fused``
-    :815-835): the compacted points' world positions and variances at the
-    chain's post-update bucket poses, then ``insert_points_hinted`` (the
-    match phase's probe reused) or, with ``insert_reuse_probe`` off, the
-    claiming ``insert_points``.  A fleet's (the match phase's fleet rows,
-    mask_c [B, cap], the chain's outputs with a leading B) inserts each
-    replica's rows into its own map."""
-    rows = tuple(mask_c.shape)
+def insert_phase(vm, scfg: StaticConfig, params: FilterParams, bidx, p_i_c, body_cov_c, mask_c, own,
+                 rots, poss, rot_covs, pos_covs):
+    """The fused path's insert of the match phase's rows (bidx, p_i_c,
+    body_cov_c, mask_c and own = its probe's own_keys, own_slot, own_found,
+    own_plane) at the chain's per-bucket outputs.  On the moments kernel
+    (``kernel_routes``; the JAX ``insert_phase_pallas``): the gated rows and
+    their moment rows read by index.  Otherwise (the JAX
+    ``_process_scan_fused``:815-835): the points' world positions and
+    variances at the post-update bucket poses into ``insert_points_hinted``
+    or, with ``insert_reuse_probe`` off, the claiming ``insert_points``.  A
+    fleet's (a leading B on mask_c, the chain's outputs and the maps) is
+    one insert over the maps viewed flat."""
+    mcfg = scfg.map_cfg
+    if kernel_routes(scfg)[1]:
+        with span("lk.insert.rows"):
+            rows = gated_insert_rows(mcfg, mask_c, *own)
+            # rows.pidx names points of p_i_c, rows.lvl levels of the map, and
+            # bidx (order // P) is never negative: the kernel reads them
+            # unchecked but for a trap.
+            moments = ir.moments_rows_call(
+                params.ext_r, ir.level_sizes(mcfg.voxel_size, mcfg.levels, p_i_c.device),
+                rots.reshape(-1, 3, 3), poss.reshape(-1, 3), rot_covs.reshape(-1, 3, 3),
+                pos_covs.reshape(-1, 3, 3), p_i_c, body_cov_c, rows.pidx, bidx, rows.keys, rows.lvl,
+            )
+        return insert_rows(vm, mcfg, rows, *moments)
+    shape = tuple(mask_c.shape)
     bidx_c = torch.clamp(bidx, max=math.prod(rots.shape[:-2]) - 1)
     rb2 = rots.reshape(-1, 3, 3)[bidx_c]
     p_w_c = torch.einsum("cij,cj->ci", rb2, p_i_c) + poss.reshape(-1, 3)[bidx_c]
-    rot_ext2 = _fold_mm(rb2.reshape(rows + (3, 3)), params.ext_r).reshape(-1, 3, 3)
+    rot_ext2 = _fold_mm(rb2.reshape(shape + (3, 3)), params.ext_r).reshape(-1, 3, 3)
     rot_cross2 = rb2 @ skew(p_i_c)
     var_c = (
         torch.einsum("cij,cjk,clk->cil", rot_ext2, body_cov_c, rot_ext2)
         + torch.einsum("cij,cjk,clk->cil", rot_cross2, rot_covs.reshape(-1, 3, 3)[bidx_c], rot_cross2)
         + pos_covs.reshape(-1, 3, 3)[bidx_c]
     )
-    p_w_c, var_c = p_w_c.reshape(rows + (3,)), var_c.reshape(rows + (3, 3))
+    p_w_c, var_c = p_w_c.reshape(shape + (3,)), var_c.reshape(shape + (3, 3))
     if scfg.insert_reuse_probe:
-        return insert_points_hinted(vm, scfg.map_cfg, p_w_c, var_c, mask_c, *own)
-    return insert_points(vm, scfg.map_cfg, p_w_c, var_c, mask_c)
+        return insert_points_hinted(vm, mcfg, p_w_c, var_c, mask_c, *own)
+    return insert_points(vm, mcfg, p_w_c, var_c, mask_c)
 
 
 def _cloud(packet: ScanPacket, params: FilterParams, rots, poss):
@@ -657,10 +649,7 @@ def _process_scan_fused(carry: FilterCarry, packet: ScanPacket, params: FilterPa
     cap = _row_cap(scfg, nb, p)
     n_valid = (packet.point_mask & packet.bucket_mask[..., None]).sum((-2, -1)).to(torch.int32)
     cap_dropped = torch.clamp(n_valid - cap, min=0)
-    mcfg = scfg.map_cfg
-
-    match_kernel, insert_kernel = kernel_routes(scfg)
-    match_fn = _match_compact_stats_kernel if match_kernel else _match_compact_stats
+    match_fn = _match_compact_stats_kernel if kernel_routes(scfg)[0] else _match_compact_stats
 
     def chain_fn(c, s40, nmatch_b):
         if scfg.use_kin:  # B x NB x K kinematic event slots, from the shape alone
@@ -680,13 +669,8 @@ def _process_scan_fused(carry: FilterCarry, packet: ScanPacket, params: FilterPa
     (order, bidx, p_i_c, body_cov_c, mask_c, *own) = aux
 
     with span("lk.insert"):
-        if insert_kernel:
-            vm = insert_phase(carry.vm, mcfg, params, bidx, p_i_c, body_cov_c, mask_c, *own,
-                              rots, poss, rot_covs, pos_covs)
-        else:
-            vm = _insert_at_bucket_poses(carry.vm, scfg, params, bidx, p_i_c, body_cov_c, mask_c,
-                                         own, rots, poss, rot_covs, pos_covs)
-    carry = carry._replace(vm=vm)
+        carry = carry._replace(vm=insert_phase(carry.vm, scfg, params, bidx, p_i_c, body_cov_c, mask_c,
+                                               own, rots, poss, rot_covs, pos_covs))
 
     if scfg.map_sliding_en:
         carry = _slide_if_moved(carry, scfg)

@@ -39,39 +39,45 @@ Differences from the JAX module, none of which changes a result:
 * The hash.  Keys are cast to uint32 and the products wrap (eigen_types.hpp
   :74-82); torch has no full uint32 arithmetic, so it runs in int64 with
   ``& 0xFFFFFFFF``.
-* The hinted inserts (``resolve_insert_rows``, both branches of
-  ``insert_points_hinted``) claim over all their rows in one series, the
-  new keys active.  The JAX module claims over the new keys compacted to
+* The hinted inserts claim over all their rows in one series, the new
+  keys active.  The JAX module claims over the new keys compacted to
   ``insert_new_cap`` rows when they fit and over all rows otherwise,
   chosen by ``lax.cond`` on their count.  Claims keep their relative order
   either way, so the same keys win the same slots and every branch gives
   the same map; one series needs no host read of the count (eager torch
-  would sync once a scan for it) and no second branch run to select from.
-  At configs/leg_fusion.yaml's map size (3 x 4,096 rows, tools/claim_ab.py
-  on an H100 80GB HBM3 at 700 W): 4.3 ms a claim, against 4.9 for reading
-  the count back and 8.8 for running both branches.
+  would sync once a scan for it) and no second branch to select from, so
+  ``MapConfig`` has no ``insert_new_cap``.
 * Summation order.  The moment scatter-adds run in row order on both
   devices (core/ordered_sum.py), so two runs on the card give equal maps.
 
-An insert's phases are spans (utils/timing.py) inside the step's
-``lk.insert``: ``lk.insert.rows`` (the gated rows and their moments),
-``lk.insert.tables`` (the sentinel rows: the probe table's before the
-claims, the other four's after; counter ``map.table_bytes``, the bytes of
-the tables copied, 0 on an insert in place, and ``map.tables_in_place``,
-the inserts that wrote all five tables in place),
-``lk.insert.claim`` (every claim round; counter ``map.claim_rows``, the
-rows times the rounds), ``lk.insert.accumulate`` (the scatter-adds through
-the thresholds) and ``lk.insert.refit`` (the budget, the fit, the writes).
+Every insert takes one path: its rows (``InsertRows``: (point, level)
+pairs with their keys, the match phase's slot for each and whether it
+claims one; ``point_insert_rows`` gives every row, ``gated_insert_rows``
+the ancestor-gated ones), their moments (``moments_rows``, or the moments
+kernel of ops/insert_rows.py), then ``insert_rows``: the claims as one
+series of rounds (ops/claim_slots.py), the scatter-adds, thresholds and
+budgeted refit, and the overflow counters.  ``insert_points``,
+``insert_points_hinted`` and ``insert_packed_rows_hinted`` are the JAX
+module's entries on it.  The path's phases are spans (utils/timing.py)
+inside the step's ``lk.insert``:
+``lk.insert.rows`` (the rows and their moments), ``lk.insert.tables`` (the
+sentinel rows: the probe table's before the claims, the other four's
+after; counter ``map.table_bytes``, the bytes of the tables copied, 0 on
+an insert in place, and ``map.tables_in_place``, the inserts that wrote
+all five tables in place), ``lk.insert.claim`` (the claim series; counter
+``map.claim_rows``, the rows times the rounds), ``lk.insert.accumulate``
+(the scatter-adds through the thresholds) and ``lk.insert.refit`` (the
+budget, the fit, the writes).
 
 A fleet of B maps (core/filter_fleet.py) keeps every table with a leading
 replica axis, [B, L*C, W], and its batched step views them flat, [B*L*C, W]:
 replica r's level l is segment r*L + l of capacity C, the miss slot is
 B*L*C, and the probe, the claims, the scatter-adds and the refit work on
-global slots unchanged (``fleet_flat``; ``gated_insert_rows`` and
-``insert_packed_rows_hinted`` take a fleet's rows).  What stays per replica is done on a [B, ...]
-view: the compaction of the valid rows, the ancestor gate, the refit
-budget's choice of slots, ``ocnt``, and the slide.  Targets never cross
-replicas, so every slot sums its rows in the order a single map does.
+global slots unchanged (every insert entry takes a fleet's maps and
+rows).  What stays per replica is done on a [B, ...] view: the
+compaction of the valid rows, the ancestor gate, the refit budget's choice
+of slots, ``ocnt``, and the slide.  Targets never cross replicas, so every
+slot sums its rows in the order a single map does.
 
 The point-batch match (``match_points``) serves the sequential pipeline,
 the ``chain_impl="jax"`` path and the fused path's match off its kernels;
@@ -86,6 +92,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ..ops import insert_rows as ir
 from ..ops.claim_slots import PTAB_DIM, T_OCC, T_PLANE, claim_call, probe_plain
 from ..ops.match_geom import hash_keys
 from ..ops.plane_fit_rows import fit_par, fit_slots_call
@@ -109,7 +116,7 @@ _FULL36 = tuple(_SYM21_PAIRS.index((min(i, j), max(i, j))) for i in range(6) for
 
 class MapConfig(NamedTuple):
     """Static map configuration: the JAX MapConfig's fields but
-    insert_new_cap (resolve_insert_rows has no compacted claim path)."""
+    insert_new_cap (the claims have no compacted path; module doc)."""
 
     levels: int
     capacity: int
@@ -237,8 +244,8 @@ def _hash(keys: torch.Tensor, capacity: int) -> torch.Tensor:
 def _spare_row_buffer(t: torch.Tensor):
     """The [n + 1, W] buffer whose leading rows t [n, W] are, when t is
     exactly that (contiguous, at the buffer's start, one spare row after
-    it: what ``_insert_finish``'s ``x[:miss]`` returns, reshaped by
-    ``_unflat`` / ``fleet_flat``); None otherwise."""
+    it: what ``insert_rows`` returns, a fleet's viewed flat again); None
+    otherwise."""
     n, w = t.shape
     if (t.is_contiguous() and t.storage_offset() == 0
             and t.untyped_storage().nbytes() == (n + 1) * w * t.element_size()):
@@ -297,26 +304,6 @@ def _unpack_moments(rows12, rows_s, n) -> PlaneMoments:
     return PlaneMoments(n=n, m1=rows12[..., 0:3], m2=m2, s0=s0, s1=s1, s2=s2)
 
 
-def _probe_find_flat(ptab, keys, lvl, cfg: MapConfig, miss=None):
-    """Linear-probe lookup of each key in its level's subtable (``lvl``:
-    a fleet's segment r*L + level); returns (slot, found, empty,
-    has_empty, is_plane), misses = ``miss`` (L*C by default; int64)."""
-    miss = cfg.levels * cfg.capacity if miss is None else miss
-    return probe_plain(ptab, keys, lvl, cfg.capacity, cfg.probe, miss)
-
-
-def _find_or_insert_flat(ptab_x, keys, lvl, active, cfg: MapConfig):
-    """Find each key's slot, claiming empty slots for new keys in
-    ``insert_rounds`` claim rounds (ops/claim_slots.py: the kernel on the
-    card, the plain rounds on the CPU); ``ptab_x`` carries the sentinel row
-    (the miss slot, its last) and is updated in place.  Returns (ptab_x,
-    slot, resolved & active)."""
-    tally("map.claim_rows", keys.shape[0] * cfg.insert_rounds)
-    with span("lk.insert.claim"):
-        slot, ok = claim_call(ptab_x, keys, lvl, active, cfg.capacity, cfg.probe, cfg.insert_rounds)
-        return ptab_x, slot, ok
-
-
 def compact_order(mask_f: torch.Tensor, cap: int) -> torch.Tensor:
     """Stable mask compaction along the last axis: order[i] = source row of
     the i-th valid row, or N (out of range) for unfilled slots.  A fleet's
@@ -333,54 +320,63 @@ def compact_order(mask_f: torch.Tensor, cap: int) -> torch.Tensor:
     return out[..., :cap]
 
 
-def _ocnt_inc(device, rowcap=0, refit=0, claim=0, lead=()) -> torch.Tensor:
-    """[*lead, 3] int32 increments of the overflow counters (OCNT_*); a
-    fleet's are [B] each."""
-    return torch.stack(
-        [torch.as_tensor(p, device=device).to(torch.int32).expand(lead) for p in (rowcap, refit, claim)],
-        dim=-1,
-    )
+class InsertRows(NamedTuple):
+    """One insert's (point, level) rows, in the order the claims and the
+    scatter-adds take them; a fleet's replicas' rows one after another
+    (module doc).  ``order``, ``found`` and ``n_gated`` are the gate's
+    (``gated_insert_rows``); ``point_insert_rows`` leaves them None, but
+    ``found`` where the probe's hint gives it."""
+
+    order: torch.Tensor    # [R] the gated row's source row; B*L*N for an unfilled slot
+    pidx: torch.Tensor     # [R] the row's point (a fleet's r*N + i)
+    keys: torch.Tensor     # [R, 3] int32
+    lvl: torch.Tensor      # [R] the row's level
+    mask: torch.Tensor     # [R] the row inserts
+    found: torch.Tensor    # [R] the match phase's probe found the key
+    slot0: torch.Tensor    # [R] the probe's slot where found, else the miss slot
+    need: torch.Tensor     # [R] the row claims a slot: mask and not found
+    n_gated: torch.Tensor  # [*lead] rows through the gate a replica
+    seg: torch.Tensor      # [R] the row's subtable for the probe: lvl, a fleet's r*L + lvl
+    n_over: torch.Tensor   # [*lead] rows past insert_row_cap a replica (0 for every row)
 
 
-def insert_points(vm: VoxelMap, cfg: MapConfig, p_w, var, mask) -> VoxelMap:
-    """Insert points at every level and refit touched planes (UpdateVoxelMap
-    + init_octo_tree, voxel_map.cc:119-241 / 287-361); the first-frame map
-    build goes through here.  A fleet's maps ([B, L*C, W] tables) take
-    p_w [B, N, 3], var [B, N, 3, 3] and mask [B, N]: one claim series over
-    the flat view, each replica's (point, level) rows in the order a single
-    map takes them, the replicas one after another (module doc)."""
-    lead = tuple(vm.ocnt.shape[:-1])
-    b, L, N = math.prod(lead), cfg.levels, p_w.shape[-2]
-    p_w = p_w.reshape(b, N, 3)
-    keys = torch.stack([voxel_key(p_w, level_size(cfg, l)) for l in range(L)], dim=1).reshape(-1, 3)
-    seg = torch.arange(b * L, dtype=torch.int64, device=p_w.device).repeat_interleave(N)
+def _by_replica(x, b: int):
+    """The match phase's probe rows [L, B*N, ...] as [B, L*N, ...]: each
+    replica's rows level-major, as a single map's; a view at B = 1."""
+    L, n, tail = x.shape[0], x.shape[1] // b, tuple(x.shape[2:])
+    return x.reshape((L, b, n) + tail).transpose(0, 1).reshape((b, L * n) + tail)
+
+
+def point_insert_rows(cfg: MapConfig, mask, p_w, hint) -> InsertRows:
+    """Every (point, level) row of mask [N] (a fleet's [B, N]), replica-major
+    then level-major: row r*L*N + l*N + i.  With hint None, keyed at the
+    points p_w [N, 3] (a fleet's [B, N, 3]; ``voxel_key``), every valid row
+    claiming; with hint = (own_keys, own_slot, own_found), the match
+    phase's probe [L, N] ([L, B*N] in fleet slots), keyed by the probe: a
+    found row keeps its slot and only new keys claim (module doc)."""
+    lead = tuple(mask.shape[:-1])
+    b, L, N = math.prod(lead), cfg.levels, mask.shape[-1]
+    dev = mask.device
+    miss = b * L * cfg.capacity
+    seg = torch.arange(b * L, dtype=torch.int64, device=dev).repeat_interleave(N)
     mask_f = mask.reshape(b, 1, N).expand(b, L, N).reshape(-1)
-    flat = fleet_flat(vm)
-    ptab_x, slot, ok = _find_or_insert_flat(*_sentinel_tables(flat.ptab), keys, seg, mask_f, cfg)
-    return _unflat(_insert_finish(
-        flat, cfg, ptab_x, p_w[:, None].expand(b, L, N, 3).reshape(-1, 3),
-        var.reshape(b, 1, N, 3, 3).expand(b, L, N, 3, 3).reshape(-1, 3, 3), keys, seg % L, slot, ok,
-        ocnt_inc=_ocnt_inc(vm.ocnt.device, claim=(mask_f & ~ok).reshape(b, -1).sum(-1).reshape(lead),
-                           lead=lead),
-    ), vm)
+    pidx = torch.arange(b * N, dtype=torch.int64, device=dev).reshape(b, 1, N).expand(b, L, N).reshape(-1)
+    if hint is None:
+        p_w = p_w.reshape(b, N, 3)
+        keys = torch.stack([voxel_key(p_w, level_size(cfg, l)) for l in range(L)], dim=1).reshape(-1, 3)
+        found, need, slot0 = None, mask_f, torch.full_like(seg, miss)
+    else:
+        own_keys, own_slot, own_found = hint
+        keys = _by_replica(own_keys, b).reshape(-1, 3)
+        found = _by_replica(own_found, b).reshape(-1) & mask_f
+        need = mask_f & ~found
+        slot0 = torch.where(found, _by_replica(own_slot, b).reshape(-1).to(torch.int64), miss)
+    return InsertRows(order=None, pidx=pidx, keys=keys, lvl=seg % L, mask=mask_f, found=found, slot0=slot0,
+                      need=need, n_gated=None, seg=seg,
+                      n_over=torch.zeros(lead, dtype=torch.int64, device=dev))
 
 
-class GatedRows(NamedTuple):
-    """Ancestor-gated, compacted (point, level) insert rows."""
-
-    order: torch.Tensor
-    pidx: torch.Tensor
-    keys: torch.Tensor
-    lvl: torch.Tensor
-    mask: torch.Tensor
-    found: torch.Tensor
-    slot0: torch.Tensor
-    need: torch.Tensor
-    n_gated: torch.Tensor
-    seg: torch.Tensor  # the row's subtable for the probe: lvl, a fleet's r*L + lvl
-
-
-def gated_insert_rows(cfg: MapConfig, mask, own_keys, own_slot, own_found, own_plane) -> GatedRows:
+def gated_insert_rows(cfg: MapConfig, mask, own_keys, own_slot, own_found, own_plane) -> InsertRows:
     """A point inserts at level l only while every ancestor voxel exists and
     is not a plane (UpdateOctoTree's descent, voxel_map.cc:185-241); the
     surviving rows are compacted to insert_row_cap (level 0 first).
@@ -398,12 +394,8 @@ def gated_insert_rows(cfg: MapConfig, mask, own_keys, own_slot, own_found, own_p
     miss = B * L * cfg.capacity
     dev = mask.device
 
-    def by_replica(x):  # [L, B*N, ...] -> [B, L*N, ...], level-major; a view at B = 1
-        return x.reshape((L, B, N) + tuple(x.shape[2:])).transpose(0, 1).reshape(
-            (B, L * N) + tuple(x.shape[2:]))
-
     mask_f = mask.repeat(1, L)
-    found_f = by_replica(own_found) & mask_f
+    found_f = _by_replica(own_found, B) & mask_f
     elig = torch.ones((B, N), dtype=torch.bool, device=dev)
     gates = []
     for lvl in range(L):
@@ -413,12 +405,12 @@ def gated_insert_rows(cfg: MapConfig, mask, own_keys, own_slot, own_found, own_p
     order = compact_order(gate_f, R)          # [B, R] of B*L*N rows; B*L*N for unfilled slots
     cols = torch.cat(
         [
-            by_replica(own_keys).to(torch.int64),
+            _by_replica(own_keys, B).to(torch.int64),
             torch.arange(B * L, dtype=torch.int64, device=dev).repeat_interleave(N).reshape(
                 B, L * N, 1),
             gate_f.to(torch.int64)[..., None],
             found_f.to(torch.int64)[..., None],
-            by_replica(own_slot).to(torch.int64)[..., None],
+            _by_replica(own_slot, B).to(torch.int64)[..., None],
         ],
         dim=2,
     )
@@ -426,149 +418,100 @@ def gated_insert_rows(cfg: MapConfig, mask, own_keys, own_slot, own_found, own_p
     mask_r = rows7[:, 4] > 0
     found_r = rows7[:, 5] > 0
     seg = rows7[:, 3]
-    if B == 1:
-        pidx = torch.clamp(order % N, max=N - 1)
-    else:  # fleet point r*N + i of row r*L*N + l*N + i; an unfilled slot's r*N
-        pidx = order % N + torch.arange(B, dtype=torch.int64, device=dev)[:, None] * N
-    return GatedRows(
+    # Fleet point r*N + i of row r*L*N + l*N + i; an unfilled slot's r*N.
+    pidx = order % N + torch.arange(B, dtype=torch.int64, device=dev)[:, None] * N
+    n_gated = gate_f.sum(1).reshape(lead)
+    return InsertRows(
         order=order.reshape(-1), pidx=pidx.reshape(-1),
-        keys=rows7[:, 0:3].to(torch.int32), lvl=seg if B == 1 else seg % L, mask=mask_r,
+        keys=rows7[:, 0:3].to(torch.int32), lvl=seg % L, mask=mask_r,
         found=found_r, slot0=torch.where(found_r & mask_r, rows7[:, 6], miss),
-        need=mask_r & ~found_r,
-        n_gated=gate_f.sum(1).reshape(lead),
-        seg=seg,
+        need=mask_r & ~found_r, n_gated=n_gated, seg=seg,
+        n_over=torch.clamp(n_gated - R, min=0),
     )
 
 
-def resolve_insert_rows(ptab, cfg: MapConfig, rows: GatedRows):
-    """Slot resolution: probe-hit rows keep their match-phase slot, new keys
-    claim (module doc).  Returns (ptab with sentinel row, slot, ok)."""
-    ptab_x, slot_c, ok_c = _find_or_insert_flat(
-        *_sentinel_tables(ptab), rows.keys, rows.seg, rows.need, cfg
-    )
-    slot = torch.where(ok_c, slot_c, rows.slot0)
-    return ptab_x, slot, slot < ptab.shape[0]
+def moments_rows(cfg: MapConfig, rows: InsertRows, p_w, var):
+    """The rows' moment rows (mom [R, 9], moms [R, 60]) about their voxels'
+    centres, from the points' world positions p_w [N, 3] and variances var
+    [N, 3, 3] (a fleet's [B, N, ...]) read at ``rows.pidx``: the plain
+    twin of the moments kernel (ops/insert_rows.py), which reads the
+    chain's poses and the match phase's points instead."""
+    sizes = ir.level_sizes(cfg.voxel_size, cfg.levels, p_w.device)
+    vc = (rows.keys.to(p_w.dtype) + 0.5) * sizes[rows.lvl][:, None]
+    return _pack_moments(point_moments(p_w.reshape(-1, 3)[rows.pidx] - vc,
+                                       var.reshape(-1, 3, 3)[rows.pidx]))
 
 
-def insert_packed_rows_hinted(vm: VoxelMap, cfg: MapConfig, rows: GatedRows,
-                              mom_rows, moms_rows) -> VoxelMap:
-    """Gated insert with the per-row moments precomputed by the moments
-    kernel (ops/insert_rows.py); a fleet passes its flat view
-    (``fleet_flat``) and its rows, and gets the flat view back."""
-    lead = tuple(vm.ocnt.shape[:-1])
-    ptab_x, slot, ok = resolve_insert_rows(vm.ptab, cfg, rows)
-    return _insert_finish(
-        vm, cfg, ptab_x, None, None, rows.keys, rows.lvl, slot, ok,
-        ocnt_inc=_ocnt_inc(
-            vm.ocnt.device,
-            rowcap=torch.clamp(rows.n_gated - cfg.insert_row_cap, min=0),
-            claim=(rows.mask & ~ok).reshape(lead + (-1,)).sum(-1),
-            lead=lead,
-        ),
-        packed_rows=(mom_rows, moms_rows),
-    )
+def insert_points(vm: VoxelMap, cfg: MapConfig, p_w, var, mask) -> VoxelMap:
+    """Insert points at every level and refit touched planes (UpdateVoxelMap
+    + init_octo_tree, voxel_map.cc:119-241 / 287-361); the first-frame map
+    build goes through here.  A fleet's maps ([B, L*C, W] tables) take
+    p_w [B, N, 3], var [B, N, 3, 3] and mask [B, N]: one claim series over
+    the flat view, each replica's (point, level) rows in the order a single
+    map takes them, the replicas one after another (module doc)."""
+    with span("lk.insert.rows"):
+        rows = point_insert_rows(cfg, mask, p_w, None)
+        moments = moments_rows(cfg, rows, p_w, var)
+    return insert_rows(vm, cfg, rows, *moments)
 
 
 def insert_points_hinted(vm: VoxelMap, cfg: MapConfig, p_w, var, mask, own_keys, own_slot,
-                         own_found, own_plane=None) -> VoxelMap:
+                         own_found, own_plane) -> VoxelMap:
     """insert_points reusing the match phase's probe of the same table
     (own_keys [L,N,3] int32, own_slot [L,N] global slots, own_found,
     own_plane [L,N]): rows the probe found keep its slot, and only new keys
-    claim (module doc).  With ``insert_row_cap`` > 0 and ``own_plane``
-    given, the rows are ancestor-gated and compacted (``gated_insert_rows``)
-    and their moments come from ``p_w``/``var`` [N,3]/[N,3,3]; otherwise
-    every (point, level) row inserts, as ``insert_points`` does.  A fleet's
-    maps take p_w [B,N,3], var and mask [B,N] and the probe [L, B*N] in
-    fleet slots, as ``match_points`` returns a fleet's."""
-    lead = tuple(vm.ocnt.shape[:-1])
-    b, L, C, N = math.prod(lead), cfg.levels, cfg.capacity, p_w.shape[-2]
-    miss = b * L * C
-    dev = p_w.device
-    flat = fleet_flat(vm)
-    p_w, var = p_w.reshape(b * N, 3), var.reshape(b * N, 3, 3)
-    if cfg.insert_row_cap and own_plane is not None:
-        with span("lk.insert.rows"):
+    claim (module doc).  With ``insert_row_cap`` > 0 the rows are
+    ancestor-gated and compacted (``gated_insert_rows``); otherwise every
+    (point, level) row inserts, as ``insert_points`` does.  A fleet's maps
+    take p_w [B,N,3], var [B,N,3,3] and mask [B,N] and the probe [L, B*N]
+    in fleet slots, as ``match_points`` returns a fleet's."""
+    with span("lk.insert.rows"):
+        if cfg.insert_row_cap:
             rows = gated_insert_rows(cfg, mask, own_keys, own_slot, own_found, own_plane)
-        ptab_x, slot, ok = resolve_insert_rows(flat.ptab, cfg, rows)
-        return _unflat(_insert_finish(
-            flat, cfg, ptab_x, p_w[rows.pidx], var[rows.pidx], rows.keys, rows.lvl, slot, ok,
-            ocnt_inc=_ocnt_inc(
-                dev,
-                rowcap=torch.clamp(rows.n_gated - cfg.insert_row_cap, min=0),
-                claim=(rows.mask & ~ok).reshape(lead + (-1,)).sum(-1),
-                lead=lead,
-            ),
-        ), vm)
-
-    def by_replica(x):  # the probe's [L, B*N, ...] rows -> replica-major [B*L*N, ...]
-        return x.reshape((L, b, N) + tuple(x.shape[2:])).transpose(0, 1).reshape(
-            (b * L * N,) + tuple(x.shape[2:]))
-
-    keys = by_replica(own_keys)
-    seg = torch.arange(b * L, dtype=torch.int64, device=dev).repeat_interleave(N)
-    mask_f = mask.reshape(b, 1, N).expand(b, L, N).reshape(-1)
-    found_f = by_replica(own_found) & mask_f
-    need = mask_f & ~found_f
-    ptab_x, slot_c, ok_c = _find_or_insert_flat(*_sentinel_tables(flat.ptab), keys, seg, need, cfg)
-    slot = torch.where(ok_c, slot_c, torch.where(found_f, by_replica(own_slot).to(torch.int64), miss))
-    ok = slot < miss
-    return _unflat(_insert_finish(
-        flat, cfg, ptab_x, p_w.reshape(b, 1, N, 3).expand(b, L, N, 3).reshape(-1, 3),
-        var.reshape(b, 1, N, 3, 3).expand(b, L, N, 3, 3).reshape(-1, 3, 3), keys, seg % L, slot, ok,
-        ocnt_inc=_ocnt_inc(dev, claim=(mask_f & ~ok).reshape(b, -1).sum(-1).reshape(lead), lead=lead),
-    ), vm)
+        else:
+            rows = point_insert_rows(cfg, mask, None, (own_keys, own_slot, own_found))
+        moments = moments_rows(cfg, rows, p_w, var)
+    return insert_rows(vm, cfg, rows, *moments)
 
 
-def fleet_flat(vm: VoxelMap) -> VoxelMap:
-    """A fleet's maps ([B, L*C, W] tables) as one flat map of B*L*C slots
-    (views; ``ocnt`` stays [B, 3]); one map as it is."""
-    return VoxelMap(*(t.reshape(-1, t.shape[-1]) for t in vm[:5]), ocnt=vm.ocnt)
+def insert_rows(vm: VoxelMap, cfg: MapConfig, rows: InsertRows, mom_rows, moms_rows) -> VoxelMap:
+    """The insert of ``rows`` with their moment rows (mom [R, 9], moms
+    [R, 60]) into one map ([L*C, W] tables) or a fleet's ([B, L*C, W]; the
+    rows the replicas' side by side), returned in the same shapes
+    (voxel_map.py:755-919 of the JAX module).
 
-
-def _unflat(flat: VoxelMap, like: VoxelMap) -> VoxelMap:
-    """A flat map (``fleet_flat``) back in the shapes of ``like``'s tables."""
-    return VoxelMap(*(t.reshape(u.shape) for t, u in zip(flat[:5], like[:5])), ocnt=flat.ocnt)
-
-
-def _insert_finish(vm: VoxelMap, cfg: MapConfig, ptab_x, p_w_rows, var_rows, keys, lvl_ids,
-                   slot, ok, ocnt_inc, packed_rows=None) -> VoxelMap:
-    """Moment accumulation, thresholds and the budgeted refit, after slot
-    resolution (voxel_map.py:755-919).  ``ptab_x`` carries the sentinel row.
-
+    Rows that need a slot claim it (module doc); the others keep ``slot0``.
     Frozen slots (n >= max_points_num) stop accumulating; a slot refits when
     its count passes its level's init threshold and it is new or has
     gathered more than update_size_threshold new points; at most
-    refit_budget unique slots refit (the rest wait for a later scan and
-    count in ocnt); plane rows saturate at the storage dtype's range before
-    the downcast; is_plane is mirrored into ptab for the match probe.
-
-    A fleet passes its flat view (module doc; ``ocnt`` [B, 3]): the rows
-    are the replicas' rows side by side, B*R of them, and the budget holds
-    for each replica's rows."""
-    dtype = vm.meta.dtype
-    dev = vm.meta.device
-    L = cfg.levels
-    lead = tuple(vm.ocnt.shape[:-1])
-    batch = math.prod(lead)
-    miss = ptab_x.shape[0] - 1
+    refit_budget unique slots a replica refit (the rest wait for a later
+    scan); plane rows saturate at the storage dtype's range before the
+    downcast; is_plane is mirrored into ptab for the match probe.  ``ocnt``
+    gains each replica's rows past the row cap, refits past the budget and
+    failed claims."""
+    batch = math.prod(vm.ocnt.shape[:-1])
+    dtype, dev = vm.meta.dtype, vm.meta.device
     budget = cfg.refit_budget
+    flat = [t.reshape(-1, t.shape[-1]) for t in vm[:5]]   # a fleet's tables viewed flat (module doc)
 
-    if packed_rows is not None:
-        mom_rows, moms_rows = packed_rows
-    else:
-        with span("lk.insert.rows"):
-            sizes = torch.tensor([level_size(cfg, l) for l in range(L)], dtype=dtype, device=dev)
-            vc = (keys.to(dtype) + 0.5) * sizes[lvl_ids][:, None]
-            mom_rows, moms_rows = _pack_moments(point_moments(p_w_rows - vc, var_rows))
-    meta_x, mom_x, moms_x, plane_x = _sentinel_tables(vm.meta, vm.mom, vm.moms, vm.plane)
-    tally("map.tables_in_place", all(x.data_ptr() == t.data_ptr() for x, t in
-                                     zip((ptab_x, meta_x, mom_x, moms_x, plane_x), vm[:5])))
+    (ptab_x,) = _sentinel_tables(flat[0])
+    miss = ptab_x.shape[0] - 1
+    tally("map.claim_rows", rows.keys.shape[0] * cfg.insert_rounds)
+    with span("lk.insert.claim"):
+        slot_c, claimed = claim_call(ptab_x, rows.keys, rows.seg, rows.need, cfg.capacity, cfg.probe,
+                                     cfg.insert_rounds)
+    slot = torch.where(claimed, slot_c, rows.slot0)
+    del slot_c, claimed  # not held through the tables' copies, which set a fleet's peak memory
+    ok = slot < miss
+    meta_x, mom_x, moms_x, plane_x = _sentinel_tables(*flat[1:])
+    tables = (ptab_x, meta_x, mom_x, moms_x, plane_x)
+    tally("map.tables_in_place", all(x.data_ptr() == t.data_ptr() for x, t in zip(tables, flat)))
 
     with span("lk.insert.accumulate"):
         meta_at = meta_x[slot]
         contrib = ok & (meta_at[:, _M_N] < float(cfg.max_points_num))
         tgt = torch.where(contrib, slot, miss)
-        counts = torch.zeros((keys.shape[0], META_DIM), dtype=dtype, device=dev)
+        counts = torch.zeros((rows.keys.shape[0], META_DIM), dtype=dtype, device=dev)
         counts[:, _M_N] = 1.0
         counts[:, _M_NEW] = 1.0
         index_add_rows((meta_x, mom_x, moms_x), tgt, (counts, mom_rows, moms_rows), drop=miss)
@@ -576,7 +519,7 @@ def _insert_finish(vm: VoxelMap, cfg: MapConfig, ptab_x, p_w_rows, var_rows, key
             t[miss] = 0
 
         meta_t = meta_x[tgt]
-        init_thresh = torch.tensor(cfg.init_num, dtype=dtype, device=dev)[lvl_ids]
+        init_thresh = torch.tensor(cfg.init_num, dtype=dtype, device=dev)[rows.lvl]
         refit = (
             contrib
             & (meta_t[:, _M_N] > init_thresh)
@@ -633,12 +576,15 @@ def _insert_finish(vm: VoxelMap, cfg: MapConfig, ptab_x, p_w_rows, var_rows, key
             (fs, torch.full_like(fs, T_PLANE)), (meta_fit[:, _M_PLANE] > 0.5).to(torch.int32)
         )
 
-        n_over = torch.clamp(first.sum(1) - budget, min=0).reshape(lead)
-        inc = _ocnt_inc(dev, refit=n_over, lead=lead) + ocnt_inc
-        return VoxelMap(
-            ptab=ptab_x[:miss], meta=meta_x[:miss], mom=mom_x[:miss], moms=moms_x[:miss],
-            plane=plane_x[:miss], ocnt=vm.ocnt + inc,
-        )
+        inc = torch.stack([rows.n_over.reshape(batch), torch.clamp(first.sum(1) - budget, min=0),
+                           (rows.mask & ~ok).reshape(batch, -1).sum(-1)], dim=-1)   # OCNT_* order
+        return VoxelMap(*(x[:miss].reshape(t.shape) for x, t in zip(tables, vm[:5])),
+                        ocnt=vm.ocnt + inc.to(torch.int32).reshape(vm.ocnt.shape))
+
+
+# The JAX module's name of the insert of rows whose moment rows are given
+# (the moments kernel's, ops/insert_rows.py).
+insert_packed_rows_hinted = insert_rows
 
 
 def match_points(vm: VoxelMap, cfg: MapConfig, p_w: torch.Tensor, var: torch.Tensor,
@@ -691,7 +637,8 @@ def match_points(vm: VoxelMap, cfg: MapConfig, p_w: torch.Tensor, var: torch.Ten
     rep = torch.arange(b, dtype=torch.int64, device=dev).repeat_interleave(N // b)
     seg_f = (rep[None, :] * L + torch.arange(L, dtype=torch.int64, device=dev)[:, None]).reshape(-1)
 
-    slot, found, _, _, is_plane = _probe_find_flat(ptab, keys_f, seg_f.repeat(2), cfg, b * L * cfg.capacity)
+    slot, found, _, _, is_plane = probe_plain(ptab, keys_f, seg_f.repeat(2), cfg.capacity, cfg.probe,
+                                              b * L * cfg.capacity)
     plane_at = _gather_fill(plane, slot, 0.0).to(dtype)
 
     sizes = torch.tensor([level_size(cfg, l) for l in range(L)], dtype=dtype, device=dev)[lvl_f]

@@ -15,13 +15,13 @@ entries, one kernel (``csrc/plane_fit_rows.cu``):
       sentinel row M - 1 for an unfilled slot)
       -> [B,35]: the plane row (centre_rel 3, normal 3, evals 3, radius 1,
       plane_var upper triangle 21) then the meta row (n, 0, 1, is_plane) --
-      the rows voxel_map._insert_finish scatters.
+      the rows voxel_map.insert_rows scatters.
 
 * ``fit_rows_call`` -- the JAX kernel's row contract: par [8], mom_t [69,B]
   packed moments (voxel_map._pack_moments), meta_t [4,B] -> [35,B].  On the
   card it runs the same kernel on its rows in order.
 
-A fleet's insert (core/filter_deferred.insert_phase) calls
+A fleet's insert (core/voxel_map.insert_rows) calls
 ``fit_slots_call`` once with its flat tables (M = B*L*C + 1 rows: every
 replica's slots, then the one sentinel) and the replicas' refit slots side
 by side as fleet slots: the same launch, M its only bound.

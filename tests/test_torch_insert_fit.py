@@ -21,7 +21,7 @@ from legkilo_tpu.ops.pallas import plane_fit_rows as j_pfr
 
 from legkilo_torch.core import filter_deferred as t_fd
 from legkilo_torch.core import voxel_map as tv
-from legkilo_torch.core.filter import FilterParams
+from legkilo_torch.core.filter import FilterParams, StaticConfig
 from legkilo_torch.ops import insert_rows as t_ir
 from legkilo_torch.ops import plane_fit_rows as t_pfr
 from torch_util import N, T, cloned, one_thread  # noqa: F401
@@ -249,6 +249,7 @@ def test_insert_phase_matches_the_gather_and_plain_route(rng, storage, monkeypat
     the point rows strided as the keys kernel leaves them, points past the
     last bucket."""
     tc = _port_cfg(storage)
+    scfg = StaticConfig(map_cfg=tc, use_kin=False, dept_err=0.0, beam_err=0.0, use_pallas_insert=True)
     p, var, mask = scene(rng, 1200)
     vm = tv.insert_points(tv.make_map(tc, "cpu"), tc, *(T(x) for x in (p[:400], var[:400], mask[:400])))
     nb = 8
@@ -270,8 +271,8 @@ def test_insert_phase_matches_the_gather_and_plain_route(rng, storage, monkeypat
             return m.own_keys, m.own_slot, m.own_found, m.own_plane
 
         n0 = (t_ir.moments_rows_call.launches, t_pfr.fit_slots_call.launches)
-        new = t_fd.insert_phase(new, tc, params, *tail,
-                                *own(tv.match_points(new, tc, T(q), T(qv), T(qm))), *chain)
+        new = t_fd.insert_phase(new, scfg, params, *tail,
+                                own(tv.match_points(new, tc, T(q), T(qv), T(qm))), *chain)
         assert (t_ir.moments_rows_call.launches, t_pfr.fit_slots_call.launches) == n0
         with monkeypatch.context() as mp:
             mp.setattr(tv, "fit_slots_call", _fit_gather_route)
@@ -283,7 +284,7 @@ def test_insert_phase_matches_the_gather_and_plain_route(rng, storage, monkeypat
 
 @pytest.mark.parametrize("storage", STORAGE)
 def test_insert_points_refit_matches_the_gather_and_plain_route(rng, storage, monkeypatch):
-    """_insert_finish on the per-point path's insert (and the first-frame
+    """voxel_map.insert_rows on the per-point path's insert (and the first-frame
     map) through the indexed refit, against the gather-and-plain refit."""
     tc = _port_cfg(storage)
     p, var, mask = scene(rng, 900)

@@ -16,7 +16,8 @@ from legkilo_tpu.core import plane_fit as j_pf
 from legkilo_tpu.core import voxel_map as jv
 
 from legkilo_torch.core import voxel_map as tv
-from torch_util import N, T, assert_maps_match, one_thread  # noqa: F401
+from legkilo_torch.ops import insert_rows as t_ir
+from torch_util import N, T, assert_maps_match, cloned, one_thread  # noqa: F401
 
 
 def cfgs(**kw):
@@ -180,6 +181,77 @@ def test_gated_packed_insert_with_refit_kernel_matches_jax(rng):
                                    pl_j[loose][:, [0, 1, 2, 6, 7, 8, 9]], atol=1e-5)
     assert N(tvm.meta)[:, 3].sum() > 10 and (~loose).sum() > 10
     assert_maps_match(jvm, tvm, jc.capacity)
+
+
+def _own(m):
+    return m.own_keys, m.own_slot, m.own_found, m.own_plane
+
+
+def _entry(name, vm, tc, p, var, mask, own):
+    """One insert entry on a map (or a fleet's) and the match phase's probe
+    of it: "points" (``insert_points``, the probe unread), "hinted"
+    (``insert_points_hinted``) or "packed" (the gated rows and their plain
+    moments into ``insert_packed_rows_hinted``)."""
+    if name == "points":
+        return tv.insert_points(vm, tc, p, var, mask)
+    if name == "hinted":
+        return tv.insert_points_hinted(vm, tc, p, var, mask, *own)
+    rows = tv.gated_insert_rows(tc, mask, *own)
+    return tv.insert_packed_rows_hinted(vm, tc, rows, *tv.moments_rows(tc, rows, p, var))
+
+
+def _assert_equal_maps(a, b):
+    for f in tv.VoxelMap._fields:
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+@pytest.mark.parametrize("case", ["hint_found_nothing", "gated_plain_is_packed", "fleet_points",
+                                  "fleet_hinted_every", "fleet_hinted_gated", "fleet_packed"])
+def test_insert_entries_agree_where_their_routes_meet(rng, case):
+    """The insert entries against each other, ``torch.equal``, where their
+    routes give the same rows: a hint that found nothing makes
+    ``insert_points_hinted`` (every row) ``insert_points``; gated rows with
+    their moments from world points equal the same rows fed to
+    ``insert_packed_rows_hinted`` with ``moments_rows_plain`` at an
+    identity pose (the moments kernel's twin); and a fleet of two through
+    each entry gives each replica its single insert (the row cap and the
+    refit budget overflowing)."""
+    row_cap = 0 if case in ("hint_found_nothing", "fleet_points", "fleet_hinted_every") else 256
+    _, tc = cfgs(insert_row_cap=row_cap, refit_budget=8, insert_rounds=2)
+    scenes = [scene(rng, 800) for _ in range(2)]
+    maps = [tv.insert_points(tv.make_map(tc, "cpu"), tc, *(T(x[:400]) for x in sc)) for sc in scenes]
+    news = [tuple(T(x[400:]) for x in sc) for sc in scenes]
+
+    if not case.startswith("fleet"):
+        vm, (q, qv, qm) = maps[0], news[0]
+        own = _own(tv.match_points(vm, tc, q, qv, qm))
+        if case == "hint_found_nothing":
+            miss = tc.levels * tc.capacity
+            own = (own[0], torch.full_like(own[1], miss), torch.zeros_like(own[2]), own[3])
+            want = tv.insert_points(cloned(vm), tc, q, qv, qm)
+        else:
+            rows = tv.gated_insert_rows(tc, qm, *own)
+            n = q.shape[0]
+            z3 = torch.zeros((1, 3, 3))
+            mom = t_ir.moments_rows_plain(
+                torch.eye(3), t_ir.level_sizes(tc.voxel_size, tc.levels, q.device), torch.eye(3)[None],
+                torch.zeros((1, 3)), z3, z3, q, qv, rows.pidx, torch.zeros(n, dtype=torch.int64),
+                rows.keys, rows.lvl)
+            want = tv.insert_packed_rows_hinted(cloned(vm), tc, rows, *mom)
+            assert int(N(want.ocnt - vm.ocnt)[tv.OCNT_ROWCAP]) > 0
+        got = tv.insert_points_hinted(vm, tc, q, qv, qm, *own)
+        _assert_equal_maps(got, want)
+        return
+
+    name = case.split("_")[1]
+    fleet = tv.VoxelMap(*(torch.stack(ts) for ts in zip(*maps)))
+    fp, fv, fm = (torch.stack(xs) for xs in zip(*news))
+    got = _entry(name, fleet, tc, fp, fv, fm, _own(tv.match_points(fleet, tc, fp, fv, fm)))
+    for r, (vm, (q, qv, qm)) in enumerate(zip(maps, news)):
+        want = _entry(name, vm, tc, q, qv, qm, _own(tv.match_points(vm, tc, q, qv, qm)))
+        _assert_equal_maps(tv.VoxelMap(*(t[r] for t in got)), want)
+    over = N(got.ocnt - fleet.ocnt)
+    assert (over[:, tv.OCNT_REFIT] > 0).all() and (over[:, tv.OCNT_ROWCAP] > 0).all() == (row_cap > 0)
 
 
 @pytest.mark.parametrize("half,expect_drop", [(2, True), (100, False)])
