@@ -41,7 +41,12 @@ Phases, each printing its own lines:
    series ("claim", no switch: every path's inserts launch it) runs on the
    calls a fleet of 64 replicas makes at 2^16 slots a level (its first
    frame, two steps), each ``torch.equal`` to claim_plain, with its two
-   kernels' ptxas lines (no spills) and its ms at B = 1, 8 and 64.
+   kernels' ptxas lines (no spills) and its ms at B = 1, 8 and 64.  The
+   fused match's probe and plane gather ("probe_planes", on with the match
+   kernels) runs on the calls a fleet of 64 replicas makes at the fused
+   cells' map (2^16 slots a level, probe 8, caps 4,096), each
+   ``torch.equal`` to probe_planes_plain, with its three storage
+   instantiations' ptxas lines (no spills) and its ms at B = 1, 8 and 64.
 3. The main path end to end: runner.run_offline on the bench.py workload
    (24 s sim, 8000 points a scan, seed 7) on the card with all five kernel
    switches on, streaming ("main"), with every launch counter set to 0
@@ -196,6 +201,7 @@ REPLACES = {
     "chain_points": "tools/experiments/eskf_chain_pallas.py:376",
     "chain_points_kin": "tools/experiments/eskf_chain_pallas.py:376",
     "claim": "legkilo_tpu/core/voxel_map.py:415",  # XLA scatter rounds, no Pallas kernel
+    "probe_planes": "legkilo_tpu/core/filter_deferred.py:396",  # XLA probe and gather, no Pallas kernel
 }
 SOURCES = {
     "chain_stats": "legkilo_torch/csrc/chain_stats.cu",
@@ -209,14 +215,15 @@ SOURCES = {
     "chain_points": "legkilo_torch/csrc/chain_points.cu",
     "chain_points_kin": "legkilo_torch/csrc/chain_points.cu",
     "claim": "legkilo_torch/csrc/claim_slots.cu",
+    "probe_planes": "legkilo_torch/csrc/probe_planes.cu",
 }
 # The wrappers whose kernels each path launches (counter names of wrappers()).
 # The claim kernel has no switch: every path that builds a map on the card
 # (the first frame, every insert) launches it.
 ALWAYS_KERNELS = {"claim"}
-FUSED_KERNELS = {"chain_stats", "keys", "select", "moments", "fit", "pose"}
+FUSED_KERNELS = {"chain_stats", "keys", "probe_planes", "select", "moments", "fit", "pose"}
 FOUR_KERNELS = FUSED_KERNELS - {"fit", "pose"}
-MIXED_KERNELS = FUSED_KERNELS - {"keys", "select"}
+MIXED_KERNELS = FUSED_KERNELS - {"keys", "probe_planes", "select"}
 POINTS_KERNELS = {"chain_points", "fit", "pose"}
 
 
@@ -1121,6 +1128,7 @@ def phase_kernels(torch, dev):
         log(f"[kernel] {name}: MP = {mp}, bit-equal")
         recs[name] = rec
     recs["claim"] = claim_record(torch)
+    recs["probe_planes"] = probe_planes_record(torch)
     floor_ms = launch_floor_ms(torch)
     log(f"[floor] an empty kernel from the library: {floor_ms:.4f} ms a launch "
         f"(CUDA events, 200 launches queued behind the spin; the floor under every kernel ms above)")
@@ -1150,29 +1158,29 @@ def claim_config(capacity_log2=CLAIM_CAPACITY_LOG2, points=False):
     return cfg
 
 
-def claim_captures(torch, cfg, data, b, n_steps=2):
-    """The claim series' inputs in a broadcast fleet of ``b`` replicas of
-    ``data`` on the card (q_diag jittered), each copied before its call:
-    the first frame (fleet_init's insert_points for its first replica; it
+def fleet_captures(torch, cfg, data, b, where, n_steps=2, use_kin=False):
+    """The inputs of a wrapper's calls in a broadcast fleet of ``b``
+    replicas of ``data`` on the card (q_diag jittered), each copied before
+    its call: ``where`` is (module, name) of the wrapper as its caller
+    looks it up.  The first frame (fleet_init's for its first replica; it
     builds each replica's map on its own), then each of ``n_steps`` fleet
-    steps' insert.  Returns a list of (tag, (ptab_x, keys, seg, active,
-    capacity, probe, rounds)), tags "first_frame", "step1", ..."""
-    from legkilo_torch.core import voxel_map
+    steps, the first call of each.  Returns a list of (tag, args), tags
+    "first_frame", "step1", ..."""
     from legkilo_torch.core.filter_fleet import replica
     from legkilo_torch.io.dataset import to_device_packet
     from legkilo_torch.parallel.sweep import broadcast_packets, make_fleet_step, perturb_params
 
-    caps, real, tag = [], voxel_map.claim_call, ["first_frame"]
+    module, name = where
+    caps, real, tag = [], getattr(module, name), ["first_frame"]
 
-    def record(ptab_x, keys, seg, active, capacity, probe, rounds):
+    def record(*args):
         if not caps or tag[0] != caps[-1][0]:
-            caps.append((tag[0], (ptab_x.clone(), keys.clone(), seg.clone(), active.clone(),
-                                  capacity, probe, rounds)))
-        return real(ptab_x, keys, seg, active, capacity, probe, rounds)
+            caps.append((tag[0], tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)))
+        return real(*args)
 
-    voxel_map.claim_call = record
+    setattr(module, name, record)
     try:
-        scfg, carry, params1, seqs = fleet_start(torch, cfg, [data] * b)
+        scfg, carry, params1, seqs = fleet_start(torch, cfg, [data] * b, use_kin=use_kin)
         params = perturb_params(replica(params1, 0), b, scale=FLEET_NOISE, seed=0)
         step = make_fleet_step(scfg)
         for k, p in enumerate(seqs[0][:n_steps], start=1):
@@ -1180,8 +1188,17 @@ def claim_captures(torch, cfg, data, b, n_steps=2):
             carry, _, _ = step(carry, broadcast_packets(to_device_packet(p, "cuda"), b), params)
         torch.cuda.synchronize()
     finally:
-        voxel_map.claim_call = real
+        setattr(module, name, real)
     return caps
+
+
+def claim_captures(torch, cfg, data, b, n_steps=2):
+    """The claim series' inputs (``fleet_captures``: the first frame's
+    insert_points, then each step's insert), as (tag, (ptab_x, keys, seg,
+    active, capacity, probe, rounds))."""
+    from legkilo_torch.core import voxel_map
+
+    return fleet_captures(torch, cfg, data, b, (voxel_map, "claim_call"), n_steps)
 
 
 def claim_check(torch, cap):
@@ -1278,14 +1295,112 @@ def claim_record(torch):
                 tol="bit-equal (table but its sentinel row, slots, flags); repeat bit-equal")
 
 
+PROBE_B = 64               # the probe record's fleet (the fleet kernels' B = 64)
+PROBE_CAP = 4096          # the fused cells' match and insert caps
+PROBE_FRAGMENTS = (("probe_planes_kernelIf", "f32"), ("probe_planes_kernelI6__half", "f16"),
+                   ("probe_planes_kernelI13__nv_bfloat16", "bf16"))
+
+
+def probe_config():
+    """The fused match of ``go1_imu`` (BENCHMARK.json): bench.py's buckets
+    (NB 28, P 256) with caps 4,096 and 2^16 slots a level, probe 8, 6
+    rounds."""
+    cfg = claim_config()
+    cfg.tpu.insert_cap = cfg.tpu.match_cap = PROBE_CAP
+    return cfg
+
+
+def probe_captures(torch, b, n_steps=2):
+    """The fused match's probe calls (``fleet_captures``) in a fleet of
+    ``b`` replicas of the bench sim at ``probe_config()``: one a step, as
+    (tag, (ptab, plane, keys_t, idx0_t, capacity, probe, dtype))."""
+    from legkilo_torch.core import filter_deferred
+
+    data = simulate(CLAIM_DURATION_S, "probe")
+    return fleet_captures(torch, probe_config(), data, b, (filter_deferred, "probe_planes_call"), n_steps)
+
+
+def probe_check(torch, cap):
+    """The probe kernel and probe_planes_plain on one captured call:
+    (bit-equal, counts of rows, candidates and own-chain hits)."""
+    from legkilo_torch.ops import probe_planes as pr
+
+    got = pr.probe_planes_call(*cap)
+    want = pr.probe_planes_plain(*cap)
+    same = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(got, want))
+    l2, r = cap[3].shape
+    return same, dict(rows=r, candidates=l2 * r, hits=int(want[1][:l2].sum()), own_hits=int(want[3].sum()),
+                      planes=int(want[4].sum()))
+
+
+def probe_sub(torch, cap, b, bb):
+    """A captured call of ``b`` replicas cut to its first ``bb``: their
+    tables' rows and their match rows."""
+    ptab, plane, keys_t, idx0_t, c, p, dtype = cap
+    n_slot, n_row = ptab.shape[0] // b * bb, keys_t.shape[1] // b * bb
+    return (ptab[:n_slot], plane[:n_slot], keys_t[:, :n_row].contiguous(),
+            idx0_t[:, :n_row].contiguous(), c, p, dtype)
+
+
+def probe_bytes(cap) -> int:
+    """Bytes a probe call must move at least: the keys and probe starts
+    read (32 B a row and level), the outputs written (plane_t 2L x 31
+    floats, flags 4L floats, slot, found and is_plane of L a row).  The
+    table reads are left out: neighbouring rows share their voxels."""
+    l2, r = cap[3].shape
+    return r * (4 * (3 * l2 + l2) + 4 * (31 * l2 + 2 * l2) + (l2 // 2) * (8 + 2))
+
+
+def probe_planes_record(torch):
+    """The probe kernel at the fused cells' shapes: a fleet of 64 at 2^16
+    slots a level (probe 8, caps 4,096), each step's call ``torch.equal`` to
+    probe_planes_plain; ptxas lines of the three storage instantiations (no
+    spills); ms of the second step's call at B = 1, 8 and 64 beside the
+    bound; two launches bit-equal."""
+    from legkilo_torch.ops import probe_planes as pr
+
+    for frag, tag in PROBE_FRAGMENTS:
+        px = ptxas_entry(frag)
+        log(f"[kernel] probe_planes ({tag} planes): a thread a (candidate, row), a warp's plane rows "
+            f"through a shared tile, {px['registers']} registers, {px['spills']} B of spills, "
+            f"{px['stack']} B stack frame, {px['smem']} B static shared memory")
+        if px["spills"]:
+            raise RuntimeError(f"probe_planes: ptxas spills {px['spills']} B in {frag}")
+    caps = probe_captures(torch, PROBE_B)
+    for tag, cap in caps:
+        same, n = probe_check(torch, cap)
+        log(f"[kernel] probe_planes: B = {PROBE_B} {tag}: {n['rows']} rows, {n['candidates']} "
+            f"candidates, {n['hits']} found ({n['own_hits']} own chain, {n['planes']} planes); "
+            f"bit-equal {same}")
+        if not same:
+            raise RuntimeError(f"probe_planes: the kernel and probe_planes_plain differ on the {tag} call")
+    cap = caps[-1][1]
+    once, again = pr.probe_planes_call(*cap), pr.probe_planes_call(*cap)
+    if not all(torch.equal(a, b) for a, b in zip(once, again)):
+        raise RuntimeError("probe_planes: two launches on the same inputs differ")
+    by_b = {}
+    for bb in FLEET_KERNEL_BS:
+        sub = probe_sub(torch, cap, PROBE_B, bb)
+        by_b[bb] = (time_call(torch, lambda: pr.probe_planes_call(*sub), 50),
+                    bound(probe_bytes(sub), 0.0)[0], probe_bytes(sub))
+    log("[kernel] probe_planes: ms / bound ms (bytes) " + ", ".join(
+        f"B = {bb}: {ms:.4f} / {bd:.6f} ({nb:,})" for bb, (ms, bd, nb) in by_b.items())
+        + "; two launches bit-equal")
+    return dict(max_abs_err=0.0, ms=by_b[PROBE_B][0],
+                plain_ms=time_call(torch, lambda: pr.probe_planes_plain(*cap), 5),
+                bytes=probe_bytes(cap), flops=0.0,
+                tol="bit-equal (plane_t, flags, slot, found, is_plane); repeat bit-equal")
+
+
 def wrappers():
     from legkilo_torch.ops import chain_points as cp, chain_stats as cs, claim_slots as cl
     from legkilo_torch.ops import insert_rows as ir, match_geom as mg, plane_fit_rows as pfr
-    from legkilo_torch.ops import pose_prop as pp
+    from legkilo_torch.ops import pose_prop as pp, probe_planes as pr
 
     return {"chain_stats": cs.chain_call, "keys": mg.keys_call, "select": mg.select_call,
             "moments": ir.moments_rows_call, "fit": pfr.fit_slots_call, "pose": pp.pose_call,
-            "chain_points": cp.chain_points_call, "claim": cl.claim_call}
+            "chain_points": cp.chain_points_call, "claim": cl.claim_call,
+            "probe_planes": pr.probe_planes_call}
 
 
 def only_the_claims(counts) -> bool:
@@ -1645,6 +1760,14 @@ def device_rows(prof):
         us, n = by.get(e.name(), (0.0, 0))
         by[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
     return sorted(((us, key, n) for key, (us, n) in by.items()), reverse=True)
+
+
+def log_launch_diff(tag, a, b, la, lb):
+    """Log each device operation whose launches differ between the
+    per-operation counts ``a`` (labelled ``la``) and ``b`` (``lb``)."""
+    for key in sorted(set(a) | set(b)):
+        if a.get(key, 0) != b.get(key, 0):
+            log(f"[{tag}] launches {la} -> {lb}: {a.get(key, 0):.2f} -> {b.get(key, 0):.2f}  {key[:100]}")
 
 
 def profile_window(torch, runner, steps, n_prof: int, host_ops=False):
@@ -2158,7 +2281,8 @@ def fleet_profile(torch, scfg, carry, params, chunks_dev):
                 launches_per_step=sum(r[2] for r in rows) / n), rows
 
 
-def fleet_broadcast_run(torch, data, b, n_scans, tag, check_ate=True, profile_chunks=2):
+def fleet_broadcast_run(torch, data, b, n_scans, tag, check_ate=True, profile_chunks=2,
+                        by_kernel=False):
     """``sweep --pallas``'s broadcast fleet on ``data``: the filter
     initialised once from the first packet and copied to ``b`` replicas,
     q_diag jittered by FLEET_NOISE, the packets broadcast, chunked by
@@ -2166,7 +2290,8 @@ def fleet_broadcast_run(torch, data, b, n_scans, tag, check_ate=True, profile_ch
     exactly once a fleet step (one match pass: bench.py's), every replica's
     ATE under the bound (``check_ate``), and prints replica-scans/s, device
     ms and launches a fleet step (a profiler window of ``profile_chunks``
-    calls), and peak memory a replica."""
+    calls), and peak memory a replica; ``by_kernel`` adds the window's
+    launches a fleet step of each device operation (``calls_per_step``)."""
     from legkilo_torch.core.filter_fleet import replica, tree_map
     from legkilo_torch.io.dataset import to_device_packet
     from legkilo_torch.io.tum import ate_rmse
@@ -2219,6 +2344,8 @@ def fleet_broadcast_run(torch, data, b, n_scans, tag, check_ate=True, profile_ch
     for dev_us, key, count in rows[:6]:
         log(f"[{tag}]   {dev_us / (profile_chunks * FLEET_CHUNK) / 1e3:8.4f} ms/step "
             f"{count / (profile_chunks * FLEET_CHUNK):6.1f} calls/step  {key[:80]}")
+    if by_kernel:
+        rec["calls_per_step"] = {key: count / (profile_chunks * FLEET_CHUNK) for _, key, count in rows}
     want = {k: t for k in FUSED_KERNELS}
     got = {k: counts[k] for k in FUSED_KERNELS}
     if got != want or counts["chain_points"]:
@@ -2241,12 +2368,15 @@ def phase_fleet(torch, data):
 def phase_fleet_scale(torch, data):
     """B = 1, 8, 64, 256 for FLEET_SCALE_SCANS scans each, as ``fleet``;
     fails when the device launches a fleet step at B = 64 are not within
-    10 % of those at B = 1."""
+    10 % of those at B = 1, and logs each device operation whose launches a
+    step differ between the two."""
     t_phase = time.perf_counter()
     recs = {b: fleet_broadcast_run(torch, data, b, FLEET_SCALE_SCANS, f"fleet_scale{b}",
-                                   check_ate=False, profile_chunks=1)
+                                   check_ate=False, profile_chunks=1, by_kernel=True)
             for b in FLEET_SCALE_BS}
     l1, l64 = recs[1]["launches_per_step"], recs[64]["launches_per_step"]
+    calls = {b: r.pop("calls_per_step") for b, r in recs.items()}
+    log_launch_diff("fleet_scale", calls[1], calls[64], "B = 1", "B = 64")
     log(f"[fleet_scale] device launches a fleet step: " + ", ".join(
         f"B = {b}: {r['launches_per_step']:.1f}" for b, r in recs.items())
         + f"; replica-scans/s: " + ", ".join(
@@ -2375,7 +2505,7 @@ def route_fleet(torch, cfg, data, b, use_kin):
 
 def profiled_step(torch, scfg, carry, packet, params):
     """One fleet step under torch.profiler (the card's activity): (carry,
-    out, device launches, device ms)."""
+    out, device launches, device ms, {operation: launches})."""
     from torch.profiler import ProfilerActivity, profile
 
     from legkilo_torch.parallel.sweep import make_fleet_step
@@ -2386,7 +2516,7 @@ def profiled_step(torch, scfg, carry, packet, params):
         carry, out, _ = step(carry, packet, params)
         torch.cuda.synchronize()
     rows = device_rows(prof)
-    return carry, out, sum(r[2] for r in rows), sum(r[0] for r in rows) / 1e3
+    return carry, out, sum(r[2] for r in rows), sum(r[0] for r in rows) / 1e3, {k: n for _, k, n in rows}
 
 
 def route_launches(torch, phase, data=None):
@@ -2502,14 +2632,14 @@ def run_route(torch, tag, cfg, data, use_kin, b, n_steps, n_compare, on_path):
     steps = steps[:n_steps]
     if len(steps) < max(n_steps, n_compare, 2):
         raise RuntimeError(f"{tag}: {len(steps)} packets")
-    launches, dev_ms = {}, {}
+    launches, dev_ms, by_op = {}, {}, {}
     for bb in ROUTE_LAUNCH_BS:
         sub = [tree_map(lambda x: x[:bb].contiguous(), t) for t in (carry0, steps[0], params)]
-        _, _, launches[bb], dev_ms[bb] = profiled_step(torch, scfg, *sub)
+        _, _, launches[bb], dev_ms[bb], by_op[bb] = profiled_step(torch, scfg, *sub)
     carry0, params = (tree_map(lambda x: x[:b].contiguous(), t) for t in (carry0, params))
     steps = [tree_map(lambda x: x[:b].contiguous(), s) for s in steps]
     reset_counters()
-    carry, out, _, device_ms = profiled_step(torch, scfg, carry0, steps[0], params)
+    carry, out, _, device_ms, _ = profiled_step(torch, scfg, carry0, steps[0], params)
     outs, carry_at = [out], tree_map(torch.clone, carry)  # kept: the next step consumes carry
     step = make_fleet_step(scfg, with_stats=False)
     torch.cuda.synchronize()
@@ -2546,6 +2676,7 @@ def run_route(torch, tag, cfg, data, use_kin, b, n_steps, n_compare, on_path):
         f"{time.perf_counter() - t_phase:.1f} s")
     l1, l8 = launches[1], launches[8]
     if not abs(l8 - l1) <= 0.1 * l1:
+        log_launch_diff(tag, by_op[1], by_op[8], "B = 1", "B = 8")
         raise RuntimeError(f"{tag}: {l8} launches a fleet step at B = 8 against {l1} at B = 1")
     if not np.isfinite(pos).all():
         raise RuntimeError(f"{tag}: non-finite poses")

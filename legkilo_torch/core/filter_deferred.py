@@ -10,9 +10,10 @@ kernel when its switch is on and on the configuration's own torch path
    or in plain torch (``_predicted_bucket_poses_imu``), or by
    constant-velocity extrapolation.
 2. Match, on the valid points compacted to the cap: with
-   ``use_pallas_match``, the keys kernel, the hash probe as torch glue
-   (one wide gather of ptab rows) and the select kernel, which also sums
-   the per-bucket 40x40 statistics s40
+   ``use_pallas_match``, the keys kernel, the probe-and-gather kernel
+   (ops/probe_planes.py: each candidate's probe window and its plane row)
+   and the select kernel, which also sums the per-bucket 40x40 statistics
+   s40
    (``_match_compact_stats_kernel``, the JAX
    ``_match_compact_stats_pallas``); otherwise ``voxel_map.match_points``
    and ``eskf_fused.point_suffstats_compact`` (``_match_compact_stats``).
@@ -63,7 +64,10 @@ chains' plain versions run a single replica as a fleet of one.
 The step's phases are spans (utils/timing.py, off unless recorded):
 ``lk.step`` a scan (the clocks' rebase and the covariance's
 re-symmetrisation its own), and inside it ``lk.pose`` (the match poses,
-once a scan, before the match), ``lk.match``, ``lk.chain``, ``lk.insert``
+once a scan, before the match), ``lk.match`` (the kernel route's probe
+and plane gather its own ``lk.match.probe``, which tallies
+``match.probe_rows``, the 2L x B x cap candidates a pass, from shapes),
+``lk.chain``, ``lk.insert``
 (the per-point path's world points and variances at the updated poses
 too; its children in core/voxel_map.py) and ``lk.slide``.  Under
 ``lk.chain`` a kinematic configuration tallies ``chain.kin_slots``, the B x
@@ -83,6 +87,7 @@ from ..ops import match_geom as mg
 from ..ops import pose_prop as pp
 from ..ops.chain_points import run_chain
 from ..ops.chain_stats import chain_plain, pack_state_and_events, run_chain_stats, unpack_chain_outputs
+from ..ops.probe_planes import probe_planes_call
 from ..utils.timing import span, tally
 from .filter import (
     FilterCarry,
@@ -363,27 +368,12 @@ def _match_compact_stats_kernel(carry: FilterCarry, packet: ScanPacket, params: 
     ], dim=-1)
     piw_t, covs_t, keys_t, vc_t, idx0_t = mg.keys_call(par1, pts_t, rb_t, pb_t, L, C)
 
-    # Probe (torch glue): one wide gather of the ptab rows of every probe
-    # offset; the first match wins, encoded as (offset << 1 | is_plane).
-    # The keys kernel's probe starts lie in the row's replica's tables.
-    offs = torch.arange(mcfg.probe, dtype=torch.int64, device=dev)
-    idx0 = idx0_t.to(torch.int64)
-    h0 = idx0 & (C - 1)
-    base = idx0 - h0
-    idx = base[:, :, None] + ((h0[:, :, None] + offs) & (C - 1))  # [2L, b*cap, probe]
-    k_at = carry.vm.ptab.reshape(miss, -1)[idx]                   # [2L, b*cap, probe, 5]
-    keys_cmp = keys_t.reshape(2 * L, 3, b * cap).permute(0, 2, 1)
-    match = (k_at[..., 3] > 0) & torch.all(k_at[..., 0:3] == keys_cmp[:, :, None, :], dim=-1)
-    big = 2 * mcfg.probe
-    score = torch.where(match, 2 * offs + (k_at[..., 4] > 0).to(torch.int64), big)
-    msel = torch.min(score, dim=-1).values
-    found = msel < big
-    slot = torch.where(found, base + ((h0 + (msel >> 1)) & (C - 1)), miss)
-    isp = ((msel & 1) == 1) & found
-
-    plane_at = _gather_fill(carry.vm.plane.reshape(miss, -1), slot, 0.0).to(dtype)  # [2L, b*cap, 31]
-    plane_t = plane_at.permute(0, 2, 1).reshape(2 * L * 31, b * cap).contiguous()
-    flags_t = torch.cat([found.to(dtype), isp.to(dtype)], dim=0)
+    # Probe and plane gather: one kernel on the card (ops/probe_planes.py).
+    with span("lk.match.probe"):
+        tally("match.probe_rows", 2 * L * b * cap)
+        plane_t, flags_t, slot, found, isp = probe_planes_call(
+            carry.vm.ptab.reshape(miss, -1), carry.vm.plane.reshape(miss, -1), keys_t, idx0_t, C,
+            mcfg.probe, dtype)
     par2 = torch.cat([
         torch.tensor([mcfg.sigma_num, mcfg.radius_k], dtype=dtype, device=dev).expand(lead + (2,)),
         params.noise.lidar_point_meas_ratio.reshape(lead + (1,)).to(dtype),
@@ -400,7 +390,7 @@ def _match_compact_stats_kernel(carry: FilterCarry, packet: ScanPacket, params: 
     aux = (
         order, bidx, p_i_c, covs_t[18:27].T.reshape(b * cap, 3, 3), mask_c.reshape(lead + (cap,)),
         keys_t[0 : 3 * L].reshape(L, 3, b * cap).permute(0, 2, 1),
-        slot[0:L], found[0:L], isp[0:L],
+        slot, found, isp,
     )
     return s40, nmatch_b, aux
 

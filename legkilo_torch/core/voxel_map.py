@@ -514,7 +514,8 @@ def insert_rows(vm: VoxelMap, cfg: MapConfig, rows: InsertRows, mom_rows, moms_r
         counts = torch.zeros((rows.keys.shape[0], META_DIM), dtype=dtype, device=dev)
         counts[:, _M_N] = 1.0
         counts[:, _M_NEW] = 1.0
-        index_add_rows((meta_x, mom_x, moms_x), tgt, (counts, mom_rows, moms_rows), drop=miss)
+        index_add_rows((meta_x, mom_x, moms_x), tgt, (counts, mom_rows, moms_rows), drop=miss,
+                       groups=batch)
         for t in (meta_x, mom_x, moms_x):
             t[miss] = 0
 

@@ -57,7 +57,7 @@ def test_kernels_match_plain_on_card(cuda_device):
     recs = chip_smoke.phase_kernels(torch, cuda_device)
     assert set(recs) == {"chain_stats", "chain_stats_kin", "chain_points", "chain_points_kin",
                          "keys", "select", "select_56", "moments", "fit", "pose", "pose_384", "pose_1280",
-                         "claim"}
+                         "claim", "probe_planes"}
 
 
 @pytest.mark.cuda
@@ -769,6 +769,39 @@ def test_ordered_sum_is_the_cpu_order_on_card(cuda_device, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "f16", "bf16"])
+def test_ordered_sum_by_replica_is_the_cpu_order_on_card(cuda_device, dtype):
+    """index_add_rows of a fleet's insert rows (64 replicas of 4,096 rows,
+    each aiming at its own 3,000 table rows and at the dropped row), summed
+    a replica at a time (``groups`` 64) on the card: index_add_'s bits on
+    the CPU, in the map's widths (meta 4, mom 9, moms 60); two calls
+    bit-equal."""
+    import numpy as np
+
+    from legkilo_torch.core import ordered_sum
+
+    dt = {"f32": torch.float32, "f16": torch.float16, "bf16": torch.bfloat16}[dtype]
+    rng = np.random.default_rng(6)
+    b, m, rows = 64, 4096, 3000
+    drop = b * rows
+    tgt = torch.from_numpy(rng.integers(0, rows // 3, size=(b, m)) + rows * np.arange(b)[:, None])
+    tgt = tgt.reshape(-1).to(torch.int64)
+    tgt[::9] = drop
+    for width in ((4,), (9,), (60,)):
+        dest = torch.from_numpy(rng.normal(scale=3.0, size=(drop + 1,) + width).astype(np.float32)).to(dt)
+        src = torch.from_numpy(rng.normal(size=(b * m,) + width).astype(np.float32))
+        ref = dest.clone().index_add_(0, tgt, src.to(dt))
+        outs = []
+        for _ in range(2):
+            got = dest.to(cuda_device)
+            ordered_sum.index_add_rows([got], tgt.to(cuda_device), [src.to(cuda_device)], drop=drop,
+                                       groups=b)
+            outs.append(got[:drop].cpu())
+        assert torch.equal(outs[0], outs[1]), width
+        assert torch.equal(outs[0], ref[:drop]), width
+
+
+@pytest.mark.cuda
 def test_two_runs_of_the_five_kernel_path_are_equal_on_card(cuda_device):
     """The fused path with all five kernels, twice over the same 3 s of the
     bench sim: bit-equal trajectories and final map tables."""
@@ -1120,3 +1153,183 @@ def test_fleet_map_equal_on_kernel_and_plain_claims_on_card(cuda_device, monkeyp
         assert torch.equal(getattr(on_kernel, f), getattr(on_plain, f)), f
     assert int((on_kernel.ptab[..., 3] > 0).sum()) > 0
     assert 0 < syncs_kernel <= syncs_plain, (syncs_kernel, syncs_plain)  # the step's list copies
+
+
+# ------------------------------------------------------------- the probe --
+
+PROBE_CASES = ["b1_l1_p8", "b3_l3_p8", "b3_l3_p1", "b1_l3_p8_f16", "b3_l1_p8_bf16", "edges_p8", "edges_p1",
+               "edges_p8_bf16"]
+
+
+def _probe_case_on_card(name, dev):
+    """tests/test_torch_probe_planes.py's case on the card, compute dtype f32."""
+    import numpy as np
+    from test_torch_probe_planes import CASES
+
+    assert sorted(CASES) == sorted(PROBE_CASES)
+    ptab, plane, keys_t, idx0_t, c, p = CASES[name](np.random.default_rng(7))
+    return ptab.to(dev), plane.to(dev), keys_t.to(dev), idx0_t.to(dev), c, p, torch.float32
+
+
+def _probe_equals_plain(args):
+    """The kernel on ``args`` ``torch.equal`` to probe_planes_plain (every
+    output, with its dtype and shape), one launch counted; a second launch
+    bit-equal to the first.  Returns the plain version's outputs."""
+    from legkilo_torch.ops import probe_planes as pr
+
+    n0 = pr.probe_planes_call.launches
+    got = pr.probe_planes_call(*args)
+    assert pr.probe_planes_call.launches == n0 + 1
+    want = pr.probe_planes_plain(*args)
+    for name, a, b in zip(("plane_t", "flags_t", "slot", "found", "isp"), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b), name
+    again = pr.probe_planes_call(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    return want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", PROBE_CASES)
+def test_probe_planes_kernel_matches_plain_on_card(cuda_device, name):
+    """The CPU file's cases (fleets of 1 and 3, levels 1 and 3, windows of
+    1 and 8, f32/f16/bf16 planes, the edge rows: a wrapping window, a key
+    at offset probe - 1, past an empty slot, twice in a window, words on an
+    empty slot, beyond the window) on the card: bit for bit."""
+    import chip_smoke
+
+    chip_smoke.phase_build()
+    _probe_equals_plain(_probe_case_on_card(name, cuda_device))
+
+
+def _probe_cell_config(cell):
+    """A fused cell's match: ``go1_imu`` chip_smoke.probe_config (2^16
+    slots a level); ``go1_kin`` configs/leg_fusion.yaml on the fused path as
+    the cell runs it (NB 64, P 128, K 4, 2^17 slots a level), the five
+    switches on, caps of 4,096 and 4,096 gated insert rows."""
+    import chip_smoke
+
+    if cell == "go1_imu":
+        return chip_smoke.probe_config()
+    cfg = chip_smoke.sim_cli_config("configs/leg_fusion.yaml")
+    cfg.voxel_map.insert_row_cap = chip_smoke.PROBE_CAP
+    for k in ("use_pallas", "use_pallas_match", "use_pallas_insert", "use_pallas_pose", "use_pallas_refit"):
+        setattr(cfg.tpu, k, True)
+    return cfg
+
+
+def _probe_tile(cap, b, bb):
+    """A captured probe call of ``b`` replicas tiled to ``bb`` (a multiple
+    of b): the tables repeated, and each copy's rows probing its own copy."""
+    ptab, plane, keys_t, idx0_t, c, p, dtype = cap
+    k = bb // b
+    shift = torch.arange(k, dtype=torch.int32, device=idx0_t.device).repeat_interleave(idx0_t.shape[1])
+    return (ptab.repeat(k, 1), plane.repeat(k, 1), keys_t.repeat(1, k),
+            idx0_t.repeat(1, k) + shift * ptab.shape[0], c, p, dtype)
+
+
+@pytest.fixture(scope="module", params=["go1_imu", "go1_kin"])
+def probe_cell_calls(request):
+    """The probe calls of a fleet of 4 replicas of the bench sim at a
+    fused cell's map and caps (``_probe_cell_config``), one a step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    import chip_smoke
+    from legkilo_torch.core import filter_deferred
+
+    chip_smoke.phase_build()
+    kin = request.param == "go1_kin"
+    data = chip_smoke.simulate(chip_smoke.CLAIM_DURATION_S, "probe")
+    return request.param, chip_smoke.fleet_captures(
+        torch, _probe_cell_config(request.param), data, 4, (filter_deferred, "probe_planes_call"),
+        use_kin=kin)
+
+
+@pytest.mark.cuda
+def test_probe_planes_kernel_at_the_fused_cells_shapes_on_card(probe_cell_calls):
+    """Each step's call tiled to the cell's fleet (go1_imu 256 replicas,
+    1,048,576 rows, 3 x 2^16 slots each; go1_kin 128, 524,288 rows, 3 x 2^17
+    slots each), every copy probing its own tables: bit for bit, two
+    launches bit-equal, hits and misses among the candidates."""
+    cell, calls = probe_cell_calls
+    b_cell, slots = (256, 2 ** 16) if cell == "go1_imu" else (128, 2 ** 17)
+    assert [tag for tag, _ in calls] == ["step1", "step2"]
+    for tag, cap in calls:
+        big = _probe_tile(cap, 4, b_cell)
+        assert big[3].shape == (6, b_cell * 4096) and big[0].shape[0] == b_cell * 3 * slots, tag
+        want = _probe_equals_plain(big)
+        hits = int(want[1][:6].sum())
+        assert 0 < hits < big[3].numel(), (cell, tag, hits)
+        del big, want
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_probe_planes_call_refuses_bad_input_on_card(cuda_device):
+    """Each refusal comes before any launch and leaves the counter as it
+    was: a wrong dtype or device, a table not [S, 5] / [S, 31] or not
+    contiguous, slots that are not whole subtables, a capacity that is not
+    a power of two, a probe outside [1, C], keys or starts of the wrong
+    shape or not contiguous, a compute dtype other than f32, key words
+    past int32."""
+    from legkilo_torch.ops import probe_planes as pr
+
+    ptab, plane, keys_t, idx0_t, c, p, dt = _probe_case_on_card("b3_l3_p8", cuda_device)
+    n0 = pr.probe_planes_call.launches
+    big_r = 2 ** 27
+    bad = [
+        ((ptab.long(), plane, keys_t, idx0_t, c, p, dt), "dtype"),
+        ((ptab, plane.double(), keys_t, idx0_t, c, p, dt), "dtype"),
+        ((ptab, plane, keys_t.long(), idx0_t, c, p, dt), "dtype"),
+        ((ptab, plane, keys_t, idx0_t.long(), c, p, dt), "dtype"),
+        ((ptab, plane.cpu(), keys_t, idx0_t, c, p, dt), "cuda"),
+        ((ptab, plane, keys_t.cpu(), idx0_t, c, p, dt), "cuda"),
+        ((ptab.T.contiguous().T, plane, keys_t, idx0_t, c, p, dt), "contiguous"),
+        ((ptab, plane, keys_t.T.contiguous().T, idx0_t, c, p, dt), "contiguous"),
+        ((ptab[:, :4].contiguous(), plane, keys_t, idx0_t, c, p, dt), "expected"),
+        ((ptab, plane[:, :30].contiguous(), keys_t, idx0_t, c, p, dt), "expected"),
+        ((ptab[:-1].contiguous(), plane[:-1].contiguous(), keys_t, idx0_t, c, p, dt), "whole"),
+        ((ptab, plane, keys_t, idx0_t, 48, p, dt), "power of two"),
+        ((ptab, plane, keys_t, idx0_t, c, 0, dt), "probe"),
+        ((ptab, plane, keys_t, idx0_t, c, c + 1, dt), "probe"),
+        ((ptab, plane, keys_t[:-1], idx0_t, c, p, dt), "keys_t"),
+        ((ptab, plane, keys_t, idx0_t[:-1], c, p, dt), "idx0_t"),
+        ((ptab, plane, keys_t, idx0_t, c, p, torch.float64), "float32"),
+        ((ptab, plane, keys_t[:, :1].expand(18, big_r), idx0_t[:, :1].expand(6, big_r), c, p, dt),
+         "2\\^31"),
+    ]
+    for args, match in bad:
+        with pytest.raises(ValueError, match=match):
+            pr.probe_planes_call(*args)
+        assert pr.probe_planes_call.launches == n0, match
+    pr.probe_planes_call(ptab, plane, keys_t, idx0_t, c, p, dt)
+    torch.cuda.synchronize()
+    assert pr.probe_planes_call.launches == n0 + 1
+
+
+@pytest.mark.cuda
+def test_probe_planes_call_is_one_kernel_and_waits_for_nothing_on_card(cuda_device):
+    """A call a plane storage (f32, f16, bf16) under one profiler window:
+    each queues exactly one device operation, probe_planes_kernel of its
+    storage, and no synchronising runtime call lies between the first
+    launch and the last."""
+    import chip_smoke
+
+    from legkilo_torch.ops import probe_planes as pr
+
+    chip_smoke.phase_build()
+    cases = [_probe_case_on_card(n, cuda_device) for n in ("b3_l3_p8", "b1_l3_p8_f16", "b3_l1_p8_bf16")]
+    for args in cases:  # the library loaded
+        pr.probe_planes_call(*args)
+    for _ in range(3):  # a window that lost device events is taken again (_profiled_kernels)
+        n0 = pr.probe_planes_call.launches
+        ops, calls = _traced_calls(lambda: [pr.probe_planes_call(*a) for a in cases])
+        if len(ops) >= 3:
+            break
+    assert pr.probe_planes_call.launches == n0 + 3
+    names = [o[0] for o in ops]
+    assert len(ops) == 3 and all("probe_planes_kernel" in n for n in names), names
+    assert ["<float>" in names[0], "__half" in names[1], "__nv_bfloat16" in names[2]] == [True] * 3, names
+    mine = {o[3] for o in ops}
+    launch_times = [x[1] for x in calls if x[3] in mine]
+    assert len(launch_times) == 3
+    assert not [x for x in _synchronising(calls) if min(launch_times) <= x[1] <= max(launch_times)]

@@ -61,3 +61,21 @@ def test_index_add_rows_on_cpu_is_index_add(rng):
         got = dest.clone()
         ordered_sum.index_add_rows([got], tgt, [src[: tgt.shape[0]]], drop=29)
         assert torch.equal(got[:29], dest.clone().index_add_(0, tgt, src[: tgt.shape[0]])[:29])
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("groups,m", [(1, 700), (3, 700), (8, 256)])
+def test_blocks_summed_on_their_own_are_index_add(rng, dtype, groups, m):
+    """A fleet's rows, replica after replica, each replica aiming at its own
+    rows of the tables and at the dropped row: summed block by block
+    (``groups``) they give index_add_'s bits, as one sort of all rows does."""
+    rows = 16
+    dest, src, _ = tables(rng, groups * rows + 1, groups * m, (9,), DTYPES[dtype])
+    tgt = torch.from_numpy(rng.integers(0, rows, size=(groups, m)) + rows * np.arange(groups)[:, None])
+    tgt = tgt.reshape(-1).to(torch.int64)
+    tgt[::7] = groups * rows
+    ref = dest.clone().index_add_(0, tgt, src.to(dest.dtype))
+    for g in (groups, 1):
+        got = dest.clone()
+        ordered_sum.index_add_rows([got], tgt, [src], drop=groups * rows, groups=g)
+        assert torch.equal(got[:-1], ref[:-1]), g

@@ -12,6 +12,7 @@ replicas); the case marked ``cuda`` traces one fleet step on the card.
 import pytest
 import torch
 
+from legkilo_torch.core import filter_deferred as t_fd
 from legkilo_torch.parallel import sweep as t_sw
 from legkilo_torch.utils import timing
 from test_torch_fleet import assert_trees_equal, distinct_start, small_cfg
@@ -31,7 +32,9 @@ PARENT = {"lk.step": "lk.fleet", "lk.pose": "lk.step", "lk.match": "lk.step",
           "lk.chain": "lk.step", "lk.insert": "lk.step", "lk.slide": "lk.step",
           "lk.insert.rows": "lk.insert", "lk.insert.tables": "lk.insert",
           "lk.insert.claim": "lk.insert", "lk.insert.accumulate": "lk.insert",
-          "lk.insert.refit": "lk.insert", "lk.fleet.stats": "lk.fleet"}
+          "lk.insert.refit": "lk.insert", "lk.fleet.stats": "lk.fleet",
+          "lk.match.probe": "lk.match"}
+FUSED_PER_SCAN = dict(PER_SCAN, **{"lk.match.probe": 1})
 
 
 def fleet(path):
@@ -125,15 +128,16 @@ def test_fleet_step_spans_nest_once_a_scan(small, chunk):
     ``lk.fleet.stats``; ``step_id`` is the scan's index, and a call's own
     spans take its last scan's."""
     path, scfg, carry, params, steps = small
+    per_scan = FUSED_PER_SCAN if path == "fused" else PER_SCAN
     steps = steps[:2]
     with timing.record_spans() as spans:
         run(scfg, carry, params, steps, chunk)
     names = [s[0] for s in spans]
-    assert set(names) == set(PER_SCAN) | {"lk.fleet", "lk.fleet.stats"}
+    assert set(names) == set(per_scan) | {"lk.fleet", "lk.fleet.stats"}
     assert names.count("lk.fleet") == names.count("lk.fleet.stats") == len(steps) // chunk
     for scan in range(len(steps)):
         mine = [s[0] for s in spans if s[4] == scan and s[0] not in ("lk.fleet", "lk.fleet.stats")]
-        assert {n: mine.count(n) for n in PER_SCAN} == PER_SCAN, (path, scan)
+        assert {n: mine.count(n) for n in per_scan} == per_scan, (path, scan)
     for name, t0, t1, parent, step in spans:
         assert t0 <= t1
         if name == "lk.fleet":
@@ -161,6 +165,21 @@ def test_counters_count_the_table_copies_and_claim_rows(small):
     assert spans.counters["map.table_bytes"] == (slots + 1) * one_row
     rows = B * (mcfg.insert_row_cap if path == "fused" else mcfg.levels * scfg.insert_cap)
     assert spans.counters["map.claim_rows"] == rows * mcfg.insert_rounds
+
+
+def test_match_probe_rows_count_the_fused_probes(small):
+    """``match.probe_rows``: 2L candidates of every compacted match row a
+    pass of the fused match (B x cap rows), from shapes alone; the
+    per-point path has no such probe and no such counter."""
+    path, scfg, carry, params, steps = small
+    with timing.record_spans() as spans:
+        run(scfg, carry, params, steps[:2], 1)
+    if path == "fused":
+        cap = t_fd._row_cap(scfg, *steps[0].points.shape[-3:-1])
+        passes = 2 * max(1, scfg.match_iters)
+        assert spans.counters["match.probe_rows"] == passes * 2 * scfg.map_cfg.levels * B * cap
+    else:
+        assert "match.probe_rows" not in spans.counters
 
 
 def test_spans_share_the_profilers_clock():
